@@ -1,0 +1,20 @@
+"""Nonlinearities used by the reference configs (Lasagne names kept)."""
+
+import torch.nn.functional as F
+
+
+def lrelu(alpha=0.2):
+    """LeakyRectify(alpha) -- reference encoder/decoder nonlinearity."""
+
+    def f(x):
+        return F.leaky_relu(x, alpha)
+
+    return f
+
+
+def relu(x):
+    return F.relu(x)
+
+
+def elu(x):
+    return F.elu(x)
