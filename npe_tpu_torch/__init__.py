@@ -18,7 +18,7 @@ caller passes `device="cpu"`; without a CUDA device they raise.
 Layout:
     npe_tpu_torch.ops      -- layers, filters, and the hand-written CUDA kernels
                               (`ops/kernels/`, sources under `csrc/`)
-    npe_tpu_torch.models   -- IAN_simple
+    npe_tpu_torch.models   -- IAN_simple, IANv1 (MADE/IAF latents, RGB-Beta head)
     npe_tpu_torch.api      -- plat-style inference API
     npe_tpu_torch.editor   -- headless edit engine
     npe_tpu_torch.utils    -- checkpoints, ranges, device selection, GPU timing

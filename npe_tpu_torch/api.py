@@ -40,8 +40,18 @@ class IAN:
     (reference `API.py:11-110`)."""
 
     def __init__(
-        self, config_path="IAN_simple", variables=None, weights_path=None, seed=42, device="cuda"
+        self,
+        config_path="IAN_simple",
+        variables=None,
+        weights_path=None,
+        seed=42,
+        device="cuda",
+        head_mode=None,
     ):
+        """head_mode: for a model with the RGB-Beta head, the form every
+        decode takes (`models.common.HEAD_MODES`); None leaves the model's
+        default."""
+        self.decode_options = {} if head_mode is None else {"head_mode": head_mode}
         self.device = resolve_device(device)
         self.module = get_config(config_path)
         self.cfg = self.module.cfg
@@ -56,7 +66,7 @@ class IAN:
 
     def _patch_loss_grad(self, z, c1, r1, c2, r2, rgb=None):
         z = self._tensor(z).requires_grad_(True)
-        xh = self.module.decode(self.variables, z)  # (n, C, H, W)
+        xh = self.module.decode(self.variables, z, **self.decode_options)  # (n, C, H, W)
         m = patch_mask(xh.shape[2], xh.shape[3], c1, r1, c2, r2, xh.dtype, self.device)
         if rgb is None:
             # mean of X_hat[0, :, r1:r2, c1:c2] (reference `API.py:59`)
@@ -78,7 +88,7 @@ class IAN:
     @torch.no_grad()
     def sample_at(self, z):
         """z: (n, zdim) -> images (n, 3, s, s) in [-1, 1]."""
-        return self.module.decode(self.variables, self._tensor(z)).cpu().numpy()
+        return self.module.decode(self.variables, self._tensor(z), **self.decode_options).cpu().numpy()
 
     def imgrad(self, c1, r1, c2, r2, z):
         """dZ that lightens the local patch (reference `API.py:66-70`)."""

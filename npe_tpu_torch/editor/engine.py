@@ -61,12 +61,16 @@ class EditSession:
         dim=(10, 10),
         seed=42,
         device="cuda",
+        head_mode=None,
     ):
         """variables: port variables on `device` (see
         `utils.checkpoints.from_reference`); drawn from torch.Generator(seed)
-        when None."""
+        when None. head_mode: for a model with the RGB-Beta head, the form
+        every decode of this session takes (`models.common.HEAD_MODES`); None
+        leaves the model's default."""
         self.device = resolve_device(device)
         self.module = get_config(config)
+        self.decode_options = {} if head_mode is None else {"head_mode": head_mode}
         if variables is None:
             variables = self.module.init(torch.Generator().manual_seed(seed), self.device)
         if weights_path is not None:
@@ -98,7 +102,7 @@ class EditSession:
         """A new session with fresh editor state that SHARES this session's
         weights; only the per-image state is new."""
         s = object.__new__(EditSession)
-        for attr in ("device", "module", "variables", "dim"):
+        for attr in ("device", "module", "variables", "dim", "decode_options"):
             setattr(s, attr, getattr(self, attr))
         s._init_state()
         return s
@@ -106,7 +110,8 @@ class EditSession:
     # --- the model pieces of one event -------------------------------------
 
     def _decode_hwc(self, z_flat):
-        return self.module.decode(self.variables, z_flat[None])[0].permute(1, 2, 0).contiguous()
+        xh = self.module.decode(self.variables, z_flat[None], **self.decode_options)
+        return xh[0].permute(1, 2, 0).contiguous()
 
     def _patch_grad(self, z, c1, r1, c2, r2, sigma, rgb_hwc=None):
         """d(patch loss)/dz through the decoder: the mean squared distance to

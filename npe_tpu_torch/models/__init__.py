@@ -1,10 +1,11 @@
-from npe_tpu_torch.models import ian_simple
+from npe_tpu_torch.models import ian_simple, ian_v1
 
 REGISTRY = {
     "IAN_simple": ian_simple,
+    "IANv1": ian_v1,
 }
-# npe_tpu's other configs; the port has not reached them yet.
-NOT_YET_PORTED = ("IAN", "IANv1")
+# npe_tpu's other config; the port has not reached it yet.
+NOT_YET_PORTED = ("IAN",)
 
 
 def get_config(name):

@@ -1,4 +1,5 @@
-"""Shared model-building blocks for the IAN family (npe_tpu `models/common.py`).
+"""Shared model-building blocks for the IAN family (npe_tpu `models/common.py`):
+the encoder tower, the MDCL helpers and the autoregressive RGB-Beta head.
 
 The encoder tower: four stride-2 5x5 convs 128/256/512/1024 with
 LeakyReLU(0.2), batch norm from conv2 on, a 1000-unit FC, and 100-dim
@@ -11,11 +12,19 @@ Activations are NCHW.
 
 import torch
 
-from npe_tpu_torch.ops.activations import elu, lrelu
-from npe_tpu_torch.ops.conv import enc_conv2d
+from npe_tpu_torch.ops.activations import elu, lrelu, sigmoid
+from npe_tpu_torch.ops.beta import beta_mean
+from npe_tpu_torch.ops.conv import (
+    conv2d, depth_to_space, enc_conv2d, pack_kernel_s2d, space_to_depth,
+)
 from npe_tpu_torch.ops.initializers import normal
+from npe_tpu_torch.ops.kernels.rgb_beta_head import rgb_beta_head as rgb_beta_head_kernel
+from npe_tpu_torch.ops.kernels.rgb_beta_tail import pack_head_taps, rgb_beta_tail
 from npe_tpu_torch.ops.linear import dense
+from npe_tpu_torch.ops.mdcl import compose_mdcl_kernel, mdcl_apply
 from npe_tpu_torch.ops.norm import batch_norm_apply
+
+NON_TRAINABLE_SUFFIXES = (".mean", ".inv_std", ".weights_mask")
 
 
 class VarBuilder:
@@ -55,12 +64,25 @@ class VarBuilder:
         self.v[f"{name}.mean"] = self._zeros(c)
         self.v[f"{name}.inv_std"] = self._full((c,), 1.0)
 
+    def mdcl(self, name, cin, cout, scales, std=0.02):
+        # Reference `layers.py:207-258`: shared 3x3 W + per-branch coeffs
+        # initialized to 1/(1+len(scales)).
+        c0 = 1.0 / (1 + len(scales))
+        self.v[f"{name}W"] = normal(std)(self.gen, (cout, cin, 3, 3), self.device)
+        self.v[f"{name}_coeff_base"] = self._full((cout,), c0)
+        for s in scales:
+            self.v[f"{name}_coeff_{_coeff_suffix(s)}"] = self._full((cout,), c0)
+
     def minibatch(self, name, nin, num_kernels=500, dim_per_kernel=5):
         self.v[f"{name}.theta"] = normal(0.05)(
             self.gen, (nin, num_kernels, dim_per_kernel), self.device
         )
         self.v[f"{name}.log_weight_scale"] = self._zeros(num_kernels, dim_per_kernel)
         self.v[f"{name}.b"] = self._full((num_kernels,), -1.0)
+
+
+def _coeff_suffix(scale):
+    return "1x1" if scale == 0 else str(scale)
 
 
 def bn(v, upd, name, x, train):
@@ -71,6 +93,105 @@ def bn(v, upd, name, x, train):
         upd[f"{name}.mean"] = m
         upd[f"{name}.inv_std"] = s
     return y
+
+
+def _composed_mdcl_kernel(v, name, scales):
+    coeffs = {s: v[f"{name}_coeff_{_coeff_suffix(s)}"] for s in scales}
+    return compose_mdcl_kernel(v[f"{name}W"], v[f"{name}_coeff_base"], coeffs, scales)
+
+
+def mdcl(v, name, x, scales):
+    coeffs = {s: v[f"{name}_coeff_{_coeff_suffix(s)}"] for s in scales}
+    return mdcl_apply(x, v[f"{name}W"], v[f"{name}_coeff_base"], coeffs, scales)
+
+
+def head_kernels(v, scales):
+    """The RGB-Beta head's three dense composed kernels: the trunk (R, G_a
+    and B_a read the same input, so their kernels stack along the output
+    channels into one conv with 6 outputs: R alpha, R beta, G alpha, ...),
+    G_b (2 -> 2) and B_b (4 -> 2)."""
+    k_trunk = torch.cat([_composed_mdcl_kernel(v, n, scales) for n in ("R", "G_a", "B_a")], dim=0)
+    return k_trunk, _composed_mdcl_kernel(v, "G_b", scales), _composed_mdcl_kernel(v, "B_b", scales)
+
+
+def packed_head_weights(v, scales, block, as_taps):
+    """What the two kernel forms of the head make of the weights on every
+    call: (trunk, G_b taps, B_b taps) in space-to-depth(block) form, the
+    trunk as tap matrices for the fused kernel (`as_taps`) or as a packed
+    conv kernel for the hybrid form's library conv. In eager PyTorch this
+    runs on every decode (about 30 small launches; npe_tpu's jit folds it
+    into the program). It is built from torch ops so that gradients reach
+    the weights, and nothing is cached on a weight's identity, which
+    training will update in place."""
+    k_trunk, k_g, k_b = head_kernels(v, scales)
+    trunk = pack_head_taps(k_trunk, block) if as_taps else pack_kernel_s2d(k_trunk, block)
+    return trunk, pack_head_taps(k_g, block), pack_head_taps(k_b, block)
+
+
+def mdcl_multi(v, names, x, scales):
+    """Several MDCL blocks over the SAME input fused into ONE conv: their
+    composed multiscale kernels concatenate along the output-channel axis
+    (reference `IAN.py:183-206`). Returns one output per name."""
+    kernels = [_composed_mdcl_kernel(v, name, scales) for name in names]
+    big = torch.cat(kernels, dim=0)
+    out = conv2d(x, big, padding=big.shape[-1] // 2)
+    return torch.split(out, [k.shape[0] for k in kernels], dim=1)
+
+
+# The forms of the RGB-Beta head, all the same math
+# (tests/test_torch_rgb_beta.py):
+#   "plain"   the direct form: dense 9x9 convs at 64x64 with 6 / 2 / 2 outputs;
+#   "hybrid"  the trunk as a packed space-to-depth(4) conv (a library conv, as
+#             in npe_tpu, where XLA computes it), then the hand-written
+#             `rgb_beta_tail` kernel;
+#   "fused"   the whole head in the hand-written `rgb_beta_head` kernel
+#             (npe_tpu calls this mode "pallas").
+# npe_tpu's fourth form, "packed" (every conv a library conv over the packed
+# maps), is the fused kernel's plain version here:
+# `ops.kernels.rgb_beta_head.rgb_beta_head_reference_packed`.
+# HEAD_MODE is the form taken when the caller names none: a constant, the same
+# on every device. (npe_tpu reads its default from NPE_HEAD_MODE, a TPU tuning
+# switch; the port reads no environment.) A caller picks another form through
+# `mode`, which the models' `decode(..., head_mode=)` and the sessions'
+# `head_mode` argument pass down. On CPU tensors the kernels' wrappers run
+# their plain versions.
+HEAD_MODE = "hybrid"
+HEAD_MODES = ("plain", "hybrid", "fused")
+
+
+def rgb_beta_head(v, h, scales=(2, 3, 4), mode=None, block=4):
+    """Autoregressive RGB-Beta output (reference `IAN.py:183-207`): R from
+    trunk features; G from trunk + MDCL(R); B from trunk + MDCL([R, G]); each
+    a sigmoid (alpha, beta) pair -> per-channel Beta mean. h: (N, C, H, W);
+    returns (N, 3, H, W) in [-1, 1].
+
+    The hybrid and fused forms keep the whole head in space-to-depth(block)
+    form, component-major (`ops.conv.space_to_depth`): sigmoid and the Beta
+    mean are per-element, so they commute with the packing. They need H and W
+    divisible by `block` and whatever the kernels need (`pack_head_taps`: a
+    3x3 cell footprint; the wrappers: block 4 and their shapes), and raise
+    ValueError otherwise: only "plain" takes every shape, and only a caller
+    who names it gets it."""
+    scales = list(scales)
+    mode = mode or HEAD_MODE
+    if mode not in HEAD_MODES:
+        raise ValueError(f"unknown RGB-Beta head mode {mode!r}; the modes are {HEAD_MODES}")
+    if mode == "plain":
+        r_pre, ga_pre, ba_pre = mdcl_multi(v, ["R", "G_a", "B_a"], h, scales)
+        r = sigmoid(r_pre)
+        g = sigmoid(ga_pre + mdcl(v, "G_b", r, scales))
+        b = sigmoid(ba_pre + mdcl(v, "B_b", torch.cat([r, g], 1), scales))
+        return torch.cat([beta_mean(c[:, 0:1], c[:, 1:2]) for c in (r, g, b)], dim=1)
+    if h.shape[2] % block or h.shape[3] % block:
+        raise ValueError(
+            f"the {mode!r} RGB-Beta head wants H and W divisible by {block}, got {tuple(h.shape)}; "
+            'only mode="plain" takes such a map'
+        )
+    if mode == "fused":
+        return rgb_beta_head_kernel(h, *packed_head_weights(v, scales, block, as_taps=True))
+    k_trunk, tg_taps, tb_taps = packed_head_weights(v, scales, block, as_taps=False)
+    trunk = conv2d(space_to_depth(h, block), k_trunk, padding=1)  # (N, 6*rr, H/r, W/r)
+    return depth_to_space(rgb_beta_tail(trunk, tg_taps, tb_taps), block)
 
 
 def init_encoder(vb, num_latents, in_channels=3, widths=(128, 256, 512, 1024), fc=1000):

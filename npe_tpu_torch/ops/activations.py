@@ -1,5 +1,6 @@
 """Nonlinearities used by the reference configs (Lasagne names kept)."""
 
+import torch
 import torch.nn.functional as F
 
 
@@ -18,3 +19,7 @@ def relu(x):
 
 def elu(x):
     return F.elu(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)

@@ -6,6 +6,8 @@ code that needs npe_tpu's exact weights carries them across with
 `utils.checkpoints.from_reference`.
 """
 
+import math
+
 import torch
 
 
@@ -23,5 +25,23 @@ def normal(std=0.01, mean=0.0):
 def constant(val=0.0):
     def init(gen, shape, device, dtype=torch.float32):
         return torch.full(shape, val, dtype=dtype, device=device)
+
+    return init
+
+
+def orthogonal(gain=1.0):
+    """Lasagne Orthogonal(gain); gain='relu' means sqrt(2). A Gaussian matrix
+    from the generator, then the orthonormal factor of its SVD."""
+    if gain == "relu":
+        gain = math.sqrt(2.0)
+
+    def init(gen, shape, device, dtype=torch.float32):
+        if len(shape) < 2:
+            raise ValueError("orthogonal init needs >=2 dims")
+        flat = (shape[0], math.prod(shape[1:]))
+        a = torch.randn(flat, generator=gen, dtype=torch.float32, device=gen.device)
+        u, _, vt = torch.linalg.svd(a, full_matrices=False)
+        q = u if tuple(u.shape) == flat else vt
+        return (gain * q.reshape(shape)).to(device=device, dtype=dtype)
 
     return init

@@ -10,17 +10,21 @@ import jax.numpy as jnp
 import torch_parity as tp
 from npe_tpu import api as japi
 from npe_tpu.ops import activations as jact
+from npe_tpu.ops import beta as jbeta
 from npe_tpu.ops import conv as jconv
 from npe_tpu.ops import filters as jfilters
 from npe_tpu.ops import linear as jlinear
+from npe_tpu.ops import mdcl as jmdcl
 from npe_tpu.ops import norm as jnorm
 from npe_tpu.utils import ranges as jranges
 from npe_tpu_torch import api as tapi
 from npe_tpu_torch.ops import activations as tact
+from npe_tpu_torch.ops import beta as tbeta
 from npe_tpu_torch.ops import conv as tconv
 from npe_tpu_torch.ops import filters as tfilters
 from npe_tpu_torch.ops import initializers as tinit
 from npe_tpu_torch.ops import linear as tlinear
+from npe_tpu_torch.ops import mdcl as tmdcl
 from npe_tpu_torch.ops import norm as tnorm
 from npe_tpu_torch.utils import ranges as tranges
 from npe_tpu_torch.utils.checkpoints import from_reference
@@ -121,6 +125,7 @@ def test_activations_and_ranges_match_jax():
     tp.assert_close(tact.lrelu(0.2)(t).numpy(), np.asarray(jact.lrelu(0.2)(jnp.asarray(x))))
     tp.assert_close(tact.relu(t).numpy(), np.asarray(jact.relu(jnp.asarray(x))))
     tp.assert_close(tact.elu(t).numpy(), np.asarray(jact.elu(jnp.asarray(x))))
+    tp.assert_close(tact.sigmoid(t).numpy(), np.asarray(jact.sigmoid(jnp.asarray(x))))
     u8 = rng.randint(0, 256, 50).astype(np.float32)
     np.testing.assert_allclose(tranges.to_tanh(torch.from_numpy(u8)).numpy(), jranges.to_tanh(u8), atol=1e-6)
     np.testing.assert_allclose(tranges.from_tanh(tranges.to_tanh(u8)), u8, atol=1e-4)
@@ -139,3 +144,103 @@ def test_initializers_distributions():
     assert torch.equal(w, again)  # seeded: reproducible
     c = tinit.constant(-1.0)(gen, (3, 4), "cpu")
     assert torch.equal(c, torch.full((3, 4), -1.0))
+
+
+def test_orthogonal_is_orthogonal():
+    gen = torch.Generator().manual_seed(1)
+    tall = tinit.orthogonal()(gen, (40, 24), "cpu")
+    tp.assert_close((tall.T @ tall).numpy(), np.eye(24), atol=1e-5)
+    wide = tinit.orthogonal("relu")(gen, (24, 40), "cpu")  # gain sqrt(2)
+    tp.assert_close((wide @ wide.T).numpy(), 2.0 * np.eye(24), atol=1e-5)
+    conv = tinit.orthogonal()(gen, (8, 4, 3, 3), "cpu")  # flattened past dim 0
+    assert conv.shape == (8, 4, 3, 3) and conv.dtype == torch.float32
+    tp.assert_close((conv.reshape(8, -1) @ conv.reshape(8, -1).T).numpy(), np.eye(8), atol=1e-5)
+    again = tinit.orthogonal()(torch.Generator().manual_seed(1), (40, 24), "cpu")
+    assert torch.equal(tall, again)
+    with pytest.raises(ValueError, match=">=2 dims"):
+        tinit.orthogonal()(gen, (5,), "cpu")
+
+
+def test_beta_mean_matches_jax():
+    rng = np.random.RandomState(6)
+    a, b = (rng.uniform(0, 1, (3, 7)).astype(np.float32) for _ in range(2))
+    a[0, 0] = b[0, 0] = 0.0  # the 1e-8 keeps 0 / 0 finite: the mean is -1
+    got = tbeta.beta_mean(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    tp.assert_close(got, np.asarray(jbeta.beta_mean(jnp.asarray(a), jnp.asarray(b))), rtol=1e-6, atol=1e-6)
+    assert got[0, 0] == -1.0 and np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("padding,dilation", [(0, 1), (2, 1), (3, 3)])
+def test_conv2d_matches_jax(padding, dilation):
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 9, 9, 3).astype(np.float32)
+    w = rng.randn(3, 3, 3, 5).astype(np.float32)
+    b = rng.randn(5).astype(np.float32)
+    want = np.asarray(jconv.conv2d(jnp.asarray(x), jnp.asarray(w), padding=padding, rhs_dilation=dilation, b=b))
+    got = tconv.conv2d(_nchw(x), tp.oihw(w), torch.from_numpy(b), padding=padding, dilation=dilation)
+    tp.assert_close(tp.nhwc(got), want)
+
+
+@pytest.mark.parametrize("r", [2, 4])
+def test_space_to_depth_round_trip_and_matches_jax(r):
+    """The port packs component-major (c*rr + pos), npe_tpu position-major
+    (pos*C + c): equal after the layout helper's reordering."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 8, 12, 3).astype(np.float32)
+    packed = tconv.space_to_depth(_nchw(x), r)
+    assert packed.shape == (2, 3 * r * r, 8 // r, 12 // r)
+    assert torch.equal(tconv.depth_to_space(packed, r), _nchw(x))
+    want = np.asarray(jconv.space_to_depth(jnp.asarray(x), r))
+    np.testing.assert_array_equal(tp.position_major(tp.nhwc(packed), r * r), want)
+    np.testing.assert_array_equal(tp.component_major(want, r * r), tp.nhwc(packed))
+    # channel c*rr + p*r + q holds pixel offset (p, q) of channel c
+    c, p, q = 1, r - 1, 1
+    assert torch.equal(packed[:, c * r * r + p * r + q], _nchw(x)[:, c, p::r, q::r])
+    back = np.asarray(jconv.depth_to_space(jnp.asarray(want), r))
+    np.testing.assert_array_equal(tp.nhwc(tconv.depth_to_space(packed, r)), back)
+
+
+@pytest.mark.parametrize("r", [2, 4])
+@pytest.mark.parametrize("ksize", [3, 5, 9])
+def test_pack_kernel_s2d_conv_equals_the_dense_conv(ksize, r):
+    rng = np.random.RandomState(ksize * 10 + r)
+    x = torch.from_numpy(rng.randn(2, 3, 16, 8).astype(np.float32))
+    k = torch.from_numpy(rng.randn(5, 3, ksize, ksize).astype(np.float32))
+    t = tconv.s2d_block_taps(ksize, r)
+    assert t == jconv.s2d_block_taps(ksize, r)
+    kp = tconv.pack_kernel_s2d(k, r)
+    assert kp.shape == (5 * r * r, 3 * r * r, t, t)
+    dense = tconv.conv2d(x, k, padding=ksize // 2)
+    packed = tconv.conv2d(tconv.space_to_depth(x, r), kp, padding=t // 2)
+    tp.assert_close(tconv.depth_to_space(packed, r).numpy(), dense.numpy(), rtol=1e-4, atol=1e-4)
+    # and it is npe_tpu's packed kernel, reordered on both channel axes
+    want = np.asarray(jconv.pack_kernel_s2d(jnp.asarray(tp.hwio(k)), r))
+    got = tp.position_major(tp.position_major(tp.hwio(kp), r * r, axis=2), r * r, axis=3)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pack_kernel_s2d_carries_gradients_to_the_dense_kernel():
+    k = torch.randn(2, 3, 9, 9, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    (g,) = torch.autograd.grad(tconv.pack_kernel_s2d(k, 4).sum(), k)
+    # each dense tap lands in exactly one packed tap for each of the 16 output offsets
+    assert torch.equal(g, torch.full_like(g, 16.0))
+
+
+@pytest.mark.parametrize("scales", [[2, 3, 4], [0, 2], [0, 2, 3], [1, 2]])
+def test_compose_mdcl_kernel_and_mdcl_apply_match_jax(scales):
+    rng = np.random.RandomState(sum(scales))
+    w = rng.randn(3, 3, 4, 5).astype(np.float32)
+    base = rng.randn(5).astype(np.float32)
+    coeffs = {s: rng.randn(5).astype(np.float32) for s in scales}
+    size = tmdcl.mdcl_kernel_size(scales)
+    assert size == jmdcl.mdcl_kernel_size(scales)
+    want = np.asarray(jmdcl.compose_mdcl_kernel(jnp.asarray(w), base, coeffs, scales))
+    tcoeffs = {s: torch.from_numpy(c) for s, c in coeffs.items()}
+    got = tmdcl.compose_mdcl_kernel(tp.oihw(w), torch.from_numpy(base), tcoeffs, scales)
+    assert got.shape == (5, 4, size, size)
+    tp.assert_close(tp.hwio(got), want, rtol=1e-5, atol=1e-6)
+    x = rng.randn(2, 12, 12, 4).astype(np.float32)
+    for mode in ("fused", "branch"):
+        want = np.asarray(jmdcl.mdcl_apply(jnp.asarray(x), jnp.asarray(w), base, coeffs, scales, mode=mode))
+        got = tmdcl.mdcl_apply(_nchw(x), tp.oihw(w), torch.from_numpy(base), tcoeffs, scales)
+        tp.assert_close(tp.nhwc(got), want)

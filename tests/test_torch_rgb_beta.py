@@ -1,0 +1,252 @@
+"""The RGB-Beta head: the port's tap packing, the plain versions of its two
+hand-written kernels, the four head forms and their gradients against
+npe_tpu (its Pallas kernels in interpret mode), on the CPU. The CUDA kernels
+themselves are held to the plain versions on the GPU by `chip_smoke.py` and
+by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import torch_parity as tp
+from npe_tpu.models import common as jcommon
+from npe_tpu.ops.pallas import mdcl_kernels as jk
+from npe_tpu_torch.models import common as tcommon
+from npe_tpu_torch.ops.kernels import rgb_beta_head as th
+from npe_tpu_torch.ops.kernels import rgb_beta_tail as tt
+from npe_tpu_torch.utils.checkpoints import from_reference, unit_gain
+
+tp.torch_threads()
+
+SCALES = [2, 3, 4]
+RR = 16
+MODES = ("plain", "packed", "hybrid", "fused")
+
+
+def _head_variables(c, seed=0):
+    """The head's five MDCLs from npe_tpu's VarBuilder at unit gain, with
+    coefficients moved off their common init value: (npe_tpu arrays, port
+    tensors)."""
+    vb = jcommon.VarBuilder(jax.random.PRNGKey(seed))
+    for name, cin in (("R", c), ("G_a", c), ("G_b", 2), ("B_a", c), ("B_b", 4)):
+        vb.mdcl(name, cin, 2, SCALES)
+    jv = unit_gain(vb.v)
+    rng = np.random.RandomState(seed)
+    for k in jv:
+        if "_coeff_" in k:
+            jv[k] = (jv[k] * rng.uniform(0.5, 1.5, jv[k].shape)).astype(np.float32)
+    return jv, from_reference(jv, "cpu")
+
+
+def _head(tv, h, mode):
+    """One of the four forms of the head. "packed", every conv a library
+    conv over the packed maps, is the fused kernel's plain version."""
+    if mode == "packed":
+        return th.rgb_beta_head_reference_packed(h, *tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True))
+    return tcommon.rgb_beta_head(tv, h, SCALES, mode=mode)
+
+
+def _features(n, c, seed):
+    return (np.random.RandomState(seed).randn(n, 64, 64, c) * 0.5).astype(np.float32)
+
+
+def _dense_kernels(jv):
+    k_trunk = jnp.concatenate([jcommon._composed_mdcl_kernel(jv, n, SCALES) for n in ("R", "G_a", "B_a")], -1)
+    return k_trunk, jcommon._composed_mdcl_kernel(jv, "G_b", SCALES), jcommon._composed_mdcl_kernel(jv, "B_b", SCALES)
+
+
+def _tail_inputs(n, seed):
+    rng = np.random.RandomState(seed)
+    trunk = rng.randn(n, 16, 16, 6 * RR).astype(np.float32)  # npe_tpu's NHWC, component-major
+    tg = (rng.randn(9, 2 * RR, 2 * RR) * 0.1).astype(np.float32)
+    tb = (rng.randn(9, 4 * RR, 2 * RR) * 0.07).astype(np.float32)
+    return trunk, tg, tb
+
+
+def test_pack_head_taps_matches_jax_in_both_input_orders():
+    rng = np.random.RandomState(0)
+    k = rng.randn(9, 9, 3, 2).astype(np.float32)  # HWIO
+    got = tt.pack_head_taps(tp.oihw(k), 4)
+    assert got.shape == (9, 3 * RR, 2 * RR) and got.is_contiguous()
+    # component-major rows, the order inside npe_tpu's kernels: equal as is
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jk.pack_head_taps(jnp.asarray(k), 4, True)))
+    # position-major rows, the order of npe_tpu's space_to_depth input
+    want = np.asarray(jk.pack_head_taps(jnp.asarray(k), 4, False))
+    np.testing.assert_array_equal(tp.position_major(got.numpy(), RR, axis=1), want)
+    with pytest.raises(ValueError, match="not 3x3"):
+        tt.pack_head_taps(torch.zeros(2, 3, 11, 11), 4)
+
+
+def test_tail_plain_version_matches_the_pallas_kernel():
+    trunk, tg, tb = _tail_inputs(2, 1)
+    want = np.asarray(jk.rgb_beta_tail_pallas(jnp.asarray(trunk), jnp.asarray(tg), jnp.asarray(tb), RR, 8, True))
+    args = (tp.nchw(trunk), torch.from_numpy(tg), torch.from_numpy(tb))
+    got = tt.rgb_beta_tail_reference(*args)
+    assert got.shape == (2, 3 * RR, 16, 16) and np.abs(want).std() > 0.1
+    tp.assert_close(tp.nhwc(got), want, rtol=1e-4, atol=1e-5)
+    before = tt.rgb_beta_tail.launches
+    assert torch.equal(tt.rgb_beta_tail(*args), got)  # CPU tensors: the plain version
+    assert tt.rgb_beta_tail.launches == before  # and no launch is counted
+
+
+def test_head_plain_version_matches_the_pallas_kernel_at_full_width():
+    jv, tv = _head_variables(64)
+    h = _features(1, 64, 2)
+    want = np.asarray(jk.rgb_beta_head_pallas(jnp.asarray(h), *_dense_kernels(jv), 4, 1, True))
+    taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True)
+    conv_kernel, *tail_taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=False)
+    assert conv_kernel.shape == (96, 16 * 64, 3, 3)
+    assert all(torch.equal(a, b) for a, b in zip(tail_taps, taps[1:]))
+    assert taps[0].shape == (9, 16 * 64, 96)
+    got = th.rgb_beta_head_reference_packed(tp.nchw(h), *taps)
+    assert got.shape == (1, 3, 64, 64) and np.abs(want).std() > 0.1
+    tp.assert_close(tp.nhwc(got), want, rtol=1e-4, atol=1e-5)
+    before = th.rgb_beta_head.launches
+    assert torch.equal(th.rgb_beta_head(tp.nchw(h), *taps), got)
+    assert th.rgb_beta_head.launches == before
+    # the full-width forms against each other and against npe_tpu's plain head
+    plain = np.asarray(jcommon.rgb_beta_head(jv, jnp.asarray(h), SCALES, mode="plain"))
+    for mode in MODES:
+        out = _head(tv, tp.nchw(h), mode)
+        tp.assert_close(tp.nhwc(out), plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_head_forms_match_jax_plain(mode):
+    jv, tv = _head_variables(8)
+    h = _features(2, 8, 3)
+    want = np.asarray(jcommon.rgb_beta_head(jv, jnp.asarray(h), SCALES, mode="plain"))
+    got = _head(tv, tp.nchw(h), mode)
+    assert got.shape == (2, 3, 64, 64)
+    assert want.std() > 0.1 and np.abs(want).max() <= 1.0  # Beta means, not zeros
+    tp.assert_close(tp.nhwc(got), want, rtol=1e-4, atol=1e-5)
+    # npe_tpu's own hybrid form reaches its Pallas tail kernel in interpret mode
+    if mode == "hybrid":
+        hyb = np.asarray(jcommon.rgb_beta_head(jv, jnp.asarray(h), SCALES, mode="hybrid"))
+        tp.assert_close(tp.nhwc(got), hyb, rtol=1e-4, atol=1e-5)
+
+
+def test_head_mode_default_and_fallbacks():
+    """The default is "hybrid", a constant; there is no fallback: a kernel
+    form on a shape its kernel cannot take raises, and only a caller who
+    names "plain" gets the plain form."""
+    assert tcommon.HEAD_MODE == "hybrid" and tcommon.HEAD_MODES == ("plain", "hybrid", "fused")
+    jv, tv = _head_variables(4)
+    h = tp.nchw(_features(1, 4, 4))
+    before = tt.rgb_beta_tail.launches, th.rgb_beta_head.launches
+    assert torch.equal(tcommon.rgb_beta_head(tv, h, SCALES), tcommon.rgb_beta_head(tv, h, SCALES, mode="hybrid"))
+    assert (tt.rgb_beta_tail.launches, th.rgb_beta_head.launches) == before
+    # a map the block does not divide: the plain form takes it, the kernel forms refuse
+    odd = h[:, :, :62, :62].contiguous()
+    want = np.asarray(jcommon.rgb_beta_head(jv, jnp.asarray(tp.nhwc(odd)), SCALES, mode="plain"))
+    tp.assert_close(tp.nhwc(tcommon.rgb_beta_head(tv, odd, SCALES, mode="plain")), want, rtol=1e-4, atol=1e-5)
+    for mode in ("hybrid", "fused"):
+        with pytest.raises(ValueError, match="divisible by 4"):
+            tcommon.rgb_beta_head(tv, odd, SCALES, mode=mode)
+        # block 2 packs the 9x9 kernels to 5x5 taps, not the kernels' 3x3
+        with pytest.raises(ValueError, match="not 3x3"):
+            tcommon.rgb_beta_head(tv, h, SCALES, mode=mode, block=2)
+        # 5x5 kernels at block 2 pack to 3x3 taps, but the kernels are compiled for block 4
+        with pytest.raises(ValueError, match="has shape"):
+            tcommon.rgb_beta_head(tv, h, [2], mode=mode, block=2)
+        # a wider map than the kernels' 16 cells: fused wants W = 64, the tail its shared memory
+        with pytest.raises(ValueError, match="rgb_beta_"):
+            tcommon.rgb_beta_head(tv, torch.zeros(1, 4, 128, 128), SCALES, mode=mode)
+    # scales up to 3 still pack to 3x3 taps at block 4: the kernel forms take them
+    small = tcommon.rgb_beta_head(tv, h, [2, 3], mode="plain")
+    for mode in ("hybrid", "fused"):
+        tp.assert_close(tcommon.rgb_beta_head(tv, h, [2, 3], mode=mode).numpy(), small.numpy(), rtol=1e-4, atol=1e-5)
+    for unknown in ("pallas", "packed"):
+        with pytest.raises(ValueError, match="unknown RGB-Beta head mode"):
+            tcommon.rgb_beta_head(tv, h, SCALES, mode=unknown)
+
+
+@pytest.mark.parametrize("mode", ["hybrid", "fused"])
+def test_head_gradients_match_jax(mode):
+    """d sum(head(h)^2) / d h and / d every MDCL weight and coefficient."""
+    jv, tv = _head_variables(8, seed=1)
+    h = _features(2, 8, 5)
+    jgrad_h, jgrad_v = jax.grad(
+        lambda h, v: jnp.sum(jcommon.rgb_beta_head(v, h, SCALES, mode="packed") ** 2), argnums=(0, 1)
+    )(jnp.asarray(h), {k: jnp.asarray(a) for k, a in jv.items()})
+    th_ = tp.nchw(h).requires_grad_(True)
+    tv = {k: t.requires_grad_(True) for k, t in tv.items()}
+    loss = (tcommon.rgb_beta_head(tv, th_, SCALES, mode=mode) ** 2).sum()
+    names = sorted(tv)
+    grads = torch.autograd.grad(loss, [th_] + [tv[k] for k in names])
+    assert np.abs(np.asarray(jgrad_h)).max() > 1e-2
+    tp.assert_close(tp.nhwc(grads[0]), jgrad_h)
+    for k, g in zip(names, grads[1:]):
+        want = np.asarray(jgrad_v[k])
+        tp.assert_close(tp.hwio(g) if g.ndim == 4 else g.numpy(), want)
+
+
+def test_kernel_backward_is_the_plain_versions_vjp():
+    """On the GPU the autograd.Function's backward calls `vjp_of_plain`; here
+    it is held to autograd through the plain version, taps included."""
+    trunk, tg, tb = _tail_inputs(1, 6)
+    ins = [tp.nchw(trunk), torch.from_numpy(tg), torch.from_numpy(tb)]
+    g = torch.randn(1, 3 * RR, 16, 16, generator=torch.Generator().manual_seed(0))
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(tt.rgb_beta_tail_reference(*leaves), leaves, g)
+    got = tt.vjp_of_plain(tt.rgb_beta_tail_reference, (True, True, True), ins, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert all(not t.requires_grad for t in ins)  # the saved tensors stay untouched
+    only_trunk = tt.vjp_of_plain(tt.rgb_beta_tail_reference, (True, False, False), ins, g)
+    assert torch.equal(only_trunk[0], want[0]) and only_trunk[1:] == (None, None)
+    # the same for the whole head, against jax.grad through the Pallas kernel's custom VJP
+    jv, tv = _head_variables(8, seed=2)
+    h = _features(1, 8, 7)
+    dense = _dense_kernels(jv)
+    jg = jax.grad(lambda h: jnp.sum(jk.rgb_beta_head_pallas(h, *dense, 4, 1, True) ** 2))(jnp.asarray(h))
+    taps = [tt.pack_head_taps(tp.oihw(k), 4) for k in dense]
+    x = tp.nchw(h)
+    out = th.rgb_beta_head_reference_packed(x, *taps)
+    gx, *_ = tt.vjp_of_plain(th.rgb_beta_head_reference_packed, (True, False, False, False), [x] + taps, 2 * out)
+    tp.assert_close(tp.nhwc(gx), jg)
+
+
+def test_wrappers_refuse_what_the_kernels_cannot_read():
+    trunk, tg, tb = _tail_inputs(1, 8)
+    trunk, tg, tb = tp.nchw(trunk), torch.from_numpy(tg), torch.from_numpy(tb)
+    with pytest.raises(TypeError, match="float32"):
+        tt.rgb_beta_tail(trunk.double(), tg, tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        tt.rgb_beta_tail(trunk.transpose(2, 3), tg, tb)
+    with pytest.raises(ValueError, match="tb_taps has shape"):
+        tt.rgb_beta_tail(trunk, tg, tg)
+    with pytest.raises(ValueError, match=r"\(N, 96, H, W\) trunk"):
+        tt.rgb_beta_tail(trunk[0], tg, tb)
+    with pytest.raises(ValueError, match="H even"):
+        tt.rgb_beta_tail(trunk[:, :, :15].contiguous(), tg, tb)
+    with pytest.raises(ValueError, match="trunk has shape"):
+        tt.rgb_beta_tail(trunk[:, :48], tg, tb)
+    with pytest.raises(ValueError, match="shared memory"):
+        tt.rgb_beta_tail(torch.zeros(1, 96, 32, 32), tg, tb)
+    x = torch.zeros(1, 8, 64, 64)
+    tr = torch.zeros(9, 16 * 8, 96)
+    with pytest.raises(TypeError, match="float32"):
+        th.rgb_beta_head(x.double(), tr, tg, tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        th.rgb_beta_head(x.transpose(2, 3), tr, tg, tb)
+    with pytest.raises(ValueError, match="tr_taps has shape"):
+        th.rgb_beta_head(x, tr[:, :64], tg, tb)
+    for bad in (torch.zeros(1, 7, 64, 64), torch.zeros(1, 8, 24, 64), torch.zeros(1, 8, 64, 32)):
+        with pytest.raises(ValueError, match="C even and H a multiple of 16"):
+            th.rgb_beta_head(bad, tr, tg, tb)
+    assert th.rgb_beta_head(x, tr, tg, tb).shape == (1, 3, 64, 64)
+
+
+def test_trunk_splits_fill_the_card_for_a_small_batch():
+    units = 9 * 64 // 2  # nine taps x 32 channel pairs
+    assert th.trunk_splits(1, 4, units, 132) == 36  # 144 blocks for one image
+    assert th.trunk_splits(8, 4, units, 132) == 9
+    assert th.trunk_splits(128, 4, units, 132) == 1
+    assert th.trunk_splits(1, 4, 9 * 8 // 2, 132) == 36  # the tiny profile: 36 units
+    for batch in (1, 2, 3, 8, 64):
+        s = th.trunk_splits(batch, 4, units, 132)
+        assert units % s == 0 and 1 <= s <= th.MAX_SPLITS

@@ -11,8 +11,12 @@ from npe_tpu_torch.utils.checkpoints import from_reference, unit_gain
 
 TINY_JAX = "tests/tiny_ian.py"
 TINY_TORCH = "tests/tiny_ian_torch.py"
+TINY_V1_JAX = "tests/tiny_ianv1.py"
+TINY_V1_TORCH = "tests/tiny_ianv1_torch.py"
 # The golden tolerance, tests/test_goldens.py:28-29.
 RTOL, ATOL = 1e-3, 1e-4
+# What the seeded weights multiply the IAF's log-sigma output layers by.
+IAF_LOGSIGMA_GAIN = 0.1
 # One step of the uint8 grid in tanh units (the editor's RECON quantization).
 UINT8_STEP = 2.0 / 255.0
 
@@ -20,9 +24,12 @@ _cache = {}
 
 
 def jax_variables(config):
-    """npe_tpu variables for `config` from PRNGKey(0), unit-gain, as numpy."""
+    """npe_tpu variables for `config` from PRNGKey(0), unit-gain, as numpy.
+    The IAF's log-sigma outputs are damped to IAF_LOGSIGMA_GAIN: at unit gain
+    exp(logsigma) would throw latents far outside the decoder's range."""
     if config not in _cache:
-        _cache[config] = unit_gain(jax_config(config).init(jax.random.PRNGKey(0)))
+        seeded = jax_config(config).init(jax.random.PRNGKey(0))
+        _cache[config] = unit_gain(seeded, iaf_logsigma_gain=IAF_LOGSIGMA_GAIN)
     return dict(_cache[config])
 
 
@@ -33,6 +40,45 @@ def port_variables(config, device="cpu"):
 def nhwc(t):
     """A port NCHW tensor -> NHWC numpy, npe_tpu's layout."""
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def nchw(a):
+    """An npe_tpu NHWC array -> a contiguous port NCHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+# Space-to-depth layouts. npe_tpu packs NHWC maps position-major: channel
+# pos*C + c for the in-block pixel pos = p*r + q. Inside its head kernels, and
+# everywhere in the port, packed channels are component-major: c*rr + pos.
+# The port's maps are NCHW besides, so `nhwc` / `nchw` plus one of the two
+# functions below carry any packed map, tap matrix or packed kernel across.
+
+
+def position_major(a, rr, axis=-1):
+    """Reorder `axis` of a numpy array from component-major (c*rr + pos) to
+    position-major (pos*C + c)."""
+    a = np.moveaxis(np.asarray(a), axis, -1)
+    c = a.shape[-1] // rr
+    a = a.reshape(a.shape[:-1] + (c, rr)).swapaxes(-1, -2).reshape(a.shape)
+    return np.moveaxis(a, -1, axis)
+
+
+def component_major(a, rr, axis=-1):
+    """The inverse of `position_major`."""
+    a = np.moveaxis(np.asarray(a), axis, -1)
+    c = a.shape[-1] // rr
+    a = a.reshape(a.shape[:-1] + (rr, c)).swapaxes(-1, -2).reshape(a.shape)
+    return np.moveaxis(a, -1, axis)
+
+
+def hwio(k):
+    """A port conv kernel (cout, cin, kh, kw) tensor -> npe_tpu's HWIO numpy."""
+    return k.detach().permute(2, 3, 1, 0).numpy()
+
+
+def oihw(k):
+    """An npe_tpu HWIO conv kernel -> a contiguous port (cout, cin, kh, kw) tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1)))
 
 
 def assert_close(actual, desired, rtol=RTOL, atol=ATOL):
