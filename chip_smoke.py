@@ -5,9 +5,10 @@
 It builds the port's CUDA kernels from `npe_tpu_torch/csrc/` (one nvcc per
 source, all at once), holds each against its plain PyTorch version on the
 card, drives the Neural Photo Editor's edit path through `EditSession` and
-the model API on IAN_simple and on IANv1 (full width, seeded random weights
-at unit gain; IANv1 with the RGB-Beta head in both kernel forms), holds the
-card's results against the port on the CPU, and times the edit step, the
+the model API on IAN_simple, on IANv1 and on full IAN (full width, seeded
+random weights at unit gain; IANv1 with the RGB-Beta head in both kernel
+forms, full IAN with its MDBLOCKs in the fused and the per-op form), holds
+the card's results against the port on the CPU, and times the edit step, the
 kernels and encode+decode. The last line is {"ok": true, "device": {...}}; any failed phase ends the run with a
 nonzero exit before it. Without a CUDA device it exits nonzero at once.
 """
@@ -28,6 +29,10 @@ KERNEL_TOL = 1e-5  # kernel vs plain version on the card, max abs
 # rgb_beta_head's trunk adds 9 * 16 * C = 9216 products per output in another
 # order than cuDNN's conv does, before the sigmoids and the Beta mean's division.
 HEAD_TOL = 5e-5
+# mdblock_fused adds up to 9 * 2 * 512 = 9216 products per output in another
+# order than the plain version's per-tap cuBLAS products, twice in a row, and
+# its check's outputs have a std of 2 to 4 and reach +-25: 1e-5 of the largest.
+MDBLOCK_TOL = 2e-4
 # Card vs CPU: the golden tolerance of the JAX package's tests. The float32
 # sums run in other orders on the two devices (TF32 is off).
 RTOL, ATOL = 1e-3, 1e-4
@@ -37,6 +42,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 N_STROKES = 16
 TIMED_STROKES = 200
 HEAD_SCALES = [2, 3, 4]
+# Full IAN's three MDBLOCKs: (name, channels, map size, scales)
+MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2, 3)),
+                  ("dec_conv4a", 128, 32, (0, 2, 3)))
 
 
 def log(*args):
@@ -125,6 +133,31 @@ def head_inputs(batch, channels, seed, device):
     tg = (rng.randn(9, 32, 32) / np.sqrt(9 * 32 / 4)).astype(np.float32)
     tb = (rng.randn(9, 64, 32) / np.sqrt(9 * 64 / 4)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (x, tr, trunk, tg, tb)]
+
+
+def mdblock_inputs(batch, channels, size, scales, seed, device):
+    """Seeded O(1) features, two tap tensors at unit gain (a composed MDCL
+    kernel carries about 2.2 taps' worth of variance per input channel) and
+    non-trivial affines."""
+    rng = np.random.RandomState(seed)
+    n_taps = 9 * (1 + sum(s > 0 for s in scales))
+    x = rng.randn(batch, channels, size, size).astype(np.float32)
+    taps = [(rng.randn(n_taps, channels, channels) / np.sqrt(2.2 * channels)).astype(np.float32)
+            for _ in range(2)]
+    aff = np.stack([rng.uniform(0.8, 1.2, channels), rng.uniform(-0.2, 0.2, channels)] * 3).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, *taps, aff)]
+
+
+def mdblock_bound_ms(batch, channels, size, scales):
+    """Least time for one MDBLOCK: x and both tap tensors and the affines
+    read once, the output written once; two MDCLs of H*W*T*C^2 multiply-adds
+    at two operations each, and about ten operations per element for the
+    three affines, lrelus and the residual."""
+    n_taps = 9 * (1 + sum(s > 0 for s in scales))
+    px = batch * size * size
+    nbytes = 4 * (2 * px * channels + 2 * n_taps * channels * channels + 6 * channels)
+    flops = 2 * 2 * px * n_taps * channels * channels + 10 * px * channels
+    return roofline_ms(nbytes, flops)
 
 
 def roofline_ms(nbytes, flops):
@@ -282,9 +315,10 @@ def main():
 
     from npe_tpu_torch.api import IAN
     from npe_tpu_torch.editor.engine import EditSession
-    from npe_tpu_torch.models import common, ian_simple, ian_v1
+    from npe_tpu_torch.models import common, ian, ian_simple, ian_v1
     from npe_tpu_torch.ops.kernels import build
     from npe_tpu_torch.ops.kernels import edit_tail as et
+    from npe_tpu_torch.ops.kernels import mdblock as mk
     from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
     from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
     from npe_tpu_torch.utils.checkpoints import from_reference, save_weights, to_reference, unit_gain
@@ -298,7 +332,7 @@ def main():
 
     # 2. Build: one nvcc per source, all started together
     names = build.kernel_names()
-    assert names == ["edit_tail", "rgb_beta_head", "rgb_beta_tail"], names
+    assert names == ["edit_tail", "mdblock", "rgb_beta_head", "rgb_beta_tail"], names
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         outputs = list(pool.map(build.build, names))
@@ -310,7 +344,7 @@ def main():
 
     # 3. Kernel checks: each kernel vs its plain version on the card
     dev = torch.device("cuda")
-    worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0}
+    worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0, "mdblock": 0.0}
     for batch in (1, 8):
         for sigma in (0.7, 1.5):
             for mask_kind in (None, "zeros", "random", "ones"):
@@ -325,9 +359,11 @@ def main():
                     f"max abs err {e:.3e} (tol {KERNEL_TOL})")
                 assert e <= KERNEL_TOL, f"edit_tail disagrees with its plain version: {e}"
 
-    def check_kernel(name, case, kernel, plain, args, tol):
+    def check_kernel(name, case, kernel, plain, args, tol, grad_atol_of_largest=False):
         """Forward, and the gradient of sum(out^2) through the wrapper's
-        autograd.Function, against the plain version's on the same inputs."""
+        autograd.Function, against the plain version's on the same inputs.
+        `grad_atol_of_largest`: ATOL times each gradient's largest value, for
+        gradients that are sums over every pixel and reach several hundred."""
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
@@ -340,9 +376,11 @@ def main():
         want_g = torch.autograd.grad((plain(*leaves) ** 2).sum(), leaves)
         torch.cuda.synchronize()
         for g, w in zip(got_g, want_g):
-            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=RTOL, atol=ATOL,
+            atol = ATOL * max(1.0, float(w.abs().max())) if grad_atol_of_largest else ATOL
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=RTOL, atol=atol,
                                        err_msg=f"{name} {case} gradient")
-        log(f"[kernel] {name} {case}: gradients of {len(leaves)} inputs within rtol {RTOL}, atol {ATOL}; "
+        log(f"[kernel] {name} {case}: gradients of {len(leaves)} inputs within rtol {RTOL}, atol {ATOL}"
+            f"{' of the largest' if grad_atol_of_largest else ''}; "
             f"max abs diff {max(max_err(g.cpu(), w.cpu()) for g, w in zip(got_g, want_g)):.3e}")
 
     for batch in (1, 8):
@@ -353,6 +391,16 @@ def main():
         x, tr, _, tg, tb = head_inputs(batch, 64, 20 + batch, dev)
         check_kernel("rgb_beta_head", f"C 64 batch {batch}", rh.rgb_beta_head,
                      rh.rgb_beta_head_reference_packed, (x, tr, tg, tb), HEAD_TOL)
+    x, tr, _, tg, tb = head_inputs(1, 128, 23, dev)  # full IAN's head
+    check_kernel("rgb_beta_head", "C 128 batch 1", rh.rgb_beta_head,
+                 rh.rgb_beta_head_reference_packed, (x, tr, tg, tb), HEAD_TOL)
+    for _, channels, size, scales in MDBLOCK_SHAPES:
+        for batch in (1, 8):
+            check_kernel("mdblock", f"{size}x{size}x{channels} scales {list(scales)} batch {batch}",
+                         lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
+                         lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
+                         mdblock_inputs(batch, channels, size, scales, 40 + batch, dev), MDBLOCK_TOL,
+                         grad_atol_of_largest=True)
 
     # 4. Main path: the edit session on the card, then the same on the CPU;
     # seeded weights at unit gain, so the card-vs-CPU comparisons are not a
@@ -360,7 +408,8 @@ def main():
     rng = np.random.RandomState(3)
     image = (rng.rand(3, 64, 64).astype(np.float32) * 2 - 1) * 0.8
     z_grid = rng.randn(10, 10).astype(np.float32)
-    counters = {"edit_tail": et.edit_tail, "rgb_beta_tail": rt.rgb_beta_tail, "rgb_beta_head": rh.rgb_beta_head}
+    counters = {"edit_tail": et.edit_tail, "rgb_beta_tail": rt.rgb_beta_tail, "rgb_beta_head": rh.rgb_beta_head,
+                "mdblock": mk.mdblock_fused}
 
     def sessions_of(config, module):
         """A card and a CPU session of `config` from the same seeded
@@ -383,7 +432,7 @@ def main():
     def drive(label, card, cpu, expect, **script):
         """Counts to 0, the script on the card, counts read; then the same
         script on the CPU and the comparison. `expect` maps each kernel to
-        'composites', 'decodes' or 0."""
+        'composites', 'decodes', '3 x decodes' or 0."""
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -393,7 +442,7 @@ def main():
         log(f"[main] {label} card script: {time.perf_counter() - t0:.3f} s; composite steps {composites}, "
             f"decodes {decodes}; launches {launches}")
         for name, what in expect.items():
-            want = {"composites": composites, "decodes": decodes, 0: 0}[what]
+            want = {"composites": composites, "decodes": decodes, "3 x decodes": 3 * decodes, 0: 0}[what]
             assert launches[name] == want, f"{label}: {name} launched {launches[name]} times, not {want}"
             assert what == 0 or launches[name] > 0
         _, _, cpu_painted = run_session_script(cpu, image, z_grid, **script)
@@ -403,14 +452,15 @@ def main():
 
     card, cpu = sessions_of("IAN_simple", ian_simple)
     main_launches = drive("IAN_simple", card, cpu,
-                          {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": 0})
+                          {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0})
 
     assert common.HEAD_MODE == "hybrid"
     card_v1, cpu_v1 = sessions_of("IANv1", ian_v1)
     masks = [k for k in card_v1.variables if k.endswith(".weights_mask")]
     assert len(masks) == 6 and all(card_v1.variables[k].is_cuda for k in masks)
     hybrid_launches = drive("IANv1 hybrid head", card_v1, cpu_v1,
-                            {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0})
+                            {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
+                             "mdblock": 0})
     main_launches["rgb_beta_tail"] = hybrid_launches["rgb_beta_tail"]
     fused_v1, fused_cpu_v1 = (EditSession("IANv1", variables=s.variables, device=s.device, head_mode="fused")
                               for s in (card_v1, cpu_v1))
@@ -419,11 +469,29 @@ def main():
                            n_strokes=4, tail=False)
     main_launches["rgb_beta_head"] = fused_launches["rgb_beta_head"]
 
+    # full IAN: the whole script with the three MDBLOCKs in the kernel's form,
+    # a short one in the default per-op form, which must not reach the kernel
+    assert common.MDBLOCK_MODE == "plain"
+    card_ian, cpu_ian = sessions_of("IAN", ian)
+    fused_ian, fused_cpu_ian = (EditSession("IAN", variables=s.variables, device=s.device, mdblock_mode="fused")
+                                for s in (card_ian, cpu_ian))
+    ian_launches = drive("IAN fused MDBLOCKs", fused_ian, fused_cpu_ian,
+                         {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
+                          "mdblock": "3 x decodes"})
+    main_launches["mdblock"] = ian_launches["mdblock"]
+    drive("IAN per-op MDBLOCKs", card_ian, cpu_ian,
+          {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0},
+          n_strokes=4, tail=False)
+
     # 5. API
     compare_api("IAN_simple", IAN("IAN_simple", variables=card.variables, device="cuda"),
                 IAN("IAN_simple", variables=cpu.variables, device="cpu"), rng)
     compare_api("IANv1", IAN("IANv1", variables=card_v1.variables, device="cuda"),
                 IAN("IANv1", variables=cpu_v1.variables, device="cpu"), rng)
+    # the kernel's form on the card against the per-op form (library convs) on the CPU
+    compare_api("IAN, card fused vs cpu per-op",
+                IAN("IAN", variables=card_ian.variables, device="cuda", mdblock_mode="fused"),
+                IAN("IAN", variables=cpu_ian.variables, device="cpu"), rng)
 
     # 6. Times
     p50, p95 = time_strokes("IAN_simple", card, image, smi)
@@ -432,6 +500,10 @@ def main():
     v1_busy = profile_strokes("IANv1 hybrid head", card_v1, top=16)
     fused_p50, fused_p95 = time_strokes("IANv1 fused head", fused_v1, image, smi)
     fused_busy = profile_strokes("IANv1 fused head", fused_v1, top=6)
+    ian_p50, ian_p95 = time_strokes("IAN per-op MDBLOCKs", card_ian, image, smi)
+    ian_busy = profile_strokes("IAN per-op MDBLOCKs", card_ian, top=14)
+    ian_fused_p50, ian_fused_p95 = time_strokes("IAN fused MDBLOCKs", fused_ian, image, smi)
+    ian_fused_busy = profile_strokes("IAN fused MDBLOCKs", fused_ian, top=14)
 
     # what the head's weight packing costs on every decode (two a stroke)
     v1 = card_v1.variables
@@ -489,12 +561,52 @@ def main():
             log(f"[time] whole head, {form} form, batch 1, weight packing included, device time "
                 f"(CUDA graph): {graph_ms(fn, iters=20):.5f} ms ({smi})")
 
+    # mdblock_fused at full IAN's three shapes: the kernel and its plain
+    # version on prepared taps, then the whole block from the weights (tap
+    # stacking or kernel composing included) in both forms
+    vi = card_ian.variables
+    per_shape = []
+    with torch.no_grad():
+        for name, channels, size, scales in MDBLOCK_SHAPES:
+            for batch in (1, 8):
+                args = mdblock_inputs(batch, channels, size, scales, 50 + batch, dev)
+                k_ms = graph_ms(lambda: mk.mdblock_fused(*args, scales), iters=20)
+                p_ms = graph_ms(lambda: mk.mdblock_taps_reference(*args, scales), iters=20)
+                forms = {mode: graph_ms(lambda: common.mdblock(vi, None, name, args[0], scales, common.LRELU,
+                                                               False, mode=mode), iters=20)
+                         for mode in common.MDBLOCK_MODES}
+                bound = mdblock_bound_ms(batch, channels, size, scales)
+                log(f"[time] mdblock {size}x{size}x{channels} batch {batch}, device time (CUDA graph): kernel "
+                    f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); the whole block "
+                    f"from the weights: fused {forms['fused']:.5f} ms, per-op {forms['plain']:.5f} ms ({smi})")
+                if batch == 1:
+                    per_shape.append({"shape": f"{size}x{size}x{channels}", "ms": k_ms, "plain_ms": p_ms,
+                                      "bound_ms": bound[0], "bound_by": bound[1], "per_op_ms": forms["plain"]})
+    # one decode launches the kernel once per shape: the entry is their sum
+    assert len({e["bound_by"] for e in per_shape}) == 1
+    entries.append({"name": "mdblock", "source": mk.SOURCE, "replaces": mk.REPLACES,
+                    **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms")},
+                    "bound_by": per_shape[0]["bound_by"], "per_shape": per_shape})
+
+    def stack_taps():
+        """What the fused form makes of the weights on every decode."""
+        for name, _, _, scales in MDBLOCK_SHAPES:
+            common._stacked_mdcl_taps(vi, name, scales)
+            common._stacked_mdcl_taps(vi, f"{name}2", scales)
+            torch.stack([a for i in range(3) for a in common._bn_affine(vi, f"{name}bnorm{i}")])
+
+    with torch.no_grad():
+        log(f"[time] MDBLOCK tap stacking (six stacks, three affines), per decode: {cuda_ms(stack_taps, 100):.4f} ms "
+            f"eager back to back, {graph_ms(stack_taps, iters=10):.4f} ms device time (CUDA graph)")
+
     x128 = torch.from_numpy(rng.uniform(-1, 1, (128, 3, 64, 64)).astype(np.float32)).to(dev)
     rates = {}
-    for label, module, v in (("IAN_simple", ian_simple, card.variables), ("IANv1", ian_v1, v1)):
+    for label, module, v, options in (("IAN_simple", ian_simple, card.variables, {}), ("IANv1", ian_v1, v1, {}),
+                                      ("IAN per-op MDBLOCKs", ian, vi, {}),
+                                      ("IAN fused MDBLOCKs", ian, vi, {"mdblock_mode": "fused"})):
         def enc_dec():
             with torch.no_grad():
-                module.decode(v, module.encode(v, x128))
+                module.decode(v, module.encode(v, x128), **options)
 
         ed_ms = cuda_ms(enc_dec, 20)
         rates[label] = 128e3 / ed_ms
@@ -510,7 +622,13 @@ def main():
                     "ianv1_device_ms_per_stroke": v1_busy,
                     "ianv1_fused_paint_stroke_p50_ms": fused_p50, "ianv1_fused_paint_stroke_p95_ms": fused_p95,
                     "ianv1_fused_device_ms_per_stroke": fused_busy,
-                    "ianv1_encode_decode_imgs_per_s_b128": rates["IANv1"]}))
+                    "ianv1_encode_decode_imgs_per_s_b128": rates["IANv1"],
+                    "ian_paint_stroke_p50_ms": ian_p50, "ian_paint_stroke_p95_ms": ian_p95,
+                    "ian_device_ms_per_stroke": ian_busy,
+                    "ian_fused_paint_stroke_p50_ms": ian_fused_p50, "ian_fused_paint_stroke_p95_ms": ian_fused_p95,
+                    "ian_fused_device_ms_per_stroke": ian_fused_busy,
+                    "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
+                    "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"]}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -35,6 +35,14 @@ def soft_patch_mask(h, w, c1, r1, c2, r2, sigma, dtype=torch.float32, device="cp
     return torch.where(sigma > 0, soft, hard)
 
 
+def decode_options(head_mode=None, mdblock_mode=None):
+    """The keyword arguments a session passes to every `decode`: only the
+    forms the caller named, so a model whose `decode` lacks one of them never
+    receives it."""
+    named = {"head_mode": head_mode, "mdblock_mode": mdblock_mode}
+    return {k: v for k, v in named.items() if v is not None}
+
+
 class IAN:
     """Generic class for using IAN-style models with the NPE
     (reference `API.py:11-110`)."""
@@ -47,11 +55,13 @@ class IAN:
         seed=42,
         device="cuda",
         head_mode=None,
+        mdblock_mode=None,
     ):
         """head_mode: for a model with the RGB-Beta head, the form every
-        decode takes (`models.common.HEAD_MODES`); None leaves the model's
-        default."""
-        self.decode_options = {} if head_mode is None else {"head_mode": head_mode}
+        decode takes (`models.common.HEAD_MODES`); mdblock_mode: for a model
+        with MDBLOCKs, theirs (`models.common.MDBLOCK_MODES`). None leaves
+        the model's default."""
+        self.decode_options = decode_options(head_mode, mdblock_mode)
         self.device = resolve_device(device)
         self.module = get_config(config_path)
         self.cfg = self.module.cfg

@@ -14,7 +14,7 @@ range), as numpy, like the model API. `*_uint8()` helpers convert for display.
 import numpy as np
 import torch
 
-from npe_tpu_torch.api import soft_patch_mask
+from npe_tpu_torch.api import decode_options, soft_patch_mask
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.ops.kernels.edit_tail import edit_tail
 from npe_tpu_torch.utils import checkpoints
@@ -62,15 +62,17 @@ class EditSession:
         seed=42,
         device="cuda",
         head_mode=None,
+        mdblock_mode=None,
     ):
         """variables: port variables on `device` (see
         `utils.checkpoints.from_reference`); drawn from torch.Generator(seed)
         when None. head_mode: for a model with the RGB-Beta head, the form
-        every decode of this session takes (`models.common.HEAD_MODES`); None
-        leaves the model's default."""
+        every decode of this session takes (`models.common.HEAD_MODES`);
+        mdblock_mode: for a model with MDBLOCKs, theirs
+        (`models.common.MDBLOCK_MODES`). None leaves the model's default."""
         self.device = resolve_device(device)
         self.module = get_config(config)
-        self.decode_options = {} if head_mode is None else {"head_mode": head_mode}
+        self.decode_options = decode_options(head_mode, mdblock_mode)
         if variables is None:
             variables = self.module.init(torch.Generator().manual_seed(seed), self.device)
         if weights_path is not None:

@@ -1,11 +1,10 @@
-from npe_tpu_torch.models import ian_simple, ian_v1
+from npe_tpu_torch.models import ian, ian_simple, ian_v1
 
 REGISTRY = {
     "IAN_simple": ian_simple,
     "IANv1": ian_v1,
+    "IAN": ian,
 }
-# npe_tpu's other config; the port has not reached it yet.
-NOT_YET_PORTED = ("IAN",)
 
 
 def get_config(name):
@@ -21,10 +20,6 @@ def get_config(name):
         base = base[:-3]
     if base in REGISTRY:
         return REGISTRY[base]
-    if base in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model config {base!r} is not ported to npe_tpu_torch yet; have {sorted(REGISTRY)}"
-        )
     path = str(name)
     if os.path.isfile(path) and path.endswith(".py"):
         spec = importlib.util.spec_from_file_location(f"npe_tpu_torch_user_config_{base}", path)

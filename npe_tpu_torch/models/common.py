@@ -1,5 +1,6 @@
 """Shared model-building blocks for the IAN family (npe_tpu `models/common.py`):
-the encoder tower, the MDCL helpers and the autoregressive RGB-Beta head.
+the encoder tower, the MDCL helpers, the MDBLOCK and the autoregressive
+RGB-Beta head.
 
 The encoder tower: four stride-2 5x5 convs 128/256/512/1024 with
 LeakyReLU(0.2), batch norm from conv2 on, a 1000-unit FC, and 100-dim
@@ -18,6 +19,7 @@ from npe_tpu_torch.ops.conv import (
     conv2d, depth_to_space, enc_conv2d, pack_kernel_s2d, space_to_depth,
 )
 from npe_tpu_torch.ops.initializers import normal
+from npe_tpu_torch.ops.kernels.mdblock import mdblock_fused, stack_mdcl_taps
 from npe_tpu_torch.ops.kernels.rgb_beta_head import rgb_beta_head as rgb_beta_head_kernel
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import pack_head_taps, rgb_beta_tail
 from npe_tpu_torch.ops.linear import dense
@@ -103,6 +105,57 @@ def _composed_mdcl_kernel(v, name, scales):
 def mdcl(v, name, x, scales):
     coeffs = {s: v[f"{name}_coeff_{_coeff_suffix(s)}"] for s in scales}
     return mdcl_apply(x, v[f"{name}W"], v[f"{name}_coeff_base"], coeffs, scales)
+
+
+def _bn_affine(v, name):
+    """Inference batch norm as a per-channel affine: (s, t) with
+    BN(x) = s * x + t."""
+    s = v[f"{name}.gamma"] * v[f"{name}.inv_std"]
+    return s, v[f"{name}.beta"] - v[f"{name}.mean"] * s
+
+
+def _stacked_mdcl_taps(v, name, scales):
+    coeffs = {s: v[f"{name}_coeff_{_coeff_suffix(s)}"] for s in scales}
+    return stack_mdcl_taps(v[f"{name}W"], v[f"{name}_coeff_base"], coeffs, scales)
+
+
+# The forms of the MDBLOCK, the same math (tests/test_torch_mdblock.py):
+#   "plain"  the per-op form: bn, `mdcl`, bn, `mdcl`, bn of x + h, each MDCL
+#            one library conv with the composed kernel;
+#   "fused"  the hand-written `mdblock_fused` kernel on the inference path.
+# MDBLOCK_MODE is the form taken when the caller names none: a constant, the
+# same on every device, "plain" as npe_tpu's NPE_MDBLOCK_FUSED defaults to
+# "off" (the port reads no environment). A caller picks the other through
+# `mode`, which the models' `decode(..., mdblock_mode=)` and the sessions'
+# `mdblock_mode` argument pass down. npe_tpu gives its kernel only the widths
+# whose taps fit the TPU's VMEM; here "fused" means every MDBLOCK, and a shape
+# the kernel cannot take raises.
+MDBLOCK_MODE = "plain"
+MDBLOCK_MODES = ("plain", "fused")
+
+
+def mdblock(v, upd, name, x, scales, act, train, mode=None):
+    """MDBLOCK (reference `layers.py:411-416`): the pre-activation residual
+    act(BN2(x + MDCL2(act(BN1(MDCL1(act(BN0(x)))))))). With `train` the
+    per-op form runs whatever the mode, as in npe_tpu: batch statistics do
+    not fold to an affine. The fused form is the kernel's, whose activation
+    is LRELU; in eager PyTorch it stacks both tap tensors and the affines
+    from the weights on every call, and nothing is cached on a weight's
+    identity."""
+    mode = mode or MDBLOCK_MODE
+    if mode not in MDBLOCK_MODES:
+        raise ValueError(f"unknown MDBLOCK mode {mode!r}; the modes are {MDBLOCK_MODES}")
+    if mode == "fused" and not train:
+        if act is not LRELU:
+            raise ValueError('the "fused" MDBLOCK computes LeakyReLU(0.2); another activation wants mode="plain"')
+        taps1, taps2 = (_stacked_mdcl_taps(v, n, scales) for n in (name, f"{name}2"))
+        affines = torch.stack([a for i in range(3) for a in _bn_affine(v, f"{name}bnorm{i}")])
+        return mdblock_fused(x, taps1, taps2, affines, scales)
+    h = act(bn(v, upd, f"{name}bnorm0", x, train))
+    h = mdcl(v, name, h, scales)
+    h = act(bn(v, upd, f"{name}bnorm1", h, train))
+    h = mdcl(v, f"{name}2", h, scales)
+    return act(bn(v, upd, f"{name}bnorm2", x + h, train))
 
 
 def head_kernels(v, scales):

@@ -1,5 +1,5 @@
-"""Multiscale Dilated Convolution (MDC), composed form (npe_tpu
-`ops/mdcl.py:25-78`).
+"""Multiscale Dilated Convolution (MDC), composed and branch-per-scale forms
+(npe_tpu `ops/mdcl.py:25-95`).
 
 The reference's `MDCL` block (`layers.py:207-258`) runs one shared 3x3 filter
 W through several parallel conv layers -- an undilated 3x3, a 1x1 conv of the
@@ -65,7 +65,25 @@ def compose_mdcl_kernel(w, coeff_base, scale_coeffs, scales):
 
 def mdcl_apply(x, w, coeff_base, scale_coeffs, scales):
     """The whole MDCL block ('same' padding) as one conv with the composed
-    kernel. (npe_tpu's branch-per-scale form is a TPU scheduling choice over
-    the same math.)"""
+    kernel. (npe_tpu picks between this and `mdcl_apply_branch` per scale set
+    from a TPU tuning switch; the port's models always take this form.)"""
     k = compose_mdcl_kernel(w, coeff_base, scale_coeffs, scales)
     return conv2d(x, k, padding=k.shape[-1] // 2)
+
+
+def mdcl_apply_branch(x, w, coeff_base, scale_coeffs, scales):
+    """Branch-per-scale MDCL (npe_tpu `ops/mdcl.py:81-95`): the base 3x3 with
+    the scale-0 branch (the 1x1 conv of the filter means) folded into its
+    centre tap, plus one dilation-s 3x3 conv per scale s > 0, the
+    per-output-channel coefficients folded into the kernels. The same sums as
+    `mdcl_apply` without the composed kernel's structural zeros."""
+    k3 = w * coeff_base[:, None, None, None]
+    if 0 in scales:
+        centre = torch.zeros(3, 3, dtype=w.dtype, device=w.device)
+        centre[1, 1] = 1.0
+        k3 = k3 + (w.mean(dim=(2, 3)) * scale_coeffs[0][:, None])[:, :, None, None] * centre
+    out = conv2d(x, k3, padding=1)
+    for s in scales:
+        if s > 0:
+            out = out + conv2d(x, w * scale_coeffs[s][:, None, None, None], padding=s, dilation=s)
+    return out

@@ -76,7 +76,25 @@ def to_reference(variables):
     }
 
 
-def unit_gain(variables, mdcl_taps=3.0, iaf_logsigma_gain=1.0):
+def mdcl_fan_taps(variables, name):
+    """How many taps' worth of variance per input channel a pre-activation
+    of MDCL `name`'s composed kernel sees, from its coefficients (their means
+    over the output channels): the centre tap carries the filter's own centre
+    times (base + every dilated scale's coefficient, which all land there)
+    plus a ninth of the scale-0 coefficient times each of the nine taps; each
+    of the eight other taps of a 3x3 branch carries that branch's coefficient.
+    Squared and summed. The RGB-Beta head as initialized (scales [2, 3, 4],
+    every coefficient 1/4) gives 1 + 32/16 = 3; an MDBLOCK's [0, 2] at 1/3
+    gives 2.28 and its [0, 2, 3] at 1/4 gives 2.11."""
+    prefix = f"{name}_coeff_"
+    coeffs = {k[len(prefix):]: float(np.mean(np.asarray(v))) for k, v in variables.items()
+              if k.startswith(prefix)}
+    mean_branch = coeffs.pop("1x1", 0.0) / 9.0
+    centre = sum(coeffs.values()) + mean_branch
+    return centre**2 + 8 * mean_branch**2 + 8 * sum(c**2 for c in coeffs.values())
+
+
+def unit_gain(variables, mdcl_taps=None, iaf_logsigma_gain=1.0):
     """Seeded weights for comparisons, not for training: npe_tpu variables (name -> array) with each weight kernel rescaled to
     a He-style std sqrt(2 / fan_in), as numpy float32; names, shapes and all
     other arrays unchanged. Both packages' inits draw kernels from
@@ -86,12 +104,12 @@ def unit_gain(variables, mdcl_taps=3.0, iaf_logsigma_gain=1.0):
     seeded weights mean something.
 
     MDCL filters (4-D, names ending in a bare `W`) take the fan
-    `mdcl_taps * cin`: how many taps' worth of variance per input channel a
-    pre-activation of the composed kernel sees. The default 3 is that of the
-    RGB-Beta head as initialized, scales [2, 3, 4] with every coefficient
-    1/4: the centre tap sums to the filter's own and each of the other 32
-    taps carries a quarter of one, 1 + 32/16 = 3. Another scale set or other
-    coefficients want another value. MADE weights (2-D, beside a
+    `mdcl_taps * cin`, by default `mdcl_fan_taps` of the filter's own scale
+    set and coefficients. The two filters of an MDBLOCK (a `{name}bnorm0`
+    stands beside them) sit on a residual branch, y = x + MDCL2(..MDCL1(..x)):
+    at He's gain the sum would double the variance in every block, so they
+    take std sqrt(1 / fan) and a block adds about a quarter to it. MADE
+    weights (2-D, beside a
     `.weights_mask`) are left as drawn, their orthogonal init at gain sqrt(2)
     being unit gain already, except that the IAF log-sigma net's output
     layers (`*_ls_output_*.W`) are multiplied by `iaf_logsigma_gain`: a
@@ -101,10 +119,14 @@ def unit_gain(variables, mdcl_taps=3.0, iaf_logsigma_gain=1.0):
     out = {}
     for k, v in variables.items():
         v = np.asarray(v, np.float32)
+        gain = 2.0
         if k.endswith("W") and v.ndim == 4:
             kh, kw, cin, _ = v.shape
             if not k.endswith(".W"):
-                fan = mdcl_taps * cin
+                fan = (mdcl_taps or mdcl_fan_taps(variables, k[:-1])) * cin
+                block = k[:-2] if k.endswith("2W") and f"{k[:-1]}bnorm0.gamma" not in variables else k[:-1]
+                if f"{block}bnorm0.gamma" in variables:
+                    gain = 1.0
             else:
                 # a stride-2 deconv output pixel sees a quarter of the taps
                 fan = kh * kw * cin / (4 if _is_deconv(k) else 1)
@@ -116,7 +138,7 @@ def unit_gain(variables, mdcl_taps=3.0, iaf_logsigma_gain=1.0):
         else:
             out[k] = v
             continue
-        out[k] = (v / v.std() * np.sqrt(2.0 / fan)).astype(np.float32)
+        out[k] = (v / v.std() * np.sqrt(gain / fan)).astype(np.float32)
     return out
 
 

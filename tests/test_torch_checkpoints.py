@@ -229,3 +229,54 @@ def test_restore_made_masks_without_metadata_keeps_the_init_masks():
     tckpt.restore_made_masks(port, {"made_orderings": {"some_other_net": [1, 0]}})
     for k, m in before.items():
         assert torch.equal(port[k], m)
+
+
+# --- full IAN: MDBLOCK filters, their fan, an npe_tpu file ---------------------
+
+
+def test_unit_gain_gives_mdblock_filters_their_own_fan():
+    """The fan of an MDCL filter follows its scale set and coefficients; an
+    MDBLOCK's two filters, on a residual branch, take gain 1 instead of 2."""
+    v = jax_config(tp.TINY_FULL_JAX).init(jax.random.PRNGKey(0))
+    out = tckpt.unit_gain(v, iaf_logsigma_gain=0.1)
+    assert sorted(out) == sorted(v)
+    assert tckpt.mdcl_fan_taps(v, "R") == pytest.approx(3.0)  # scales [2, 3, 4] at 1/4: the head's, as before
+    taps_02, taps_023 = tckpt.mdcl_fan_taps(v, "dec_conv2a"), tckpt.mdcl_fan_taps(v, "dec_conv3a2")
+    assert taps_02 == pytest.approx((19 / 27) ** 2 + 8 / 27**2 + 16 / 9)  # scales [0, 2] at 1/3
+    assert taps_023 == pytest.approx((28 / 36) ** 2 + 8 / 36**2 + 24 / 16)  # scales [0, 2, 3] at 1/4
+    for k, cin, taps in (("dec_conv2aW", 64, taps_02), ("dec_conv2a2W", 64, taps_02),
+                         ("dec_conv3aW", 32, taps_023), ("dec_conv4a2W", 16, taps_023)):
+        assert out[k].shape == (3, 3, cin, cin)
+        np.testing.assert_allclose(out[k].std(), np.sqrt(1.0 / (taps * cin)), rtol=1e-5)
+    np.testing.assert_allclose(out["RW"].std(), np.sqrt(2.0 / (3 * 16)), rtol=1e-5)
+    np.testing.assert_allclose(out["dec_conv2.W"].std(), np.sqrt(2.0 / (25 * 64 / 4)), rtol=1e-5)
+    for k in ("dec_conv2a_coeff_1x1", "dec_conv3abnorm1.gamma", "dec_conv1.b", "l_IAF_mu_input.W"):
+        np.testing.assert_array_equal(out[k], np.asarray(v[k]))
+
+
+def test_npe_tpu_full_ian_file_loads_with_masks_regenerated(tmp_path, caplog):
+    """An npe_tpu full-IAN file into the port: no warning, MADE masks from
+    the file's orderings, `dec_conv*aW` as conv kernels (not transposed as
+    the deconvs `dec_conv*.W` are), and the port's file equals npe_tpu's."""
+    jv = _with_ordering(jax_config(tp.TINY_FULL_JAX).init(jax.random.PRNGKey(0)),
+                        np.random.RandomState(4).permutation(16))
+    jv["dec_conv3aW"] = np.random.RandomState(5).randn(3, 3, 32, 32).astype(np.float32)
+    src, dst = tmp_path / "jax.npz", tmp_path / "port.npz"
+    jckpt.save_weights(str(src), jv)
+    port = torch_config(tp.TINY_FULL_TORCH).init(torch.Generator().manual_seed(1), "cpu")
+    with caplog.at_level(logging.WARNING):
+        tckpt.load_weights(str(src), port)
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    for k in (k for k in jv if k.endswith(".weights_mask")):
+        np.testing.assert_array_equal(port[k].numpy(), np.asarray(jv[k]))
+    w = np.asarray(jv["dec_conv3aW"])
+    assert tuple(port["dec_conv3aW"].shape) == (32, 32, 3, 3)
+    np.testing.assert_array_equal(port["dec_conv3aW"][5, 3].numpy(), w[:, :, 3, 5])  # (cout, cin) <- (.., cin, cout)
+    d = np.asarray(jv["dec_conv3.W"])
+    np.testing.assert_array_equal(port["dec_conv3.W"][5, 3].numpy(), d[:, :, 5, 3])  # deconv: (cin, cout)
+    tckpt.save_weights(str(dst), port)
+    with np.load(src) as a, np.load(dst) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            if k != tckpt.METADATA_KEY:
+                np.testing.assert_array_equal(a[k], b[k])

@@ -15,12 +15,14 @@ from npe_tpu_torch.editor.engine import EditSession
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.models import common
 from npe_tpu_torch.ops.kernels import edit_tail as et
+from npe_tpu_torch.ops.kernels import mdblock as mk
 from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
 from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
 from npe_tpu_torch.utils.checkpoints import from_reference, to_reference, unit_gain
 
 TINY = str(pathlib.Path(__file__).resolve().parent / "tiny_ian_torch.py")
 TINY_V1 = str(pathlib.Path(__file__).resolve().parent / "tiny_ianv1_torch.py")
+TINY_FULL = str(pathlib.Path(__file__).resolve().parent / "tiny_ian_full_torch.py")
 
 
 @pytest.fixture
@@ -176,3 +178,107 @@ def test_head_kernel_forms_raise_on_shapes_their_kernels_cannot_take(cuda, mode)
     assert (rt.rgb_beta_tail.launches, rh.rgb_beta_head.launches) == before
     assert common.rgb_beta_head(seeded, h, mode=mode).shape == (1, 3, 64, 64)
     assert sum((rt.rgb_beta_tail.launches, rh.rgb_beta_head.launches)) == sum(before) + 1
+
+
+def _mdblock_inputs(batch, c, size, scales, device, seed=7):
+    """Seeded O(1) features, tap tensors at unit gain and non-trivial affines."""
+    rng = np.random.RandomState(seed)
+    n_taps = 9 * len(mk.dilations(scales))
+    x = rng.randn(batch, c, size, size).astype(np.float32)
+    taps = [(rng.randn(n_taps, c, c) / np.sqrt(2.2 * c)).astype(np.float32) for _ in range(2)]
+    aff = np.stack([rng.uniform(0.8, 1.2, c), rng.uniform(-0.2, 0.2, c)] * 3).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, *taps, aff)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,channels,size,scales", [
+    (1, 512, 8, (0, 2)), (1, 256, 16, (0, 2, 3)), (1, 128, 32, (0, 2, 3)),  # full IAN's three blocks
+    (8, 128, 32, (0, 2, 3)),
+    (2, 16, 8, (0, 2)), (3, 32, 16, (0, 2, 3)),  # the tiny profile's widths
+    (3, 80, 16, (2, 3, 4)),  # a channel tile that is only part full; no scale 0
+    (600, 64, 8, (0,)),  # more blocks than one wave: one slice, the epilogue in the product kernel
+])
+def test_mdblock_kernel_matches_plain(cuda, batch, channels, size, scales):
+    x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda)
+    before = mk.mdblock_fused.launches
+    got = mk.mdblock_fused(x, t1, t2, aff, scales)
+    torch.cuda.synchronize()
+    assert mk.mdblock_fused.launches == before + 1
+    want = mk.mdblock_taps_reference(x, t1, t2, aff, scales)
+    assert got.shape == x.shape and float(want.std()) > 0.5
+    # float32 sums of up to 9216 products in another order, twice in a row
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    xg = x.clone().requires_grad_(True)
+    (got_g,) = torch.autograd.grad((mk.mdblock_fused(xg, t1, t2, aff, scales) ** 2).sum(), xg)
+    (want_g,) = torch.autograd.grad((mk.mdblock_taps_reference(xg, t1, t2, aff, scales) ** 2).sum(), xg)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-3, atol=1e-4 * float(want_g.abs().max()))
+
+
+@pytest.mark.cuda
+def test_mdblock_gradients_reach_the_taps_and_affines_only_when_asked(cuda):
+    x, t1, t2, aff = _mdblock_inputs(2, 32, 8, (0, 2), cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, t1, t2, aff)]
+    got = torch.autograd.grad((mk.mdblock_fused(*leaves, (0, 2)) ** 2).sum(), leaves)
+    want = torch.autograd.grad((mk.mdblock_taps_reference(*leaves, (0, 2)) ** 2).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4 * float(b.abs().max()))
+    out = mk.mdblock_fused(leaves[0], t1, t2, aff, (0, 2))
+    assert out.grad_fn is not None and out.grad_fn.next_functions[1][0] is None  # no path to the taps
+
+
+@pytest.mark.cuda
+def test_mdblock_wrapper_raises_on_the_card_too(cuda):
+    x, t1, t2, aff = _mdblock_inputs(1, 32, 8, (0, 2), cuda)
+    before = mk.mdblock_fused.launches
+    with pytest.raises(TypeError, match="float32"):
+        mk.mdblock_fused(x.half(), t1, t2, aff, (0, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.mdblock_fused(x.contiguous(memory_format=torch.channels_last), t1, t2, aff, (0, 2))
+    with pytest.raises(ValueError, match="is on"):
+        mk.mdblock_fused(x, t1.cpu(), t2, aff, (0, 2))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mk.mdblock_fused(*_mdblock_inputs(1, 8, 8, (0, 2), cuda), (0, 2))
+    assert mk.mdblock_fused.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "fused"])
+def test_tiny_ian_session_on_the_card_matches_the_cpu(cuda, mode):
+    """The tiny full-IAN profile's session on the card and on the CPU from
+    the same unit-gain weights: in the fused form each decode launches the
+    MDBLOCK kernel three times (a stroke decodes twice, infer once), in the
+    per-op form never."""
+    seeded = get_config(TINY_FULL).init(torch.Generator().manual_seed(0), "cpu")
+    reference = unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1)
+    sessions = [EditSession(TINY_FULL, variables=from_reference(reference, d), dim=(4, 4), device=d,
+                            mdblock_mode=mode)
+                for d in (cuda, "cpu")]
+    image = np.random.RandomState(3).uniform(-0.5, 0.5, (3, 64, 64)).astype(np.float32)
+    before = (mk.mdblock_fused.launches, rt.rgb_beta_tail.launches, et.edit_tail.launches)
+    for s in sessions:
+        s.infer(image)
+        s.paint_stroke(10, 10, 20, 20, (255, 0, 0))
+        s.paint_stroke(30, 5, 50, 25, (0, 255, 0), 0.5)
+    assert mk.mdblock_fused.launches == before[0] + (15 if mode == "fused" else 0)
+    assert rt.rgb_beta_tail.launches == before[1] + 5
+    assert et.edit_tail.launches == before[2] + 2
+    card, cpu = sessions
+    np.testing.assert_allclose(card.Z.cpu().numpy(), cpu.Z.numpy(), rtol=1e-3, atol=1e-4)
+    assert np.isfinite(card.IM).all() and np.abs(card.DELTA).max() > 1e-2
+
+
+@pytest.mark.cuda
+def test_fused_mdblock_raises_on_a_shape_its_kernel_cannot_take(cuda):
+    """On the card the fused form launches its kernel or raises: eight
+    channels never drop to the per-op form."""
+    vb = common.VarBuilder(torch.Generator().manual_seed(0), cuda)
+    for name in ("blk", "blk2"):
+        vb.mdcl(name, 8, 8, [0, 2])
+    for i in range(3):
+        vb.bn(f"blkbnorm{i}", 8)
+    x = torch.zeros(1, 8, 8, 8, device=cuda)
+    before = mk.mdblock_fused.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        common.mdblock(vb.v, None, "blk", x, (0, 2), common.LRELU, False, mode="fused")
+    assert mk.mdblock_fused.launches == before
+    assert common.mdblock(vb.v, None, "blk", x, (0, 2), common.LRELU, False, mode="plain").shape == x.shape

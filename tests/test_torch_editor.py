@@ -1,5 +1,6 @@
 """npe_tpu_torch's EditSession against npe_tpu's (plain tail, the path its
-own tests take on the CPU) on the same variables and the same script."""
+own tests take on the CPU) on the same variables and the same script, for
+IAN_simple, IANv1 and full IAN."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from npe_tpu_torch.editor.engine import EditSession as TorchSession
 from npe_tpu_torch.ops.kernels.edit_tail import edit_tail
 from npe_tpu_torch.ops.kernels.rgb_beta_head import rgb_beta_head
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import rgb_beta_tail
+from npe_tpu_torch.utils.checkpoints import from_reference
 
 tp.torch_threads()
 
@@ -178,6 +180,70 @@ def test_ianv1_default_device_raises_without_cuda():
 
 def test_full_width_ianv1_stroke_matches_jax():
     js, ts = _sessions("IANv1", "IANv1", (10, 10))
+    for s in (js, ts):
+        s.infer(_image())
+    _assert_same_state(ts, js)
+    for s in (js, ts):
+        s.paint_stroke(10, 10, 20, 20, (255, 0, 0), 0.5)
+    _assert_same_state(ts, js)
+    assert np.abs(ts.DELTA).max() > 1e-2
+
+
+# --- full IAN ----------------------------------------------------------------
+
+
+def _full_sessions(mdblock_mode=None, bn_seed=5):
+    jv = tp.with_bn_state(tp.jax_variables(tp.TINY_FULL_JAX), seed=bn_seed)
+    js = JaxSession(config=tp.TINY_FULL_JAX, variables=tp.as_jax(jv), dim=(4, 4), use_pallas=False)
+    ts = TorchSession(config=tp.TINY_FULL_TORCH, variables=from_reference(jv, "cpu"), dim=(4, 4), device="cpu",
+                      mdblock_mode=mdblock_mode)
+    return js, ts
+
+
+@pytest.mark.parametrize("mdblock_mode", [None, "fused"])
+def test_ian_scripted_session_matches_jax(mdblock_mode):
+    """A stroke script through both packages' EditSession on the tiny full
+    IAN, with the port's MDBLOCKs in the per-op and in the fused form."""
+    js, ts = _full_sessions(mdblock_mode)
+    script = [
+        ("infer", (_image(12),)),
+        ("paint_stroke", (10, 10, 20, 20, (255, 0, 0))),
+        ("paint_stroke", (30, 5, 50, 25, (0, 255, 0), 1.5)),
+        ("scroll_patch", (8, 8, 16, 16, -1)),
+        ("set_latents", (np.random.RandomState(13).randn(4, 4).astype(np.float32) * 0.5,)),
+        ("undo", ()),
+    ]
+    for op, args in script:
+        getattr(js, op)(*args)
+        getattr(ts, op)(*args)
+        _assert_same_state(ts, js)
+    assert np.abs(ts.DELTA).max() > 1e-2
+    tf = ts.fork()
+    assert tf.variables is ts.variables and tf.decode_options == ts.decode_options
+    assert ts.decode_options == ({} if mdblock_mode is None else {"mdblock_mode": "fused"})
+
+
+def test_ian_session_refuses_an_unknown_mdblock_mode_and_v1_refuses_the_argument():
+    _, ts = _full_sessions("pallas")
+    with pytest.raises(ValueError, match="unknown MDBLOCK mode"):
+        ts.infer(_image())
+    with pytest.raises(TypeError, match="mdblock_mode"):
+        TorchSession(config=tp.TINY_V1_TORCH, variables=tp.port_variables(tp.TINY_V1_JAX), dim=(4, 4),
+                     device="cpu", mdblock_mode="fused").infer(_image())
+
+
+def test_ian_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchSession(config="IAN")
+
+
+def test_full_width_ian_stroke_matches_jax():
+    jv = tp.jax_variables("IAN")
+    js = JaxSession(config="IAN", variables=tp.as_jax(jv), dim=(10, 10), use_pallas=False)
+    ts = TorchSession(config="IAN", variables=from_reference(jv, "cpu"), dim=(10, 10), device="cpu",
+                      mdblock_mode="fused")
     for s in (js, ts):
         s.infer(_image())
     _assert_same_state(ts, js)

@@ -1,7 +1,7 @@
-"""npe_tpu_torch's IAN_simple and IANv1 against npe_tpu's on the same
-variables: every model function at the tiny widths of tests/tiny_ian.py and
-tests/tiny_ianv1.py in both BN modes, and one full-width encode + decode
-each."""
+"""npe_tpu_torch's IAN_simple, IANv1 and full IAN against npe_tpu's on the
+same variables: every model function at the tiny widths of tests/tiny_ian.py,
+tests/tiny_ianv1.py and tests/tiny_ian_full.py in both BN modes (full IAN in
+both MDBLOCK forms), and one full-width encode + decode each."""
 
 import numpy as np
 import pytest
@@ -10,6 +10,7 @@ import torch
 import torch_parity as tp
 from npe_tpu.models import get_config as jax_config
 from npe_tpu_torch.models import get_config as torch_config
+from npe_tpu_torch.utils import checkpoints as tckpt
 
 tp.torch_threads()
 
@@ -66,14 +67,17 @@ def test_full_width_ian_simple_encode_decode():
 
 
 def test_get_config():
-    from npe_tpu_torch.models import ian_simple, ian_v1
+    from npe_tpu_torch.models import REGISTRY, ian, ian_simple, ian_v1
 
     assert torch_config("IAN_simple") is ian_simple
     assert torch_config("some/dir/IAN_simple.py") is ian_simple
     assert torch_config("IANv1") is ian_v1
     assert torch_config("some/dir/IANv1.py") is ian_v1
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch_config("IAN")
+    assert torch_config("IAN") is ian
+    assert torch_config("some/dir/IAN.py") is ian
+    from npe_tpu.models import REGISTRY as JAX_REGISTRY
+
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY)  # every model config of npe_tpu
     with pytest.raises(KeyError):
         torch_config("no_such_model")
     tiny = torch_config(tp.TINY_TORCH)
@@ -176,3 +180,156 @@ def test_full_width_ianv1_encode_decode():
     assert jx.std() > 0.1
     tp.assert_close(tz.numpy(), jz)
     tp.assert_close(tp.nhwc(tx), jx)
+
+
+# --- full IAN ----------------------------------------------------------------
+
+
+def _full(bn_state=False):
+    jv = tp.jax_variables(tp.TINY_FULL_JAX)
+    if bn_state:
+        jv = tp.with_bn_state(jv, seed=11)
+    # as jax arrays: npe_tpu's branch-per-scale MDCL updates a filter with `.at`
+    return (jax_config(tp.TINY_FULL_JAX), torch_config(tp.TINY_FULL_TORCH), tp.as_jax(jv),
+            tckpt.from_reference(jv, "cpu"))
+
+
+def test_ian_cfg_and_init_mirror_npe_tpu():
+    import jax
+
+    from npe_tpu_torch.models import ian
+
+    jm = jax_config("IAN")
+    assert ian.cfg == jm.cfg and ian.lr_schedule == jm.lr_schedule
+    assert (ian.NUM_LATENTS, ian.N_DISCRIM_CLASSES, ian.HAS_IAF) == (100, 3, True)
+    assert ian.MADE_HIDDEN == jm.MADE_HIDDEN
+    jm, tm, _, _ = _full()
+    assert tm.cfg == jm.cfg
+    jv = jm.init(jax.random.PRNGKey(0))
+    tv = tm.init(torch.Generator().manual_seed(0), "cpu")
+    assert list(tv) == list(jv)  # every name, in npe_tpu's draw order
+    ported = tp.port_variables(tp.TINY_FULL_JAX)
+    for k in tv:
+        assert tv[k].shape == ported[k].shape and tv[k].dtype == torch.float32, k
+        if k.endswith(".weights_mask") or "_coeff_" in k:
+            np.testing.assert_array_equal(tv[k].numpy(), np.asarray(jv[k]))
+    assert tv["dec_conv2aW"].shape == (64, 64, 3, 3) and tv["dec_conv1.W"].shape == (64, 64, 5, 5)
+    assert float(tv["dec_conv2a_coeff_1x1"][0]) == pytest.approx(1 / 3)
+    assert float(tv["dec_conv3a2_coeff_3"][0]) == pytest.approx(1 / 4)
+
+
+def test_full_width_ian_init_has_every_name_and_shape_of_npe_tpu():
+    import jax
+
+    jshapes = jax.eval_shape(jax_config("IAN").init, jax.random.PRNGKey(0))
+    tv = torch_config("IAN").init(torch.Generator().manual_seed(0), "cpu")
+    assert sorted(tv) == sorted(jshapes)  # eval_shape returns the dict sorted
+    for k, t in tv.items():
+        want = tckpt._to_port_layout(k, np.empty(jshapes[k].shape, np.bool_)).shape
+        assert tuple(t.shape) == tuple(want), k
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_tiny_ian_encode_stats_and_latent_path_match_jax(train):
+    jm, tm, jv, tv = _full(bn_state=True)
+    x = _images(4, seed=7)
+    jupd, tupd = {}, {}
+    jmu, jls, jfeats = jm.encode_stats(jv, x.transpose(0, 2, 3, 1), train, jupd)
+    tmu, tls, tfeats = tm.encode_stats(tv, torch.from_numpy(x), train, tupd)
+    tp.assert_close(tmu.numpy(), jmu)
+    tp.assert_close(tls.numpy(), jls)
+    for a, b in zip(tfeats, jfeats):
+        tp.assert_close(tp.nhwc(a), b)
+    assert sorted(tupd) == sorted(jupd) and (len(jupd) > 0) == train
+    for k in jupd:
+        tp.assert_close(tupd[k].numpy(), jupd[k])
+    if not train:
+        jmu = np.array(jm.encode_pre_iaf(jv, x.transpose(0, 2, 3, 1)))
+        tp.assert_close(tm.encode_pre_iaf(tv, torch.from_numpy(x)).numpy(), jmu)
+        for a, b in zip(tm.iaf(tv, torch.from_numpy(jmu)), jm.iaf(jv, jmu)):
+            tp.assert_close(a.numpy(), np.asarray(b))
+        tp.assert_close(tm.encode(tv, torch.from_numpy(x)).numpy(),
+                        np.asarray(jm.encode(jv, x.transpose(0, 2, 3, 1))))
+
+
+@pytest.mark.parametrize("mdblock_mode", [None, "plain", "fused"])
+@pytest.mark.parametrize("train", [False, True])
+def test_tiny_ian_decode_matches_jax(train, mdblock_mode):
+    """Both MDBLOCK forms in both BN modes, with every norm's state off the
+    identity; with train=True the fused mode runs the per-op form too."""
+    from npe_tpu_torch.ops.kernels.mdblock import mdblock_fused
+
+    jm, tm, jv, tv = _full(bn_state=True)
+    z = np.random.RandomState(8).randn(4, 16).astype(np.float32)
+    jupd, tupd = {}, {}
+    want = np.asarray(jm.decode(jv, z, train, jupd))
+    launches = mdblock_fused.launches
+    got = tm.decode(tv, torch.from_numpy(z), train, tupd, mdblock_mode=mdblock_mode)
+    assert got.shape == (4, 3, 64, 64) and mdblock_fused.launches == launches
+    assert want.std() > 0.1
+    tp.assert_close(tp.nhwc(got), want)
+    assert sorted(tupd) == sorted(jupd) and (len(jupd) == 20) == train  # 9 MDBLOCK norms and bnorm_dc4
+    for k in jupd:
+        tp.assert_close(tupd[k].numpy(), jupd[k])
+    jupd, tupd = {}, {}
+    want = np.asarray(jm.decode_pre_iaf(jv, z, train, jupd))
+    got = tm.decode_pre_iaf(tv, torch.from_numpy(z), train, tupd, mdblock_mode=mdblock_mode)
+    tp.assert_close(tp.nhwc(got), want)
+    assert sorted(tupd) == sorted(jupd)
+
+
+def test_tiny_ian_decode_takes_head_and_mdblock_modes_together():
+    _, tm, _, tv = _full(bn_state=True)
+    z = torch.from_numpy(np.random.RandomState(9).randn(2, 16).astype(np.float32))
+    want = tm.decode(tv, z)
+    for head_mode in ("plain", "fused"):
+        tp.assert_close(tm.decode(tv, z, head_mode=head_mode, mdblock_mode="fused").numpy(), want.numpy())
+    with pytest.raises(ValueError, match="unknown MDBLOCK mode"):
+        tm.decode(tv, z, mdblock_mode="pallas")
+
+
+def test_unit_gain_keeps_the_full_ian_decoder_of_order_one():
+    """The MDBLOCK filters' fan (their own scale sets and coefficients, at
+    gain 1 on the residual branch) keeps three blocks in a row O(1): every
+    block's input and output, tiny and at full width."""
+    from npe_tpu_torch.models import common, ian
+
+    for config, zdim in ((tp.TINY_FULL_JAX, 16), ("IAN", 100)):
+        tv = tp.port_variables(config)
+        stds = []
+        real = common.mdblock
+
+        def spy(v, upd, name, x, *args, **kwargs):
+            y = real(v, upd, name, x, *args, **kwargs)
+            stds.extend([float(x.std()), float(y.std())])
+            return y
+
+        ian.mdblock = spy
+        try:
+            with torch.no_grad():
+                out = ian.decode(tv, torch.from_numpy(np.random.RandomState(10).randn(2, zdim).astype(np.float32)))
+        finally:
+            ian.mdblock = real
+        assert len(stds) == 6 and all(0.5 < s < 3.0 for s in stds), stds
+        assert out.std() > 0.3
+
+
+def test_full_width_ian_encode_decode():
+    """Full IAN at full width, once, at batch 1: encode, then decode in both
+    MDBLOCK forms (the fused form at 512, 256 and 128 channels)."""
+    jm, tm = jax_config("IAN"), torch_config("IAN")
+    jv = tp.as_jax(tp.jax_variables("IAN"))
+    x = _images(1, seed=12)
+    jz = np.asarray(jm.encode(jv, x.transpose(0, 2, 3, 1)))
+    jx = np.asarray(jm.decode(jv, jz))
+    tv = tp.port_variables("IAN")
+    assert tv["dec_conv2aW"].shape == (512, 512, 3, 3) and tv["dec_conv4.W"].shape == (128, 128, 5, 5)
+    with torch.no_grad():
+        tz = tm.encode(tv, torch.from_numpy(x))
+        tx = tm.decode(tv, tz)
+        tx_fused = tm.decode(tv, tz, mdblock_mode="fused")
+    assert tz.shape == (1, 100) and tx.shape == (1, 3, 64, 64)
+    assert jx.std() > 0.1
+    tp.assert_close(tz.numpy(), jz)
+    tp.assert_close(tp.nhwc(tx), jx)
+    tp.assert_close(tp.nhwc(tx_fused), jx)

@@ -13,6 +13,8 @@ TINY_JAX = "tests/tiny_ian.py"
 TINY_TORCH = "tests/tiny_ian_torch.py"
 TINY_V1_JAX = "tests/tiny_ianv1.py"
 TINY_V1_TORCH = "tests/tiny_ianv1_torch.py"
+TINY_FULL_JAX = "tests/tiny_ian_full.py"
+TINY_FULL_TORCH = "tests/tiny_ian_full_torch.py"
 # The golden tolerance, tests/test_goldens.py:28-29.
 RTOL, ATOL = 1e-3, 1e-4
 # What the seeded weights multiply the IAF's log-sigma output layers by.
@@ -35,6 +37,28 @@ def jax_variables(config):
 
 def port_variables(config, device="cpu"):
     return from_reference(jax_variables(config), device)
+
+
+def as_jax(variables):
+    """numpy variables -> jax arrays, for the npe_tpu functions that update
+    an array with `.at` (the branch-per-scale MDCL of full IAN's MDBLOCKs)."""
+    import jax.numpy as jnp
+
+    return {k: jnp.asarray(v) for k, v in variables.items()}
+
+
+def with_bn_state(variables, seed=0):
+    """npe_tpu variables with every batch norm's running state and affine
+    moved off the identity that init leaves (mean 0, inv_std 1, beta 0,
+    gamma 1), so that an inference-mode comparison sees each of the four."""
+    rng = np.random.RandomState(seed)
+    ranges = {".mean": (-0.2, 0.3), ".inv_std": (0.8, 1.3), ".beta": (-0.1, 0.1), ".gamma": (0.9, 1.1)}
+    out = dict(variables)
+    for k in sorted(out):
+        for suffix, (lo, hi) in ranges.items():
+            if k.endswith(suffix) and k[: -len(suffix)] + ".inv_std" in out:
+                out[k] = rng.uniform(lo, hi, np.shape(out[k])).astype(np.float32)
+    return out
 
 
 def nhwc(t):
