@@ -9,7 +9,12 @@ the model API on IAN_simple, on IANv1 and on full IAN (full width, seeded
 random weights at unit gain; IANv1 with the RGB-Beta head in both kernel
 forms, full IAN with its MDBLOCKs in the fused and the per-op form), holds
 the card's results against the port on the CPU, and times the edit step, the
-kernels and encode+decode. The last line is {"ok": true, "device": {...}}; any failed phase ends the run with a
+kernels and encode+decode. Then the trainer: `training.train.train` on
+IAN_simple at full width (batch 128, the procedural dataset, two epochs and a
+resumed third, with the dataset resident on the card and with per-chunk
+uploads, each chunk staged by the `staging` kernel), one G and one D step held
+against the CPU, the same steps on IANv1 and full IAN, and the training
+times. The last line is {"ok": true, "device": {...}}; any failed phase ends the run with a
 nonzero exit before it. Without a CUDA device it exits nonzero at once.
 """
 
@@ -40,7 +45,18 @@ UINT8_STEP = 2.0 / 255.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 N_STROKES = 16
-TIMED_STROKES = 200
+TIMED_STROKES = 100
+# staging kernel vs plain: x * (2/255) - 1 in float32, rounded alike
+STAGING_TOL = 1e-6
+# float32 gradients of one step, card vs CPU: a relu that the two devices round
+# to opposite sides of zero moves every gradient tensor at once (the
+# adversarial gradients are sums of ~1e7 terms of random sign), so they are
+# held to 10 % of each tensor's largest value (2.5-2.9 % seen; a missing loss
+# term would be tens of percent); the float64 step to GRAD64_TOL.
+GRAD32_TOL = 1e-1
+GRAD64_TOL = 1e-6
+TRAIN_BATCH, TRAIN_BATCHES_PER_CHUNK = 128, 8
+TRAIN_EXAMPLES = 2 * TRAIN_BATCHES_PER_CHUNK * TRAIN_BATCH + TRAIN_BATCH // 2  # two chunks at either offset
 HEAD_SCALES = [2, 3, 4]
 # Full IAN's three MDBLOCKs: (name, channels, map size, scales)
 MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2, 3)),
@@ -261,20 +277,20 @@ def compare_api(label, ian_card, ian_cpu, rng):
                 ian_cpu.imgradRGB(8, 8, 24, 24, rgb, z1))
 
 
-def time_strokes(label, session, image, smi):
-    """p50 / p95 of paint_stroke over TIMED_STROKES strokes on the host's
-    clock (each ends in a device-to-host copy)."""
+def time_strokes(label, session, image, smi, n=TIMED_STROKES):
+    """p50 / p95 of paint_stroke over `n` strokes on the host's clock (each
+    ends in a device-to-host copy)."""
     session.infer(image)
     strokes = stroke_script()
     for i in range(10):
         session.paint_stroke(*strokes[i % N_STROKES])
     times = []
-    for i in range(TIMED_STROKES):
+    for i in range(n):
         t = time.perf_counter()
         session.paint_stroke(*strokes[i % N_STROKES])
         times.append((time.perf_counter() - t) * 1e3)
     p50, p95 = np.percentile(times, [50, 95])
-    log(f"[time] {label} paint_stroke over {TIMED_STROKES} strokes: p50 {p50:.4f} ms, "
+    log(f"[time] {label} paint_stroke over {n} strokes: p50 {p50:.4f} ms, "
         f"p95 {p95:.4f} ms ({smi})")
     return p50, p95
 
@@ -304,6 +320,265 @@ def profile_strokes(label, session, top):
     return busy / 20
 
 
+def staging_bound_ms(n, chw):
+    """Least time for the staging kernel: a byte read and four written per
+    pixel and one index per row; a multiply and a subtract per pixel."""
+    return roofline_ms(n * chw * 5 + 8 * n, 2 * n * chw)
+
+
+def check_staging(staging, dev, worst):
+    """The staging kernel against its plain version on the card, at the
+    trainer's shapes and at the edges of what it takes."""
+    rng = np.random.RandomState(12)
+    cache = torch.from_numpy(rng.randint(0, 256, (16384, 3, 64, 64), dtype=np.uint8)).to(dev)
+    small = torch.from_numpy(rng.randint(0, 256, (40, 3, 16, 16), dtype=np.uint8)).to(dev)
+    cases = [("M 16384 n 8192 3x64x64, repeats, int64", cache, rng.randint(0, 16384, 8192)),
+             ("M 16384 n 8192, int32", cache, rng.randint(0, 16384, 8192).astype(np.int32)),
+             ("M 16384 n 1000", cache, rng.randint(0, 16384, 1000)),
+             ("M 16384 n 1, the last row", cache, np.array([16383])),
+             ("M 1024 identity", cache[:1024], None),
+             ("indices already on the card", cache, torch.from_numpy(rng.permutation(16384)[:1024]).to(dev)),
+             ("M 40 n 100 3x16x16", small, rng.randint(0, 40, 100))]
+    for case, src, perm in cases:
+        before = staging.stage_chunk.launches
+        got = staging.stage_chunk(src, perm)
+        torch.cuda.synchronize()
+        assert staging.stage_chunk.launches == before + 1
+        idx = None if perm is None else torch.as_tensor(perm).to(dev).long()
+        want = staging.stage_chunk_reference(src, idx)
+        e = float((got - want).abs().max())
+        worst["staging"] = max(worst["staging"], e)
+        lo, hi = float(got.min()), float(got.max())
+        log(f"[kernel] staging {case}: max abs err {e:.3e} (tol {STAGING_TOL}), range [{lo:.7f}, {hi:.7f}]")
+        assert got.shape == want.shape and got.dtype == torch.float32 and e <= STAGING_TOL
+        assert -1 - STAGING_TOL <= lo and hi <= 1 + STAGING_TOL
+    for what, error, call in (
+            ("a 3x5x5 input", ValueError, lambda: staging.stage_chunk(torch.zeros((4, 3, 5, 5), dtype=torch.uint8, device=dev))),
+            ("a float input", TypeError, lambda: staging.stage_chunk(cache[:4].float())),
+            ("a host index beyond the chunk", IndexError, lambda: staging.stage_chunk(cache, np.array([16384])))):
+        before = staging.stage_chunk.launches
+        try:
+            call()
+        except error as exc:
+            log(f"[kernel] staging raises on {what}: {type(exc).__name__}")
+        else:
+            raise AssertionError(f"staging took {what}")
+        assert staging.stage_chunk.launches == before
+    return cache
+
+
+def read_metrics(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def drive_training(counters):
+    """The trainer's main path: `train` on IAN_simple at full width on the
+    card, two epochs of two chunks from the device-resident dataset, then a
+    resumed third epoch with per-chunk uploads. Returns the staging kernel's
+    launches of the first run (counts set to 0 just before it)."""
+    from npe_tpu_torch.training import train as tt
+    from npe_tpu_torch.training import train_step as ts
+    from npe_tpu_torch.utils import checkpoints as ck
+
+    chunk = TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(config="IAN_simple", dataset_spec="synthetic", num_examples=TRAIN_EXAMPLES, out_dir=tmp,
+                  pics_dir=os.path.join(tmp, "pics"), checkpoint_grids=False,
+                  cfg_overrides={"batches_per_chunk": TRAIN_BATCHES_PER_CHUNK})
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        state = tt.train(max_epochs=2, **kw)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        log(f"[train] IAN_simple batch {TRAIN_BATCH}, {TRAIN_EXAMPLES} examples, 2 epochs of 2 chunks of "
+            f"{TRAIN_BATCHES_PER_CHUNK} batches, dataset on the card: {time.perf_counter() - t0:.2f} s; launches {launches}")
+        assert launches["staging"] == 4, launches  # one per chunk
+        assert all(n == 0 for name, n in launches.items() if name != "staging"), launches
+        assert all(t.is_cuda for t in ts.variables_of(state).values())
+        files = {n: os.path.join(tmp, "IAN_simple" + n) for n in (".npz", "_train_state.npz", "METRICS.jsonl")}
+        recs = read_metrics(files["METRICS.jsonl"])
+        assert [r["itr"] for r in recs] == [8, 16, 24, 32] and [r["epoch"] for r in recs] == [0, 0, 1, 1], recs
+        meta = ck.train_state_metadata(files["_train_state.npz"])
+        assert (meta["epoch"], meta["itr"]) == (1, 32), meta
+        loaded = ck.load_train_state(files["_train_state.npz"])
+        assert int(loaded["step"]) == 32 and int(loaded["opt"]["latent"]["count"]) == 32
+        assert int(loaded["opt"]["gen"]["count"]) == int(loaded["opt"]["discrim"]["count"]) == 16
+        for part, variables in state["parts"].items():
+            for k, v in variables.items():
+                assert torch.equal(loaded["parts"][part][k], v), k
+        fresh = {k: torch.zeros_like(v) for k, v in ts.variables_of(state).items()}
+        assert ck.load_weights(files[".npz"], fresh)["itr"] == 32
+        assert all(torch.equal(fresh[k], v) for k, v in ts.variables_of(state).items())
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        resumed = tt.train(max_epochs=3, resume=True, device_cache_bytes=0, **kw)
+        torch.cuda.synchronize()
+        log(f"[train] resumed for a third epoch, chunks sent up from pinned memory: {time.perf_counter() - t0:.2f} s; "
+            f"staging launches {counters['staging'].launches}")
+        assert counters["staging"].launches == 2
+        recs = read_metrics(files["METRICS.jsonl"])
+        assert [r["itr"] for r in recs] == [8, 16, 24, 32, 40, 48] and recs[-1]["epoch"] == 2, recs
+        for r in recs:
+            assert sorted(r["metrics"]) == sorted(set(tt.GEN_KEYS + tt.DISCRIM_KEYS))
+            assert all(np.isfinite(v) for v in r["metrics"].values()), r
+        assert int(resumed["step"]) == 48 and ck.train_state_metadata(files["_train_state.npz"])["epoch"] == 2
+        log(f"[train] 6 metrics records finite, itr 8..48 across the resume; last: "
+            f"{ {k: round(v, 4) for k, v in recs[-1]['metrics'].items()} }")
+    return launches["staging"]
+
+
+def step_batch(cfg, batch, seed, device, dtype=torch.float32):
+    """(x, z_rand, noise) on `device`: procedural faces and seeded normals."""
+    from npe_tpu_torch.data import SyntheticFaces
+
+    rng = np.random.RandomState(seed)
+    faces = SyntheticFaces(256).get_data(rng.choice(256, batch, replace=False))
+    x = torch.from_numpy(faces.astype(np.float32) / 127.5 - 1)
+    z, eps = (torch.from_numpy(rng.randn(batch, cfg["num_latents"]).astype(np.float32)) for _ in range(2))
+    return [t.to(device=device, dtype=dtype) for t in (x, z, eps)]
+
+
+def step_results(module, variables, batch, dtype=torch.float32):
+    """One G and one D step's metrics and gradients (not applied) from
+    `variables`, on their device."""
+    from npe_tpu_torch.training import graph, losses
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg)
+    parts = losses.partition_variables({k: v.to(dtype) for k, v in variables.items()})
+    out = {}
+    for player, grads_fn in (("gen", ts.gen_grads), ("discrim", ts.discrim_grads)):
+        g_player, g_latent, fwd, upd = grads_fn(module, cfg, parts, *batch)
+        metrics = graph.compute_metrics(cfg, fwd, batch[0], module.N_DISCRIM_CLASSES)
+        out[player] = ({k: float(v) for k, v in metrics.items()},
+                       {k: g.cpu().numpy() for k, g in {**g_player, **g_latent}.items()},
+                       {k: v.cpu().numpy() for k, v in upd.items()})
+    return out
+
+
+def compare_steps(label, card, cpu, grad_tol):
+    for player in ("gen", "discrim"):
+        (m_a, g_a, u_a), (m_b, g_b, u_b) = card[player], cpu[player]
+        assert all(np.isfinite(v) for v in m_a.values()), m_a
+        for k in m_b:
+            np.testing.assert_allclose(m_a[k], m_b[k], rtol=RTOL, atol=ATOL, err_msg=f"{label} {player} {k}")
+        for k in u_b:
+            np.testing.assert_allclose(u_a[k], u_b[k], rtol=RTOL, atol=ATOL, err_msg=f"{label} {player} {k}")
+        worst_g = 0.0
+        for k, want in g_b.items():
+            largest = np.abs(want).max()
+            np.testing.assert_allclose(g_a[k], want, rtol=0, atol=grad_tol * largest + 1e-7,
+                                       err_msg=f"{label} {player} gradient {k}")
+            if largest > 1e-6:
+                worst_g = max(worst_g, np.abs(g_a[k] - want).max() / largest)
+        log(f"  {label}, {player} step card vs cpu: {len(m_b)} metrics and {len(u_b)} BN statistics within rtol {RTOL} "
+            f"/ atol {ATOL}; {len(g_b)} gradients within {grad_tol} of each one's largest value (worst {worst_g:.3e})")
+
+
+def kernel_steps(label, module, variables, counters, batch_size=16):
+    """One G and one D step of an RGB-Beta-head model on the card, through
+    `make_train_steps`: each step decodes twice (the reconstruction and the
+    sample), each decode launches rgb_beta_tail once, and the MDBLOCKs take
+    the per-op form under training. Frozen weights and masks stay bit-equal."""
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg, batch_size=batch_size)
+    state0 = ts.init_train_state(module, variables, cfg)
+    batch = step_batch(cfg, batch_size, 31, "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    gen_step, discrim_step = ts.make_train_steps(module, cfg)
+    state, m_g = gen_step(state0, *batch, 2e-4)
+    state, m_d = discrim_step(state, *batch, 2e-4)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[train] {label} batch {batch_size}, one G and one D step on the card: launches {launches}; "
+        f"G pixel_loss {float(m_g['pixel_loss']):.4f}, D discrim_acc {float(m_d['discrim_acc']):.4f}")
+    assert launches["rgb_beta_tail"] == 4 and launches["mdblock"] == 0 and launches["rgb_beta_head"] == 0, launches
+    assert all(np.isfinite(float(v)) for m in (m_g, m_d) for v in m.values())
+    frozen = [k for k in state0["parts"]["frozen"]] + [k for k in state0["parts"]["state"] if k.endswith(".weights_mask")]
+    assert len(frozen) > 6
+    for k in frozen:
+        part = "frozen" if k in state0["parts"]["frozen"] else "state"
+        assert torch.equal(state["parts"][part][k], state0["parts"][part][k]), k
+    for part in ("gen", "latent", "discrim"):
+        assert any(not torch.equal(state["parts"][part][k], v) for k, v in state0["parts"][part].items()), part
+        assert all(torch.isfinite(v).all() for v in state["parts"][part].values()), part
+    return launches["rgb_beta_tail"]
+
+
+def time_training(label, module, variables, batch_size, batches_per_chunk, smi):
+    """ms per G step, per D step and imgs/s over one chunk of alternating
+    steps (CUDA events, steady state after one warm chunk), with peak
+    device memory."""
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg, batch_size=batch_size, batches_per_chunk=batches_per_chunk)
+    state = ts.init_train_state(module, variables, cfg)
+    n = batch_size * batches_per_chunk
+    rng = np.random.RandomState(5)
+    x_chunk = torch.from_numpy(rng.uniform(-0.9, 0.9, (n, 3, 64, 64)).astype(np.float32)).cuda()
+    gen = torch.Generator("cuda").manual_seed(1)
+    chunk_step = ts.make_chunk_step(module, cfg, batches_per_chunk)
+    gen_step, discrim_step = ts.make_train_steps(module, cfg)
+    batch = step_batch(cfg, batch_size, 33, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state, *_ = chunk_step(state, x_chunk, 0, gen, 2e-4)  # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, *_ = chunk_step(state, x_chunk, 0, gen, 2e-4)
+    end.record()
+    torch.cuda.synchronize()
+    chunk_ms = start.elapsed_time(end)
+    per_step = {}
+    for name, step in (("G", gen_step), ("D", discrim_step)):
+        start.record()
+        for _ in range(8):
+            state, _ = step(state, *batch, 2e-4)
+        end.record()
+        torch.cuda.synchronize()
+        per_step[name] = start.elapsed_time(end) / 8
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rate = n / chunk_ms * 1e3
+    log(f"[time] {label} training, batch {batch_size}: {per_step['G']:.3f} ms per G step, {per_step['D']:.3f} ms per D "
+        f"step, {chunk_ms:.2f} ms per chunk of {batches_per_chunk} alternating steps = {rate:.1f} imgs/s; peak memory "
+        f"{peak:.0f} MiB ({smi})")
+    return {"g_step_ms": per_step["G"], "d_step_ms": per_step["D"], "imgs_per_s": rate, "peak_mib": peak}, state
+
+
+def profile_training(label, module, state, batch_size, top):
+    """torch.profiler over 8 alternating steps: device kernel time, the
+    device's idle share and the top kernels by name."""
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg, batch_size=batch_size)
+    steps = ts.make_train_steps(module, cfg)
+    batch = step_batch(cfg, batch_size, 35, "cuda")
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(8):
+            state, _ = steps[i % 2](state, *batch, 2e-4)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log(f"[time] {label} training profiler: no device time recorded (idle share not measured)")
+        return None, None
+    log(f"[time] {label} training profiler, 8 steps under the profiler: wall {wall:.2f} ms, device kernels {busy:.2f} ms "
+        f"(idle share {1 - busy / wall:.3f}); kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[time]   {e.self_device_time_total / 8e3:9.3f} ms/step  {e.count / 8:6.1f}x  {e.key[:90]}")
+    return busy / 8, 1 - busy / wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -321,6 +596,7 @@ def main():
     from npe_tpu_torch.ops.kernels import mdblock as mk
     from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
     from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
+    from npe_tpu_torch.ops.kernels import staging
     from npe_tpu_torch.utils.checkpoints import from_reference, save_weights, to_reference, unit_gain
     from npe_tpu_torch.utils.timing import cuda_ms, graph_ms
 
@@ -332,7 +608,7 @@ def main():
 
     # 2. Build: one nvcc per source, all started together
     names = build.kernel_names()
-    assert names == ["edit_tail", "mdblock", "rgb_beta_head", "rgb_beta_tail"], names
+    assert names == ["edit_tail", "mdblock", "rgb_beta_head", "rgb_beta_tail", "staging"], names
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         outputs = list(pool.map(build.build, names))
@@ -344,7 +620,7 @@ def main():
 
     # 3. Kernel checks: each kernel vs its plain version on the card
     dev = torch.device("cuda")
-    worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0, "mdblock": 0.0}
+    worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0, "mdblock": 0.0, "staging": 0.0}
     for batch in (1, 8):
         for sigma in (0.7, 1.5):
             for mask_kind in (None, "zeros", "random", "ones"):
@@ -402,6 +678,8 @@ def main():
                          mdblock_inputs(batch, channels, size, scales, 40 + batch, dev), MDBLOCK_TOL,
                          grad_atol_of_largest=True)
 
+    staging_cache = check_staging(staging, dev, worst)
+
     # 4. Main path: the edit session on the card, then the same on the CPU;
     # seeded weights at unit gain, so the card-vs-CPU comparisons are not a
     # match of near-zero activations
@@ -409,7 +687,7 @@ def main():
     image = (rng.rand(3, 64, 64).astype(np.float32) * 2 - 1) * 0.8
     z_grid = rng.randn(10, 10).astype(np.float32)
     counters = {"edit_tail": et.edit_tail, "rgb_beta_tail": rt.rgb_beta_tail, "rgb_beta_head": rh.rgb_beta_head,
-                "mdblock": mk.mdblock_fused}
+                "mdblock": mk.mdblock_fused, "staging": staging.stage_chunk}
 
     def sessions_of(config, module):
         """A card and a CPU session of `config` from the same seeded
@@ -452,7 +730,8 @@ def main():
 
     card, cpu = sessions_of("IAN_simple", ian_simple)
     main_launches = drive("IAN_simple", card, cpu,
-                          {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0})
+                          {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0,
+                           "staging": 0})
 
     assert common.HEAD_MODE == "hybrid"
     card_v1, cpu_v1 = sessions_of("IANv1", ian_v1)
@@ -493,7 +772,22 @@ def main():
                 IAN("IAN", variables=card_ian.variables, device="cuda", mdblock_mode="fused"),
                 IAN("IAN", variables=cpu_ian.variables, device="cpu"), rng)
 
-    # 6. Times
+    # 6. Training: the trainer's main path on IAN_simple, then single steps
+    main_launches["staging"] = drive_training(counters)
+
+    # one G and one D step of IAN_simple at full width, batch 16, from the
+    # same unit-gain weights, batch, z_rand and noise, on the card and on the
+    # CPU: float32 as the trainer runs it, then float64 for the gradients
+    cfg_simple = dict(ian_simple.cfg)
+    for dtype, grad_tol in ((torch.float32, GRAD32_TOL), (torch.float64, GRAD64_TOL)):
+        results = [step_results(ian_simple, s.variables, step_batch(cfg_simple, 16, 30, s.device, dtype), dtype)
+                   for s in (card, cpu)]
+        compare_steps(f"IAN_simple batch 16 {str(dtype).split('.')[1]}", *results, grad_tol)
+    tail_step_launches = {label: kernel_steps(label, module, variables, counters)
+                          for label, module, variables in (("IANv1", ian_v1, card_v1.variables),
+                                                           ("IAN", ian, card_ian.variables))}
+
+    # 7. Times
     p50, p95 = time_strokes("IAN_simple", card, image, smi)
     profile_strokes("IAN_simple", card, top=12)
     v1_p50, v1_p95 = time_strokes("IANv1 hybrid head", card_v1, image, smi)
@@ -502,7 +796,7 @@ def main():
     fused_busy = profile_strokes("IANv1 fused head", fused_v1, top=6)
     ian_p50, ian_p95 = time_strokes("IAN per-op MDBLOCKs", card_ian, image, smi)
     ian_busy = profile_strokes("IAN per-op MDBLOCKs", card_ian, top=14)
-    ian_fused_p50, ian_fused_p95 = time_strokes("IAN fused MDBLOCKs", fused_ian, image, smi)
+    ian_fused_p50, ian_fused_p95 = time_strokes("IAN fused MDBLOCKs", fused_ian, image, smi, n=50)
     ian_fused_busy = profile_strokes("IAN fused MDBLOCKs", fused_ian, top=14)
 
     # what the head's weight packing costs on every decode (two a stroke)
@@ -612,6 +906,39 @@ def main():
         rates[label] = 128e3 / ed_ms
         log(f"[time] {label} encode+decode batch 128: {ed_ms:.4f} ms/batch, {rates[label]:.1f} imgs/s ({smi})")
 
+    # the staging kernel at the trainer's two chunk sizes (IAN_simple's 64
+    # batches of 128; IAN's and IANv1's 64 of 16), rows gathered out of a
+    # 16384-image dataset resident on the card
+    staging_times = {}
+    for n in (8192, 1024):
+        idx = torch.from_numpy(np.random.RandomState(n).randint(0, 16384, n)).to(dev)
+        k_ms = graph_ms(lambda: staging.stage_chunk(staging_cache, idx), iters=10, reps=10)
+        p_ms = graph_ms(lambda: staging.stage_chunk_reference(staging_cache, idx), iters=10, reps=10)
+        bound = staging_bound_ms(n, 3 * 64 * 64)
+        staging_times[n] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+        log(f"[time] staging n {n} of 16384 3x64x64, device time (CUDA graph): kernel {k_ms:.5f} ms, plain "
+            f"{p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}): {bound[0] / k_ms:.3f} of the roofline ({smi})")
+    entries.append({"name": "staging", "source": staging.SOURCE, "replaces": staging.REPLACES,
+                    **staging_times[TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK], "n": TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK,
+                    "per_n": {str(n): t for n, t in staging_times.items()}})
+    del staging_cache
+
+    # training: seeded default-init weights on the card (what `train` starts from)
+    training = {}
+    for label, module, batch_size, bpc in (("IAN_simple", ian_simple, 128, 8), ("IANv1", ian_v1, 16, 16),
+                                           ("IAN", ian, 16, 16)):
+        fresh = module.init(torch.Generator().manual_seed(0), "cuda")
+        training[label], trained = time_training(label, module, fresh, batch_size, bpc, smi)
+        busy, idle = profile_training(label, module, trained, batch_size, top=14 if label == "IAN_simple" else 8)
+        training[label].update(device_ms_per_step=busy, idle_share=idle)
+        if label == "IAN_simple":
+            # PyTorch's own default lets cuDNN run float32 convolutions in TF32
+            torch.backends.cudnn.allow_tf32 = True
+            training["IAN_simple, cuDNN TF32 on"], _ = time_training("IAN_simple, cuDNN TF32 on", module, fresh,
+                                                                     batch_size, bpc, smi)
+            torch.backends.cudnn.allow_tf32 = False
+        del fresh, trained
+
     for entry in entries:
         entry.update(route="cuda", launches=main_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
@@ -628,7 +955,8 @@ def main():
                     "ian_fused_paint_stroke_p50_ms": ian_fused_p50, "ian_fused_paint_stroke_p95_ms": ian_fused_p95,
                     "ian_fused_device_ms_per_stroke": ian_fused_busy,
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
-                    "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"]}))
+                    "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
+                    "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches}))
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -12,16 +12,21 @@ the port uses PyTorch idiom:
     Files on disk keep `npe_tpu`'s layout (`utils/checkpoints.py`);
   * an explicit `device` and an explicit `torch.Generator`.
 
-Entry points (`api.IAN`, `editor.EditSession`) run on the GPU unless the
-caller passes `device="cpu"`; without a CUDA device they raise.
+Entry points (`api.IAN`, `editor.EditSession`, `training.train.train`) run on
+the GPU unless the caller passes `device="cpu"`; without a CUDA device they
+raise.
 
 Layout:
     npe_tpu_torch.ops      -- layers, filters, and the hand-written CUDA kernels
                               (`ops/kernels/`, sources under `csrc/`)
-    npe_tpu_torch.models   -- IAN_simple, IANv1 (MADE/IAF latents, RGB-Beta head)
+    npe_tpu_torch.models   -- IAN_simple, IANv1 (MADE/IAF latents, RGB-Beta head),
+                              full IAN (MDBLOCKs)
     npe_tpu_torch.api      -- plat-style inference API
     npe_tpu_torch.editor   -- headless edit engine
-    npe_tpu_torch.utils    -- checkpoints, ranges, device selection, GPU timing
+    npe_tpu_torch.data     -- datasets and the chunked loaders (numpy only)
+    npe_tpu_torch.training -- losses, the training graph, G/D steps, the trainer
+    npe_tpu_torch.utils    -- checkpoints (weights and train state), metrics
+                              stream, ranges, device selection, GPU timing
 """
 
 __version__ = "0.1.0"

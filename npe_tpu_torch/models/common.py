@@ -16,7 +16,7 @@ import torch
 from npe_tpu_torch.ops.activations import elu, lrelu, sigmoid
 from npe_tpu_torch.ops.beta import beta_mean
 from npe_tpu_torch.ops.conv import (
-    conv2d, depth_to_space, enc_conv2d, pack_kernel_s2d, space_to_depth,
+    conv2d, depth_to_space, enc_conv2d, global_avg_pool, pack_kernel_s2d, space_to_depth,
 )
 from npe_tpu_torch.ops.initializers import normal
 from npe_tpu_torch.ops.kernels.mdblock import mdblock_fused, stack_mdcl_taps
@@ -24,9 +24,20 @@ from npe_tpu_torch.ops.kernels.rgb_beta_head import rgb_beta_head as rgb_beta_he
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import pack_head_taps, rgb_beta_tail
 from npe_tpu_torch.ops.linear import dense
 from npe_tpu_torch.ops.mdcl import compose_mdcl_kernel, mdcl_apply
+from npe_tpu_torch.ops.minibatch import minibatch_discrimination
 from npe_tpu_torch.ops.norm import batch_norm_apply
 
 NON_TRAINABLE_SUFFIXES = (".mean", ".inv_std", ".weights_mask")
+
+
+def is_trainable(name):
+    return not name.endswith(NON_TRAINABLE_SUFFIXES)
+
+
+def split_trainable(variables):
+    params = {k: v for k, v in variables.items() if is_trainable(k)}
+    state = {k: v for k, v in variables.items() if not is_trainable(k)}
+    return params, state
 
 
 class VarBuilder:
@@ -265,8 +276,8 @@ def init_encoder(vb, num_latents, in_channels=3, widths=(128, 256, 512, 1024), f
 
 
 def init_discrim(vb, n_units, w_std, feat=1024, n_kernels=500, dim_per_kernel=5):
-    """Discriminator-head parameters. The port does not train yet, but a
-    file it writes must hold every name npe_tpu expects."""
+    """Discriminator-head parameters: minibatch discrimination over the
+    pooled conv4 features, then the dense logits (`apply_discrim_head`)."""
     vb.minibatch("minibatch_discrim", feat, n_kernels, dim_per_kernel)
     vb.dense("discrimi", feat + n_kernels, n_units, std=w_std, bias=False)
 
@@ -290,6 +301,19 @@ def apply_latent_heads(v, c4, train, upd, act=elu):
     mu = bn(v, upd, "mu_bnorm", dense(f, v["enc_mu.W"]), train)
     ls = bn(v, upd, "ls_bnorm", dense(f, v["enc_logsigma.W"]), train)
     return mu, ls
+
+
+def apply_discrim_head(v, c4):
+    """GlobalPool -> minibatch discrimination -> dense LOGITS (the reference
+    applies sigmoid/softmax in-layer; callers here apply it, keeping the
+    training losses numerically stable)."""
+    f = minibatch_discrimination(
+        global_avg_pool(c4),
+        v["minibatch_discrim.theta"],
+        v["minibatch_discrim.log_weight_scale"],
+        v["minibatch_discrim.b"],
+    )
+    return dense(f, v["discrimi.W"])
 
 
 def unflatten_nchw(y, c, h, w):

@@ -17,7 +17,8 @@ the weights, so the narrow test profile runs this same code.
 from npe_tpu_torch.models import common
 from npe_tpu_torch.models.common import LRELU, VarBuilder, bn, mdblock, unflatten_nchw
 from npe_tpu_torch.models.ian_v1 import (  # noqa: F401  (the same functions, re-exported)
-    HEAD_SCALES, encode, encode_pre_iaf, encode_stats, iaf, rgb_beta_head,
+    HEAD_SCALES, backbone, discrim_logits, encode, encode_pre_iaf, encode_stats, iaf, rgb_beta_head,
+    sample_latent,
 )
 from npe_tpu_torch.ops.conv import deconv2d
 from npe_tpu_torch.ops.linear import dense

@@ -17,6 +17,7 @@ from npe_tpu_torch.models.common import VarBuilder, bn, unflatten_nchw
 from npe_tpu_torch.ops.activations import relu
 from npe_tpu_torch.ops.conv import deconv2d
 from npe_tpu_torch.ops.linear import dense
+from npe_tpu_torch.ops.sampling import gaussian_sample
 from npe_tpu_torch.utils.device import resolve_device
 
 # Hyperparameters per reference `IAN_simple.py:32-51`.
@@ -48,6 +49,7 @@ cfg = {
 
 NUM_LATENTS = cfg["num_latents"]
 N_DISCRIM_CLASSES = 1  # binary sigmoid discriminator (`IAN_simple.py:226-231`)
+HAS_IAF = False
 
 
 def init(gen, device="cuda"):
@@ -67,6 +69,10 @@ def init(gen, device="cuda"):
     return vb.v
 
 
+backbone = common.apply_backbone
+discrim_logits = common.apply_discrim_head
+
+
 def encode_stats(v, x, train=False, upd=None):
     """x -> (mu, logsigma, introspection features)."""
     feats = common.apply_backbone(v, x, train, upd)
@@ -78,6 +84,10 @@ def encode(v, x):
     """Deterministic encode to the decoder-input latent: z = mu."""
     mu, _, _ = encode_stats(v, x)
     return mu
+
+
+# For the non-IAF model the pre-IAF and decoder-input latents coincide.
+encode_pre_iaf = encode
 
 
 def iaf(v, z):
@@ -95,3 +105,9 @@ def decode(v, z, train=False, upd=None):
     h = relu(bn(v, upd, "bnorm_dc3", deconv2d(h, v["dec_conv3.W"]), train))
     return torch.tanh(deconv2d(h, v["dec_out.W"]))
 
+
+decode_pre_iaf = decode
+
+
+def sample_latent(mu, ls, noise):
+    return gaussian_sample(mu, ls, noise)

@@ -18,6 +18,7 @@ from npe_tpu_torch.ops.activations import relu
 from npe_tpu_torch.ops.conv import deconv2d
 from npe_tpu_torch.ops.linear import dense
 from npe_tpu_torch.ops.made import iaf_transform, made_apply, made_init
+from npe_tpu_torch.ops.sampling import gaussian_sample
 from npe_tpu_torch.utils.device import resolve_device
 
 lr_schedule = {0: 0.0002, 25: 0.0001, 50: 0.00005, 75: 0.00001}
@@ -81,6 +82,10 @@ def init(gen, device="cuda"):
     return vb.v
 
 
+backbone = common.apply_backbone
+discrim_logits = common.apply_discrim_head
+
+
 def encode_stats(v, x, train=False, upd=None):
     feats = common.apply_backbone(v, x, train, upd)
     # enc_fc1 uses relu in this config (`IAN.py:121` / `IANv1.py:114`),
@@ -125,3 +130,7 @@ def decode(v, z, train=False, upd=None, head_mode=None):
 def decode_pre_iaf(v, z, train=False, upd=None, head_mode=None):
     z2, _, _ = iaf(v, z)
     return decode(v, z2, train, upd, head_mode)
+
+
+def sample_latent(mu, ls, noise):
+    return gaussian_sample(mu, ls, noise)

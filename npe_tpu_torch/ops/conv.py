@@ -103,3 +103,8 @@ def pack_kernel_s2d(k, r):
     kk = k.reshape(cout, cin, ksize * ksize).index_select(2, idx) * mask.to(k.dtype)
     kk = kk.reshape(cout, cin, r, r, r, r, t, t)  # (co, ci, a, b, p, q, u, v)
     return kk.permute(0, 2, 3, 1, 4, 5, 6, 7).reshape(r * r * cout, r * r * cin, t, t)
+
+
+def global_avg_pool(x):
+    """GlobalPoolLayer (reference `IAN_simple.py:225`): NCHW -> NC."""
+    return x.mean(dim=(2, 3))

@@ -11,8 +11,17 @@ by `npe_tpu` load here and files written here load into `npe_tpu`.
 
 Layouts change only at this boundary: `from_reference` turns `npe_tpu`'s
 arrays into the port's tensors and `to_reference` is its exact inverse.
+
+`save_train_state` / `load_train_state` persist the whole train state
+(variables, Adam moments and counts, step) in a file of the port's own: an
+.npz of NAMED leaves (`parts/gen/dec_out.W`, `opt/gen/mu/dec_out.W`,
+`opt/gen/count`, `step`) in `npe_tpu`'s layouts, plus the pickled metadata.
+`npe_tpu`'s own train-state file keeps its leaf order in a pickled jax
+treedef, which cannot be read without jax; `train_state_from_reference` /
+`train_state_to_reference` carry a state across in memory instead.
 """
 
+import concurrent.futures
 import logging
 import os
 import pickle
@@ -34,7 +43,7 @@ MASK_SUFFIX = ".weights_mask"
 DIRECT_MASK_SUFFIX = "_output_D" + MASK_SUFFIX
 
 
-def _is_deconv(name):
+def is_deconv(name):
     """Deconv kernels are the `.W` of the decoder's layers (`dec_*.W`,
     npe_tpu's `VarBuilder.deconv`). Every other 4-D weight is a conv kernel,
     the MDCL filters among them, whose names end in a bare `W` (`RW`, `G_aW`,
@@ -48,13 +57,13 @@ def _to_port_layout(name, arr):
         return arr
     # conv (kh, kw, cin, cout) -> (cout, cin, kh, kw);
     # deconv (kh, kw, cin, cout) -> (cin, cout, kh, kw)
-    return arr.transpose(2, 3, 0, 1) if _is_deconv(name) else arr.transpose(3, 2, 0, 1)
+    return arr.transpose(2, 3, 0, 1) if is_deconv(name) else arr.transpose(3, 2, 0, 1)
 
 
 def _to_reference_layout(name, arr):
     if arr.ndim != 4:
         return arr
-    return arr.transpose(2, 3, 0, 1) if _is_deconv(name) else arr.transpose(2, 3, 1, 0)
+    return arr.transpose(2, 3, 0, 1) if is_deconv(name) else arr.transpose(2, 3, 1, 0)
 
 
 def from_reference(variables, device):
@@ -129,7 +138,7 @@ def unit_gain(variables, mdcl_taps=None, iaf_logsigma_gain=1.0):
                     gain = 1.0
             else:
                 # a stride-2 deconv output pixel sees a quarter of the taps
-                fan = kh * kw * cin / (4 if _is_deconv(k) else 1)
+                fan = kh * kw * cin / (4 if is_deconv(k) else 1)
         elif k.endswith(".W") and v.ndim == 2 and k[:-2] + MASK_SUFFIX in variables:
             out[k] = v * np.float32(iaf_logsigma_gain) if "_ls_output_" in k else v
             continue
@@ -245,3 +254,187 @@ def load_weights(fname, variables):
         if name not in variables:
             logger.warning("checkpoint %s has unused param %s", fname, name)
     return metadata
+
+
+# --- train state -------------------------------------------------------------
+
+BF16 = "bfloat16"
+
+
+def _leaf_to_numpy(name, t):
+    """A state tensor -> (host array in npe_tpu's layout, dtype name). numpy
+    has no bfloat16: such a leaf travels as its raw 16-bit words."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return np.require(_to_reference_layout(name, t.view(torch.int16).numpy().view(np.uint16)), requirements="C"), BF16
+    arr = np.require(_to_reference_layout(name, t.numpy()), requirements="C")
+    return arr, str(arr.dtype)
+
+
+def _leaf_from_numpy(name, arr, dtype_name, device):
+    arr = np.asarray(arr)
+    if dtype_name == BF16 or arr.dtype.name == BF16:
+        words = np.array(_to_port_layout(name, arr.view(np.uint16)), order="C").view(np.int16)
+        return torch.from_numpy(words).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(_to_port_layout(name, arr), order="C")).to(device)
+
+
+def _flat_train_state(state):
+    """{leaf path: (variable name, value)} over a train state, in a fixed
+    order. The variable name decides a 4-D leaf's layout: a moment takes its
+    parameter's."""
+    flat = {}
+    for part, variables in state["parts"].items():
+        for k, v in variables.items():
+            flat[f"parts/{part}/{k}"] = (k, v)
+    for part, opt in state["opt"].items():
+        flat[f"opt/{part}/count"] = ("", opt["count"])
+        for moment in ("mu", "nu"):
+            for k, v in opt[moment].items():
+                flat[f"opt/{part}/{moment}/{k}"] = (k, v)
+    flat["step"] = ("", state["step"])
+    return flat
+
+
+def _nest_train_state(flat):
+    """The inverse of `_flat_train_state` over {leaf path: value}."""
+    state = {"parts": {p: {} for p in ("discrim", "latent", "gen", "frozen", "state")}, "opt": {}}
+    for path, v in flat.items():
+        keys = path.split("/", 3 if path.startswith("opt/") else 2)
+        node = state
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = v
+    return state
+
+
+def _opt_fields(opt):
+    """An Adam state as (count, mu, nu): a dict, or a named tuple with those
+    fields, as optax's ScaleByAdamState is."""
+    if isinstance(opt, dict):
+        return opt["count"], opt["mu"], opt["nu"]
+    return opt.count, opt.mu, opt.nu
+
+
+def train_state_from_reference(state_np, device):
+    """An npe_tpu train state, as a nested dict of numpy arrays ({"parts":
+    {gen, latent, discrim, frozen, state}, "opt": {gen, latent, discrim:
+    {count, mu, nu}}, "step"}), -> the port's train state on `device`.
+    Kernels move with `from_reference`'s rules; a moment takes its
+    parameter's layout; bfloat16 moments (ml_dtypes arrays) stay bfloat16."""
+    opt = {}
+    for part, o in state_np["opt"].items():
+        count, mu, nu = _opt_fields(o)
+        opt[part] = {"count": count, "mu": mu, "nu": nu}
+    flat = _flat_train_state({"parts": state_np["parts"], "opt": opt, "step": state_np["step"]})
+    return _nest_train_state({
+        path: _leaf_from_numpy(name, v, None, device) for path, (name, v) in flat.items()
+    })
+
+
+def train_state_to_reference(state):
+    """The port's train state -> a nested dict of numpy arrays shaped like
+    npe_tpu's, in npe_tpu's layouts; the exact inverse of
+    `train_state_from_reference`. bfloat16 moments come back as ml_dtypes
+    bfloat16 arrays (ml_dtypes is imported only when there are any)."""
+    out = {}
+    for path, (name, t) in _flat_train_state(state).items():
+        arr, dtype_name = _leaf_to_numpy(name, t)
+        if dtype_name == BF16:
+            import ml_dtypes
+
+            arr = arr.view(ml_dtypes.bfloat16)
+        out[path] = arr
+    return _nest_train_state(out)
+
+
+def save_train_state(fname, state, metadata=None):
+    """state: the port's train state (`training.train_step`). metadata (e.g.
+    {'epoch', 'itr', 'learning_rate'}) rides in the file so that a resume
+    restores epoch and lr CONSISTENT with the moments even when state saves
+    are throttled to every Nth checkpoint (train.py `state_every`).
+    Uncompressed: a train state is about three times the weights, and zlib on
+    float noise costs far more time than it saves bytes."""
+    arrays, leaf_dtypes = {}, {}
+    for path, (name, t) in _flat_train_state(state).items():
+        arrays[path], leaf_dtypes[path] = _leaf_to_numpy(name, t)
+    metadata = dict(metadata or {})
+    metadata.setdefault("format_version", FORMAT_VERSION)
+    # bfloat16 Adam moments (cfg['moments_dtype']) are stored as raw 16-bit
+    # words: each leaf's true dtype is recorded so that load views them back.
+    metadata.setdefault("leaf_dtypes", leaf_dtypes)
+    arrays[METADATA_KEY] = np.frombuffer(pickle.dumps(metadata), dtype=np.uint8)
+    tmp = _unique_tmp(fname)
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, fname)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_train_state(fname, device="cuda"):
+    """The train state of `fname` on `device` (the card unless the caller
+    names another; without one it raises). Refuses a file newer than
+    FORMAT_VERSION."""
+    from npe_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    with np.load(fname, allow_pickle=False) as f:
+        stored = {k: f[k] for k in f.files}
+    metadata = pickle.loads(stored.pop(METADATA_KEY).tobytes()) if METADATA_KEY in stored else {}
+    _check_version(metadata, fname)
+    leaf_dtypes = metadata.get("leaf_dtypes", {})
+    flat = {}
+    for path, arr in stored.items():
+        keys = path.split("/", 3 if path.startswith("opt/") else 2)
+        name = keys[-1] if len(keys) > 2 and keys[-1] != "count" else ""
+        flat[path] = _leaf_from_numpy(name, arr, leaf_dtypes.get(path), device)
+    return _nest_train_state(flat)
+
+
+def train_state_metadata(fname):
+    """Read only the metadata member of a train-state npz (cheap: one zip
+    entry, no leaf arrays touched)."""
+    with np.load(fname, allow_pickle=False) as f:
+        if METADATA_KEY not in f.files:
+            return {}
+        meta = pickle.loads(f[METADATA_KEY].tobytes())
+    meta.pop("leaf_dtypes", None)  # internal (see save_train_state)
+    return meta
+
+
+class AsyncCheckpointer:
+    """Overlap a checkpoint's device-to-host copy and file write with
+    training, on one worker thread.
+
+    The training steps never update a tensor in place (`training/
+    train_step.py`): a step allocates the new state, so a reference to the
+    epoch-N state stays valid and unchanged while the main thread trains
+    epoch N+1, and the worker can copy it out at its own pace.
+
+    At most one save is in flight (`submit` joins the previous one first):
+    saves stay ordered, the extra device memory is bounded to one retained
+    state, and each file still lands via an atomic temp file and rename, so
+    a crash loses at most the newest checkpoint. Call `wait()` before reading
+    the files back and at the end of training. An exception from the worker
+    is re-raised on the NEXT submit / wait / close.
+    """
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
+        self._inflight = None
+
+    def submit(self, fn, *args, **kwargs):
+        self.wait()
+        self._inflight = self._pool.submit(fn, *args, **kwargs)
+
+    def wait(self):
+        if self._inflight is not None:
+            f, self._inflight = self._inflight, None
+            f.result()
+
+    def close(self):
+        self.wait()
+        self._pool.shutdown(wait=True)

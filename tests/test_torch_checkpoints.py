@@ -26,7 +26,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "npe_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "mdblock_sweep.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -280,3 +280,97 @@ def test_npe_tpu_full_ian_file_loads_with_masks_regenerated(tmp_path, caplog):
         for k in a.files:
             if k != tckpt.METADATA_KEY:
                 np.testing.assert_array_equal(a[k], b[k])
+
+
+# --- train state ----------------------------------------------------------------
+
+
+def _jax_train_state(moments_dtype=None, steps=1):
+    """An npe_tpu train state of the tiny full IAN after `steps` G + D pairs,
+    as a nested tree of numpy arrays."""
+    import jax.numpy as jnp
+
+    from npe_tpu.training import train_step as JTS
+
+    jm = jax_config(tp.TINY_FULL_JAX)
+    cfg = dict(jm.cfg, **({"moments_dtype": moments_dtype} if moments_dtype else {}))
+    state = JTS.init_train_state(jm, tp.as_jax(tp.jax_variables(tp.TINY_FULL_JAX)), cfg)
+    x, z, key, _ = tp.training_batch(cfg)
+    gen_step, discrim_step = JTS.make_train_steps(jm, cfg, donate=False)
+    for _ in range(steps):
+        state, _ = gen_step(state, jnp.asarray(x), jnp.asarray(z), key, 2e-4)
+        state, _ = discrim_step(state, jnp.asarray(x), jnp.asarray(z), key, 2e-4)
+    return jax.tree_util.tree_map(np.asarray, state)
+
+
+@pytest.fixture(scope="module", params=[None, "bfloat16"], ids=["float32-moments", "bfloat16-moments"])
+def jax_train_state(request):
+    return request.param, _jax_train_state(request.param)
+
+
+def test_train_state_crosses_to_the_port_and_back(jax_train_state):
+    moments_dtype, state_np = jax_train_state
+    port = tckpt.train_state_from_reference(state_np, "cpu")
+    assert sorted(port) == ["opt", "parts", "step"] and int(port["step"]) == 2
+    assert int(port["opt"]["latent"]["count"]) == 2 and int(port["opt"]["gen"]["count"]) == 1
+    want_dtype = torch.bfloat16 if moments_dtype else torch.float32
+    # kernels and their moments in the port's layouts
+    for tree in (port["parts"]["gen"], port["opt"]["gen"]["mu"], port["opt"]["gen"]["nu"]):
+        assert tuple(tree["dec_conv1.W"].shape) == (64, 64, 5, 5)  # deconv (cin, cout, kh, kw)
+        assert tuple(tree["dec_conv2aW"].shape) == (64, 64, 3, 3)  # MDCL filter, conv layout
+    assert tuple(port["opt"]["discrim"]["nu"]["enc_conv2.W"].shape) == (32, 16, 5, 5)
+    assert all(t.dtype == want_dtype for o in port["opt"].values() for m in ("mu", "nu") for t in o[m].values())
+    assert port["parts"]["gen"]["dec_conv1.W"].dtype == torch.float32
+    assert any(k.endswith(".weights_mask") for k in port["parts"]["state"]) and port["parts"]["frozen"]
+    back = tckpt.train_state_to_reference(port)
+    for part, variables in state_np["parts"].items():
+        assert sorted(back["parts"][part]) == sorted(variables)
+        for k, v in variables.items():
+            np.testing.assert_array_equal(back["parts"][part][k], v, err_msg=k)
+    for part, opt in state_np["opt"].items():
+        assert int(back["opt"][part]["count"]) == int(opt.count)
+        for moment, tree in (("mu", opt.mu), ("nu", opt.nu)):
+            for k, v in tree.items():
+                assert back["opt"][part][moment][k].dtype == v.dtype, k
+                np.testing.assert_array_equal(back["opt"][part][moment][k].astype(np.float32),
+                                              v.astype(np.float32), err_msg=k)
+
+
+def test_train_state_file_round_trip(jax_train_state, tmp_path):
+    moments_dtype, state_np = jax_train_state
+    state = tckpt.train_state_from_reference(state_np, "cpu")
+    fname = str(tmp_path / "state.npz")
+    meta = {"epoch": 3, "itr": 12, "ts": 1.5, "learning_rate": 1e-4}
+    tckpt.save_train_state(fname, state, metadata=meta)
+    assert not [p for p in tmp_path.iterdir() if ".tmp-" in p.name]  # the temp file was renamed away
+    assert tckpt.train_state_metadata(fname) == {**meta, "format_version": 1}
+    with np.load(fname, allow_pickle=False) as f:
+        stored = set(f.files)
+        raw = pickle.loads(f["__metadata__"].tobytes())
+        # named leaves in npe_tpu's layouts; bfloat16 as raw 16-bit words with the dtype recorded
+        assert {"parts/gen/dec_conv1.W", "opt/gen/mu/dec_conv1.W", "opt/gen/count", "step"} <= stored
+        assert f["parts/gen/dec_conv1.W"].shape == (5, 5, 64, 64) and f["opt/gen/nu/dec_conv1.W"].shape == (5, 5, 64, 64)
+        assert f["opt/gen/mu/dec_conv1.W"].dtype == (np.uint16 if moments_dtype else np.float32)
+    assert raw["leaf_dtypes"]["opt/gen/mu/dec_conv1.W"] == (moments_dtype or "float32")
+    assert raw["leaf_dtypes"]["opt/gen/count"] == "int32"
+    loaded = tckpt.load_train_state(fname, "cpu")
+    flat, want = tckpt._flat_train_state(loaded), tckpt._flat_train_state(state)
+    assert list(flat) == list(want)
+    for path in want:
+        assert flat[path][1].dtype == want[path][1].dtype and torch.equal(flat[path][1], want[path][1]), path
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):  # the card is the default
+            tckpt.load_train_state(fname)
+
+
+def test_train_state_file_of_a_newer_format_is_refused(tmp_path):
+    state = {"parts": {"gen": {"a.W": torch.ones(2, 2)}}, "opt": {"gen": {"count": torch.zeros((), dtype=torch.int32),
+             "mu": {"a.W": torch.zeros(2, 2)}, "nu": {"a.W": torch.zeros(2, 2)}}}, "step": torch.zeros((), dtype=torch.int32)}
+    fname = str(tmp_path / "future.npz")
+    tckpt.save_train_state(fname, state, metadata={"format_version": 2})
+    with pytest.raises(ValueError, match="format_version 2"):
+        tckpt.load_train_state(fname, "cpu")
+    tckpt.save_train_state(fname, state)
+    assert tckpt.train_state_metadata(fname) == {"format_version": 1}
+    loaded = tckpt.load_train_state(fname, "cpu")
+    assert torch.equal(loaded["parts"]["gen"]["a.W"], torch.ones(2, 2)) and loaded["step"].ndim == 0

@@ -282,3 +282,107 @@ def test_fused_mdblock_raises_on_a_shape_its_kernel_cannot_take(cuda):
         common.mdblock(vb.v, None, "blk", x, (0, 2), common.LRELU, False, mode="fused")
     assert mk.mdblock_fused.launches == before
     assert common.mdblock(vb.v, None, "blk", x, (0, 2), common.LRELU, False, mode="plain").shape == x.shape
+
+
+# --- the training slice -------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 64), (3, 16, 16)])
+@pytest.mark.parametrize("index", ["none", "int64", "int32", "device tensor"])
+def test_staging_kernel_matches_plain(cuda, shape, index):
+    from npe_tpu_torch.ops.kernels import staging
+
+    rng = np.random.RandomState(4)
+    src = torch.from_numpy(rng.randint(0, 256, (300, *shape), dtype=np.uint8)).to(cuda)
+    perm = {"none": None, "int64": rng.randint(0, 300, 1000), "int32": rng.randint(0, 300, 7).astype(np.int32),
+            "device tensor": torch.from_numpy(rng.permutation(300)).to(cuda)}[index]
+    before = staging.stage_chunk.launches
+    got = staging.stage_chunk(src, perm)
+    torch.cuda.synchronize()
+    assert staging.stage_chunk.launches == before + 1
+    want = staging.stage_chunk_reference(src, None if perm is None else torch.as_tensor(perm).to(cuda).long())
+    assert got.shape == want.shape and float((got - want).abs().max()) <= 1e-6
+    assert float(got.min()) >= -1 - 1e-6 and float(got.max()) <= 1 + 1e-6
+
+
+@pytest.mark.cuda
+def test_staging_wrapper_raises_on_the_card(cuda):
+    from npe_tpu_torch.ops.kernels import staging
+
+    src = torch.zeros((4, 3, 16, 16), dtype=torch.uint8, device=cuda)
+    before = staging.stage_chunk.launches
+    with pytest.raises(ValueError):
+        staging.stage_chunk(torch.zeros((4, 3, 5, 5), dtype=torch.uint8, device=cuda))
+    with pytest.raises(TypeError):
+        staging.stage_chunk(src.float())
+    with pytest.raises(IndexError):
+        staging.stage_chunk(src, np.array([4]))
+    assert staging.stage_chunk.launches == before
+    # a CPU index tensor counts as host indices: checked, then copied up
+    assert tuple(staging.stage_chunk(src, torch.zeros(2, dtype=torch.int64)).shape) == (2, 3, 16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_cache_bytes", [2 << 30, 0])
+def test_tiny_train_on_the_card(cuda, tmp_path, device_cache_bytes):
+    import json
+
+    from npe_tpu_torch.ops.kernels import staging
+    from npe_tpu_torch.training.train import train
+    from npe_tpu_torch.utils.checkpoints import load_train_state
+
+    before = staging.stage_chunk.launches
+    state = train(TINY_FULL, "synthetic", max_epochs=2, num_examples=24, out_dir=str(tmp_path),
+                  checkpoint_grids=False, device_cache_bytes=device_cache_bytes,
+                  cfg_overrides={"batch_size": 4, "batches_per_chunk": 2})
+    assert staging.stage_chunk.launches == before + 5  # one per chunk: 3 + 2
+    assert all(t.is_cuda for part in state["parts"].values() for t in part.values())
+    recs = [json.loads(line) for line in open(tmp_path / "tiny_ian_fullMETRICS.jsonl")]
+    assert [r["itr"] for r in recs] == [2, 4, 6, 8, 10]
+    assert all(np.isfinite(v) for r in recs for v in r["metrics"].values())
+    loaded = load_train_state(str(tmp_path / "tiny_ian_full_train_state.npz"))
+    assert int(loaded["step"]) == 10 and loaded["parts"]["gen"]["dec_conv4.W"].is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [TINY, TINY_FULL])
+def test_one_step_on_the_card_matches_the_cpu(cuda, config):
+    """Metrics and BN statistics at the golden tolerance; the gradients in
+    float64 (plain head), where no relu rounds to the other side."""
+    import types
+
+    from npe_tpu_torch.training import graph, losses
+    from npe_tpu_torch.training import train_step as ts
+
+    module = get_config(config)
+    plain = types.SimpleNamespace(**{k: getattr(module, k) for k in dir(module) if not k.startswith("__")})
+    if module.HAS_IAF:
+        plain.decode = lambda v, z, train=False, upd=None: module.decode(v, z, train, upd, head_mode="plain")
+        plain.decode_pre_iaf = lambda v, z, train=False, upd=None: module.decode_pre_iaf(
+            v, z, train, upd, head_mode="plain")
+    cfg = dict(module.cfg)
+    seeded = module.init(torch.Generator().manual_seed(0), "cpu")
+    variables = from_reference(unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1), "cpu")
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.uniform(-0.8, 0.8, (4, 3, 64, 64)).astype(np.float32))
+    z, eps = (torch.from_numpy(rng.randn(4, cfg["num_latents"]).astype(np.float32)) for _ in range(2))
+    for dtype, mod in ((torch.float32, module), (torch.float64, plain)):
+        results = []
+        for device in (cuda, "cpu"):
+            parts = losses.partition_variables({k: v.to(device=device, dtype=dtype) for k, v in variables.items()})
+            batch = [t.to(device=device, dtype=dtype) for t in (x, z, eps)]
+            for grads_fn in (ts.gen_grads, ts.discrim_grads):
+                g_a, g_b, out, upd = grads_fn(mod, cfg, parts, *batch)
+                metrics = graph.compute_metrics(cfg, out, batch[0], mod.N_DISCRIM_CLASSES)
+                results.append(({k: float(v) for k, v in metrics.items()}, {k: v.cpu() for k, v in upd.items()},
+                                {k: g.cpu() for k, g in {**g_a, **g_b}.items()}))
+        for (m_a, u_a, g_a), (m_b, u_b, g_b) in zip(results[:2], results[2:]):
+            for k in m_b:
+                np.testing.assert_allclose(m_a[k], m_b[k], rtol=1e-3, atol=1e-4, err_msg=k)
+            for k in u_b:
+                np.testing.assert_allclose(u_a[k].numpy(), u_b[k].numpy(), rtol=1e-3, atol=1e-4, err_msg=k)
+            if dtype == torch.float64:
+                for k, want in g_b.items():
+                    np.testing.assert_allclose(g_a[k].numpy(), want.numpy(), rtol=1e-5,
+                                               atol=1e-6 * float(want.abs().max()) + 1e-10, err_msg=k)

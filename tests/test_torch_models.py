@@ -9,6 +9,7 @@ import torch
 
 import torch_parity as tp
 from npe_tpu.models import get_config as jax_config
+from npe_tpu_torch.models import common
 from npe_tpu_torch.models import get_config as torch_config
 from npe_tpu_torch.utils import checkpoints as tckpt
 
@@ -333,3 +334,48 @@ def test_full_width_ian_encode_decode():
     tp.assert_close(tz.numpy(), jz)
     tp.assert_close(tp.nhwc(tx), jx)
     tp.assert_close(tp.nhwc(tx_fused), jx)
+
+
+# --- what the training and evaluation code reads from a model module ------------
+
+TRAINING_NAMES = ("cfg", "NUM_LATENTS", "N_DISCRIM_CLASSES", "HAS_IAF", "init", "backbone", "discrim_logits",
+                  "encode_stats", "encode", "encode_pre_iaf", "iaf", "decode", "decode_pre_iaf", "sample_latent")
+
+
+@pytest.mark.parametrize("name", ["IAN_simple", "IANv1", "IAN"])
+def test_every_name_the_training_code_reads_exists_in_the_port(name):
+    from npe_tpu.models import REGISTRY as JAX_REGISTRY
+    from npe_tpu_torch.models import REGISTRY
+
+    jm, tm = JAX_REGISTRY[name], REGISTRY[name]
+    for attr in TRAINING_NAMES:
+        assert hasattr(jm, attr), attr  # the list is npe_tpu's
+        assert hasattr(tm, attr), f"npe_tpu_torch.models.{name} lacks {attr}"
+    assert tm.HAS_IAF == jm.HAS_IAF and tm.N_DISCRIM_CLASSES == jm.N_DISCRIM_CLASSES
+    assert tm.backbone is common.apply_backbone and tm.discrim_logits is common.apply_discrim_head
+    if not tm.HAS_IAF:  # the pre-IAF and decoder-input latents coincide
+        assert tm.encode_pre_iaf is tm.encode and tm.decode_pre_iaf is tm.decode
+    # every public function npe_tpu's module defines has a counterpart of the same name
+    public = [k for k, v in vars(jm).items() if callable(v) and not k.startswith("_")
+              and getattr(v, "__module__", "") == jm.__name__]
+    assert "decode" in public
+    assert not [k for k in public if not hasattr(tm, k)]
+
+
+@pytest.mark.parametrize("config", [(tp.TINY_JAX, tp.TINY_TORCH), (tp.TINY_V1_JAX, tp.TINY_V1_TORCH),
+                                    (tp.TINY_FULL_JAX, tp.TINY_FULL_TORCH)], ids=["IAN_simple", "IANv1", "IAN"])
+def test_tiny_discrim_head_matches_jax(config):
+    jm, tm = jax_config(config[0]), torch_config(config[1])
+    for attr in TRAINING_NAMES:
+        assert hasattr(jm, attr) and hasattr(tm, attr), attr
+    jv = tp.jax_variables(config[0])
+    tv = tp.port_variables(config[0])
+    x = np.random.RandomState(4).uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jm.discrim_logits(jv, jm.backbone(jv, x, True, None)[-1]))
+    got = tm.discrim_logits(tv, tm.backbone(tv, tp.nchw(x), True, None)[-1])
+    assert tuple(got.shape) == want.shape == (4, tm.N_DISCRIM_CLASSES)
+    tp.assert_close(got.numpy(), want)
+    assert common.is_trainable("enc_conv1.W") and not common.is_trainable("bnorm2.inv_std")
+    params, state = common.split_trainable(tv)
+    assert sorted(list(params) + list(state)) == sorted(tv) and not set(params) & set(state)
+    assert state and all(k.endswith(common.NON_TRAINABLE_SUFFIXES) for k in state)

@@ -244,3 +244,62 @@ def test_compose_mdcl_kernel_and_mdcl_apply_match_jax(scales):
         want = np.asarray(jmdcl.mdcl_apply(jnp.asarray(x), jnp.asarray(w), base, coeffs, scales, mode=mode))
         got = tmdcl.mdcl_apply(_nchw(x), tp.oihw(w), torch.from_numpy(base), tcoeffs, scales)
         tp.assert_close(tp.nhwc(got), want)
+
+
+# --- the training slice's ops ---------------------------------------------------
+
+
+@pytest.mark.parametrize("n,feat,kernels,dims", [(4, 128, 32, 5), (7, 16, 500, 5), (1, 8, 4, 3)])
+def test_minibatch_discrimination_matches_jax(n, feat, kernels, dims):
+    from npe_tpu.ops import minibatch as jmb
+    from npe_tpu_torch.ops import minibatch as tmb
+
+    rng = np.random.RandomState(n)
+    x = rng.randn(n, feat).astype(np.float32)
+    theta = (rng.randn(feat, kernels, dims) * 0.05).astype(np.float32)
+    lws = (rng.randn(kernels, dims) * 0.1).astype(np.float32)
+    b = rng.randn(kernels).astype(np.float32)
+    want = np.asarray(jmb.minibatch_discrimination(x, theta, lws, b))
+    got = tmb.minibatch_discrimination(*(torch.from_numpy(a) for a in (x, theta, lws, b)))
+    assert tuple(got.shape) == want.shape == (n, feat + kernels)
+    tp.assert_close(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    # a 4-D input flattens; the self term contributes exp(-1e6) = 0
+    got4 = tmb.minibatch_discrimination(torch.from_numpy(x).reshape(n, feat, 1, 1),
+                                        *(torch.from_numpy(a) for a in (theta, lws, b)))
+    assert torch.equal(got4, got)
+    if n == 1:
+        tp.assert_close(got[:, feat:].numpy(), b[None], rtol=0, atol=1e-6)
+
+
+def test_global_avg_pool_matches_jax():
+    x = np.random.RandomState(0).randn(3, 4, 5, 6).astype(np.float32)  # NHWC
+    tp.assert_close(tconv.global_avg_pool(_nchw(x)).numpy(), np.asarray(jconv.global_avg_pool(x)), rtol=1e-5,
+                    atol=1e-6)
+
+
+def test_gaussian_sample_takes_its_noise_as_an_argument():
+    import jax
+
+    from npe_tpu.ops import sampling as jsampling
+    from npe_tpu_torch.ops import sampling as tsampling
+
+    rng = np.random.RandomState(1)
+    mu, ls = (rng.randn(4, 16).astype(np.float32) for _ in range(2))
+    key = jax.random.PRNGKey(5)
+    eps = np.asarray(jax.random.normal(key, mu.shape, jnp.float32))
+    want = np.asarray(jsampling.gaussian_sample(mu, ls, key))
+    tmu, tls = torch.from_numpy(mu), torch.from_numpy(ls)
+    tp.assert_close(tsampling.gaussian_sample(tmu, tls, torch.from_numpy(eps)).numpy(), want, rtol=1e-5, atol=1e-6)
+    assert tsampling.gaussian_sample(tmu, tls, None) is tmu  # deterministic=True
+    assert jsampling.gaussian_sample(mu, ls, None) is mu
+    a = tsampling.gaussian_sample(tmu, tls, torch.Generator().manual_seed(3))
+    b = tsampling.gaussian_sample(tmu, tls, torch.Generator().manual_seed(3))
+    c = tsampling.gaussian_sample(tmu, tls, torch.Generator().manual_seed(4))
+    assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, tmu)
+    with pytest.raises(ValueError, match="noise"):
+        tsampling.gaussian_sample(tmu, tls, torch.zeros(4, 8))
+    assert tsampling.gaussian_sample_spatial is tsampling.gaussian_sample
+    outs = tsampling.gaussian_sample_list([tmu, tmu], [tls, tls], [torch.from_numpy(eps), torch.zeros(4, 16)])
+    tp.assert_close(outs[0].numpy(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(outs[1], tmu)
+    assert tsampling.gaussian_sample_list([tmu], [tls], None)[0] is tmu

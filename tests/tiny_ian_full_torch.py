@@ -35,3 +35,6 @@ iaf = ian.iaf
 rgb_beta_head = ian.rgb_beta_head
 decode = ian.decode
 decode_pre_iaf = ian.decode_pre_iaf
+backbone = ian.backbone
+discrim_logits = ian.discrim_logits
+sample_latent = ian.sample_latent

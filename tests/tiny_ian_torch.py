@@ -10,6 +10,8 @@ from npe_tpu_torch.utils.device import resolve_device
 cfg = dict(ian_simple.cfg, model="tiny_ian", num_latents=16)
 
 NUM_LATENTS = cfg["num_latents"]
+N_DISCRIM_CLASSES = 1
+HAS_IAF = False
 WIDTHS = (16, 32, 64, 128)
 FC = 64
 
@@ -34,3 +36,8 @@ encode_stats = ian_simple.encode_stats
 encode = ian_simple.encode
 decode = ian_simple.decode
 iaf = ian_simple.iaf
+backbone = ian_simple.backbone
+discrim_logits = ian_simple.discrim_logits
+sample_latent = ian_simple.sample_latent
+encode_pre_iaf = ian_simple.encode_pre_iaf
+decode_pre_iaf = ian_simple.decode_pre_iaf

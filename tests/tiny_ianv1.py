@@ -14,6 +14,7 @@ from npe_tpu.ops.activations import relu
 from npe_tpu.ops.conv import deconv2d_phased as deconv2d
 from npe_tpu.ops.linear import dense
 from npe_tpu.ops.made import iaf_transform, made_apply, made_init
+from npe_tpu.ops.sampling import gaussian_sample
 
 cfg = dict(ian_v1.cfg, model="tiny_ianv1", batch_size=8, num_latents=16)
 
@@ -41,6 +42,8 @@ def init(key):
     return vb.v
 
 
+backbone = common.apply_backbone
+discrim_logits = common.apply_discrim_head
 encode_stats = ian_v1.encode_stats
 rgb_beta_head = ian_v1.rgb_beta_head
 
@@ -72,3 +75,7 @@ def decode(v, z, train=False, upd=None):
 def decode_pre_iaf(v, z, train=False, upd=None):
     z2, _, _ = iaf(v, z)
     return decode(v, z2, train, upd)
+
+
+def sample_latent(mu, ls, rng):
+    return gaussian_sample(mu, ls, rng)

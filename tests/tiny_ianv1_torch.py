@@ -11,6 +11,7 @@ from npe_tpu_torch.utils.device import resolve_device
 cfg = dict(ian_v1.cfg, model="tiny_ianv1", batch_size=8, num_latents=16)
 
 NUM_LATENTS = cfg["num_latents"]
+N_DISCRIM_CLASSES = 1
 HAS_IAF = True
 WIDTHS = (16, 32, 64, 128)
 FC = 64
@@ -32,3 +33,6 @@ iaf = ian_v1.iaf
 rgb_beta_head = ian_v1.rgb_beta_head
 decode = ian_v1.decode
 decode_pre_iaf = ian_v1.decode_pre_iaf
+backbone = ian_v1.backbone
+discrim_logits = ian_v1.discrim_logits
+sample_latent = ian_v1.sample_latent

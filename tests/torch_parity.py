@@ -139,3 +139,71 @@ def assert_im_close(actual, desired, recon_actual, recon_desired, atol=ATOL):
 def torch_threads():
     # Tier-1 runs six xdist workers; one intra-op thread each keeps them apart.
     torch.set_num_threads(1)
+
+
+# --- training parity ---------------------------------------------------------
+#
+# Gradients of this network are not continuous in its inputs: every relu and
+# LeakyReLU is a kink, and one unit whose pre-activation two float32
+# implementations round to opposite sides of zero moves the adversarial and
+# feature-matching gradients (sums of about 1e4 contributions of random sign)
+# by about 1 % of their largest value, in every tensor at once. With some
+# 6e5 such units in a tiny step this happens in roughly every second seeded
+# batch, between npe_tpu and the port and just as well between either and its
+# own float64 run. So the gradient comparisons run both packages in float64
+# (`x64()` for JAX), where the same units are 1e-9 times as likely to flip and
+# the two agree to 1e-7 (npe_tpu computes the losses from float32 casts of the
+# forward's outputs); float32 comparisons cover what is continuous: the
+# forward, the losses, the metrics and the BN statistics.
+
+
+def x64():
+    """Context manager: JAX with float64 enabled, for this block only."""
+    if hasattr(jax, "enable_x64"):
+        return jax.enable_x64(True)
+    from jax.experimental import enable_x64
+
+    return enable_x64()
+
+
+def training_batch(cfg, n=4, seed=0, dtype=np.float32):
+    """(x NHWC in [-1, 1], z_rand, PRNG key, eps): n procedural faces, and
+    the reparameterization noise npe_tpu's `sample_latent` draws from `key`
+    for an (n, num_latents) mu of `dtype`. Call under `x64()` for float64."""
+    import jax.numpy as jnp
+
+    from npe_tpu.data import SyntheticFaces
+
+    rng = np.random.RandomState(seed)
+    faces = SyntheticFaces(64).get_data(rng.choice(64, n, replace=False))
+    x = (faces.astype(dtype).transpose(0, 2, 3, 1) / dtype(127.5) - 1).astype(dtype)
+    z = rng.randn(n, cfg["num_latents"]).astype(dtype)
+    key = jax.random.PRNGKey(3)
+    eps = np.asarray(jax.random.normal(key, z.shape, jnp.dtype(dtype)))
+    assert eps.dtype == dtype
+    return x, z, key, eps
+
+
+def plain_head(module):
+    """The port's `module` with its RGB-Beta head in the plain form, for
+    float64 runs (the hybrid head's kernel wrapper takes float32 only)."""
+    import types
+
+    ns = types.SimpleNamespace(**{k: getattr(module, k) for k in dir(module) if not k.startswith("__")})
+    if module.HAS_IAF:
+        ns.decode = lambda v, z, train=False, upd=None: module.decode(v, z, train, upd, head_mode="plain")
+        ns.decode_pre_iaf = lambda v, z, train=False, upd=None: module.decode_pre_iaf(
+            v, z, train, upd, head_mode="plain")
+    return ns
+
+
+def assert_grads_close(actual, desired, rtol=1e-5, atol_of_largest=1e-6, floor=1e-8):
+    """Dicts of gradients in npe_tpu's layouts: each tensor within rtol and
+    `atol_of_largest` of its own largest value (+ `floor`: a gradient that
+    is zero in exact arithmetic comes out as rounding noise of either side's
+    float32 loss, about 2e-9)."""
+    assert sorted(actual) == sorted(desired)
+    for k, want in desired.items():
+        want = np.asarray(want)
+        np.testing.assert_allclose(np.asarray(actual[k]), want, rtol=rtol,
+                                   atol=atol_of_largest * np.abs(want).max() + floor, err_msg=k)
