@@ -44,6 +44,7 @@ RTOL, ATOL = 1e-3, 1e-4
 UINT8_STEP = 2.0 / 255.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 N_STROKES = 16
 TIMED_STROKES = 100
 # staging kernel vs plain: x * (2/255) - 1 in float32, rounded alike
@@ -164,20 +165,28 @@ def mdblock_inputs(batch, channels, size, scales, seed, device):
     return [torch.from_numpy(a).to(device) for a in (x, *taps, aff)]
 
 
-def mdblock_bound_ms(batch, channels, size, scales):
+def mdblock_bound_ms(batch, channels, size, scales, route="3xtf32"):
     """Least time for one MDBLOCK: x and both tap tensors and the affines
-    read once, the output written once; two MDCLs of H*W*T*C^2 multiply-adds
-    at two operations each, and about ten operations per element for the
-    three affines, lrelus and the residual."""
+    read once, the output written once; two MDCLs of H*W*T*C^2 multiply-adds,
+    and about ten float32 operations per element for the three affines,
+    lrelus and the residual. route "3xtf32", the kernel's: each multiply-add
+    is three TF32 products on the tensor cores (two operations each);
+    "fp32": one float32 multiply-add outside them."""
     n_taps = 9 * (1 + sum(s > 0 for s in scales))
     px = batch * size * size
     nbytes = 4 * (2 * px * channels + 2 * n_taps * channels * channels + 6 * channels)
-    flops = 2 * 2 * px * n_taps * channels * channels + 10 * px * channels
-    return roofline_ms(nbytes, flops)
+    macs = 2 * px * n_taps * channels * channels
+    other = 10 * px * channels
+    if route == "fp32":
+        return roofline_ms(nbytes, 2 * macs + other)
+    # the elementwise operations in TF32-rate units, so that one peak divides both
+    return roofline_ms(nbytes, 3 * 2 * macs + other * TF32_OPS_PER_S / FP32_OPS_PER_S, TF32_OPS_PER_S)
 
 
-def roofline_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+def roofline_ms(nbytes, flops, peak=FP32_OPS_PER_S):
+    """The larger of the bytes over HBM bandwidth and the operations over
+    `peak`, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -659,7 +668,7 @@ def main():
             f"{' of the largest' if grad_atol_of_largest else ''}; "
             f"max abs diff {max(max_err(g.cpu(), w.cpu()) for g, w in zip(got_g, want_g)):.3e}")
 
-    for batch in (1, 8):
+    for batch in (1, 8, 16):  # one cell row a block at 1 and 8, two at 16
         _, _, trunk, tg, tb = head_inputs(batch, 64, 10 + batch, dev)
         check_kernel("rgb_beta_tail", f"batch {batch}", rt.rgb_beta_tail, rt.rgb_beta_tail_reference,
                      (trunk, tg, tb), KERNEL_TOL)
@@ -825,14 +834,14 @@ def main():
     entries = [{"name": "edit_tail", "source": et.SOURCE, "replaces": et.REPLACES, "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}]
 
-    for batch in (1, 8):
+    for batch in (1, 8, 16):  # 16: IANv1's and full IAN's training batch, the tail alone
         x, tr, trunk, tg, tb = head_inputs(batch, 64, 30 + batch, dev)
-        for name, mod, kernel, plain, args, bound in (
-            ("rgb_beta_tail", rt, rt.rgb_beta_tail, rt.rgb_beta_tail_reference, (trunk, tg, tb),
-             rgb_beta_tail_bound_ms(batch)),
-            ("rgb_beta_head", rh, rh.rgb_beta_head, rh.rgb_beta_head_reference_packed, (x, tr, tg, tb),
-             rgb_beta_head_bound_ms(batch, 64)),
-        ):
+        cases = [("rgb_beta_tail", rt, rt.rgb_beta_tail, rt.rgb_beta_tail_reference, (trunk, tg, tb),
+                  rgb_beta_tail_bound_ms(batch))]
+        if batch < 16:
+            cases.append(("rgb_beta_head", rh, rh.rgb_beta_head, rh.rgb_beta_head_reference_packed, (x, tr, tg, tb),
+                          rgb_beta_head_bound_ms(batch, 64)))
+        for name, mod, kernel, plain, args, bound in cases:
             with torch.no_grad():
                 k_ms = graph_ms(lambda: kernel(*args), iters=50)
                 p_ms = graph_ms(lambda: plain(*args), iters=50)
@@ -856,31 +865,44 @@ def main():
                 f"(CUDA graph): {graph_ms(fn, iters=20):.5f} ms ({smi})")
 
     # mdblock_fused at full IAN's three shapes: the kernel and its plain
-    # version on prepared taps, then the whole block from the weights (tap
-    # stacking or kernel composing included) in both forms
+    # version on prepared taps, then (batch 1 and 8) the whole block from the
+    # weights (tap stacking or kernel composing included) in both forms; at
+    # batch 128, the throughput use, the kernel is held to its plain version
+    # once more. Two bounds: the kernel's route (3xTF32 on the tensor cores),
+    # the entry's bound_ms, and float32 outside them, on the [time] lines only.
     vi = card_ian.variables
     per_shape = []
     with torch.no_grad():
         for name, channels, size, scales in MDBLOCK_SHAPES:
-            for batch in (1, 8):
+            for batch in (1, 8, 128):
                 args = mdblock_inputs(batch, channels, size, scales, 50 + batch, dev)
-                k_ms = graph_ms(lambda: mk.mdblock_fused(*args, scales), iters=20)
-                p_ms = graph_ms(lambda: mk.mdblock_taps_reference(*args, scales), iters=20)
+                reps = dict(iters=5, reps=4) if batch == 128 else dict(iters=20)
+                k_ms = graph_ms(lambda: mk.mdblock_fused(*args, scales), **reps)
+                p_ms = graph_ms(lambda: mk.mdblock_taps_reference(*args, scales), **reps)
+                bound = mdblock_bound_ms(batch, channels, size, scales)
+                fp32_bound = mdblock_bound_ms(batch, channels, size, scales, route="fp32")
+                line = (f"[time] mdblock {size}x{size}x{channels} batch {batch}, device time (CUDA graph): kernel "
+                        f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}, 3xTF32), "
+                        f"float32 bound {fp32_bound[0]:.6f} ms ({fp32_bound[1]})")
+                if batch == 128:
+                    e = float((mk.mdblock_fused(*args, scales) - mk.mdblock_taps_reference(*args, scales)).abs().max())
+                    worst["mdblock"] = max(worst["mdblock"], e)
+                    assert e <= MDBLOCK_TOL, f"mdblock batch 128 disagrees with its plain version: {e}"
+                    log(f"{line}; max abs err {e:.3e} (tol {MDBLOCK_TOL}) ({smi})")
+                    continue
                 forms = {mode: graph_ms(lambda: common.mdblock(vi, None, name, args[0], scales, common.LRELU,
                                                                False, mode=mode), iters=20)
                          for mode in common.MDBLOCK_MODES}
-                bound = mdblock_bound_ms(batch, channels, size, scales)
-                log(f"[time] mdblock {size}x{size}x{channels} batch {batch}, device time (CUDA graph): kernel "
-                    f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); the whole block "
-                    f"from the weights: fused {forms['fused']:.5f} ms, per-op {forms['plain']:.5f} ms ({smi})")
+                log(f"{line}; the whole block from the weights: fused {forms['fused']:.5f} ms, per-op "
+                    f"{forms['plain']:.5f} ms ({smi})")
                 if batch == 1:
                     per_shape.append({"shape": f"{size}x{size}x{channels}", "ms": k_ms, "plain_ms": p_ms,
                                       "bound_ms": bound[0], "bound_by": bound[1], "per_op_ms": forms["plain"]})
-    # one decode launches the kernel once per shape: the entry is their sum
-    assert len({e["bound_by"] for e in per_shape}) == 1
+    # one decode launches the kernel once per shape: the entry is their sum;
+    # bound_by names what bounds the largest of the three
     entries.append({"name": "mdblock", "source": mk.SOURCE, "replaces": mk.REPLACES,
                     **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms")},
-                    "bound_by": per_shape[0]["bound_by"], "per_shape": per_shape})
+                    "bound_by": max(per_shape, key=lambda e: e["bound_ms"])["bound_by"], "per_shape": per_shape})
 
     def stack_taps():
         """What the fused form makes of the weights on every decode."""

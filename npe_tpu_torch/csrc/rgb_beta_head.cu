@@ -28,9 +28,10 @@
 // shared memory, so no packed copy of x ever exists. With more than one slice
 // the partial sums go to a scratch buffer (batch, slices, 96, 16, 16) and a
 // small second launch adds the slices in order over the whole card
-// (deterministic, no atomics; left to the tail's one block per image, adding
-// 36 slices took longer than the tail itself). The last launch, the tail
-// kernel, runs the autoregressive stages and writes the image. The wrapper
+// (deterministic, no atomics; left to the first tail's one block per image,
+// adding 36 slices took longer than the tail itself). The last launch, the
+// tail kernel of rgb_beta_tail.cuh (an image cut into row groups over many
+// blocks), runs the autoregressive stages and writes the image. The wrapper
 // picks the number of slices from the batch
 // (npe_tpu_torch/ops/kernels/rgb_beta_head.py). No double buffering, no TMA,
 // no wgmma: a later change's work.
@@ -131,11 +132,12 @@ add_slices_kernel(const float* __restrict__ partial, float* __restrict__ trunk, 
 // 4; tr: (9, 16*channels, 96); tg: (9, 32, 32); tb: (9, 64, 32); trunk:
 // scratch (batch, 96, hh, 16); partial: scratch (batch, splits, 96, hh, 16),
 // unused when splits is 1 (splits divides 9*channels/2); out:
-// (batch, 3, 4*hh, 64). All contiguous and 16-byte aligned. Two or three
-// launches on `stream`; returns the first CUDA error code (0 = all launched).
+// (batch, 3, 4*hh, 64); tail_rows: the tail's cell rows a block (a divisor
+// of hh). All contiguous and 16-byte aligned. Two or three launches on
+// `stream`; returns the first CUDA error code (0 = all launched).
 extern "C" int npe_rgb_beta_head(const void* x, const void* tr, const void* tg, const void* tb,
                                  void* trunk, void* partial, void* out, int batch, int channels,
-                                 int hh, int splits, void* stream) {
+                                 int hh, int splits, int tail_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sums = static_cast<float*>(splits > 1 ? partial : trunk);
   head_trunk_kernel<<<dim3(hh / 4, splits, batch), kThreads, 0, s>>>(
@@ -152,5 +154,5 @@ extern "C" int npe_rgb_beta_head(const void* x, const void* tr, const void* tg, 
   }
   return npe::launch_tail<true>(static_cast<const float*>(trunk), static_cast<const float*>(tg),
                                 static_cast<const float*>(tb), static_cast<float*>(out), batch, hh,
-                                kCellsW, s);
+                                kCellsW, tail_rows, s);
 }

@@ -10,7 +10,11 @@ activation times that tap's (Cin, Cout) matrix.
 Replaces the Pallas TPU kernel
 `npe_tpu/ops/pallas/mdcl_kernels.py:mdblock_fused`. The source is
 `npe_tpu_torch/csrc/mdblock.cu` (its header says what bounds it and how the
-work is split); `mdblock_taps_reference` is the plain PyTorch version.
+work is split); `mdblock_taps_reference` is the plain PyTorch version. The
+kernel runs both MDCLs on the tensor cores in TF32 with three products per
+multiply-add (3xTF32: each operand split into a TF32 high part and a TF32
+remainder), which keeps float32 accuracy; `tf32_split` is that split in
+PyTorch, for the tests that show why one product would not do.
 
 Layout. x is NCHW as the decoder leaves it, and the kernel reads it as it
 lies; no permuted copy is made. Tap matrices are (T, Cin, Cout) row-major in
@@ -36,11 +40,14 @@ from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, vjp_of_plain
 
 SOURCE = "npe_tpu_torch/csrc/mdblock.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
-TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 64 channels
-TILE_CHANNELS = 64
+TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 128 channels
+TILE_CHANNELS = 128
 CHANNEL_STEP = 16  # input channels of one step of its inner loop
 MAX_BRANCHES = 8
-BLOCKS_PER_SM = 4  # how many of the kernel's blocks an SM holds at once (its registers decide)
+# How many of the kernel's 256-thread blocks an SM holds at once:
+# __launch_bounds__(256, 2) keeps its registers to 128 a thread, and a block
+# has 52 KB of shared memory.
+BLOCKS_PER_SM = 2
 
 
 def dilations(scales):
@@ -96,6 +103,20 @@ def mdblock_taps_reference(x, taps1, taps2, affines, scales):
     h = _lrelu(_mdcl_taps(h, taps1, offs) * s1 + t1)
     h = _mdcl_taps(h, taps2, offs)
     return _lrelu((x + h) * s2 + t2)
+
+
+def tf32_split(x):
+    """(hi, lo) with hi = TF32(x) and lo = TF32(x - hi), as the kernel splits
+    each operand: `cvt.rna.tf32.f32` keeps 10 of float32's 23 mantissa bits,
+    rounding to nearest with ties away from zero (add half of the last kept
+    bit to the magnitude, then clear the 13 dropped bits). float32 in and
+    out; hi + lo holds x to about 21 bits. Used by the tests."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = tf32(x)
+    return hi, tf32(x - hi)
 
 
 def inner_splits(batch, tiles, units, sm_count):

@@ -20,7 +20,7 @@ One call is two or three launches on the same stream: the trunk product,
 split over cell tiles and over slices of its inner dimension so that a single
 image still spreads over the card; with more than one slice, a pass that adds
 the slices' partial sums in a fixed order (so the result does not change from
-run to run); and the tail kernel, which finishes the head.
+run to run); and the tail kernel of `rgb_beta_tail`, which finishes the head.
 `rgb_beta_head.launches` counts calls.
 """
 
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from npe_tpu_torch.ops.kernels import build
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import (
-    RR, SMEM_LIMIT, check_tensors, rgb_beta_tail_reference, tail_smem_bytes, tap_conv, vjp_of_plain,
+    RR, check_tensors, rgb_beta_tail_reference, tail_rows, tap_conv, vjp_of_plain,
 )
 
 SOURCE = "npe_tpu_torch/csrc/rgb_beta_head.cu"
@@ -62,7 +62,7 @@ def trunk_splits(batch, tiles, units, sm_count):
 @functools.cache
 def _entry():
     fn = build.load("rgb_beta_head").npe_rgb_beta_head
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -82,7 +82,7 @@ class _Head(torch.autograd.Function):
             rc = _entry()(
                 x.data_ptr(), tr_taps.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(),
                 trunk.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
-                n, c, cells_h, splits,
+                n, c, cells_h, splits, tail_rows(n, cells_h, w // R, sms),
                 torch.cuda.current_stream(x.device).cuda_stream,
             )
         if rc != 0:
@@ -104,15 +104,13 @@ def rgb_beta_head(x, tr_taps, tg_taps, tb_taps):
             f"rgb_beta_head wants (N, C, H, {WIDTH}) with C even and H a multiple of {4 * R}, "
             f"got {tuple(x.shape)}"
         )
-    c, h = x.shape[1], x.shape[2]
+    c = x.shape[1]
     check_tensors(
         "rgb_beta_head",
         {"x": x, "tr_taps": tr_taps, "tg_taps": tg_taps, "tb_taps": tb_taps},
         {"x": x.shape, "tr_taps": (9, RR * c, 6 * RR), "tg_taps": (9, 2 * RR, 2 * RR),
          "tb_taps": (9, 4 * RR, 2 * RR)},
     )
-    if tail_smem_bytes(h // R, WIDTH // R) > SMEM_LIMIT:
-        raise ValueError(f"rgb_beta_head: H={h} needs more shared memory than a block has")
     if x.device.type == "cpu":
         return rgb_beta_head_reference_packed(x, tr_taps, tg_taps, tb_taps)
     return _Head.apply(x, tr_taps, tg_taps, tb_taps)

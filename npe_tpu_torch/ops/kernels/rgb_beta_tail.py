@@ -5,8 +5,8 @@ over [R, G], sigmoid, and the three Beta means, in one kernel.
 Replaces the Pallas TPU kernel
 `npe_tpu/ops/pallas/mdcl_kernels.py:rgb_beta_tail_pallas`. The kernel is
 `npe_tpu_torch/csrc/rgb_beta_tail.cu` (device code in `rgb_beta_tail.cuh`,
-whose header says what bounds it and how it is laid out);
-`rgb_beta_tail_reference` is its plain PyTorch version.
+whose header says what bounds it, how an image is cut over blocks and how it
+is laid out); `rgb_beta_tail_reference` is its plain PyTorch version.
 
 Layout. Everything is in space-to-depth(r = 4) form, NCHW, component-major:
 a map with c components is (N, c*rr, H/4, W/4), rr = 16, with plane
@@ -21,7 +21,9 @@ on both sides (`ops.conv.pack_kernel_s2d`). Tap matrices are (9, in, out)
 row-major, tap t = 3*(dy + 1) + (dx + 1), from `pack_head_taps`.
 
 `rgb_beta_tail` runs the plain version for CPU tensors; for CUDA tensors it
-launches the kernel, or raises. Its backward is the plain version's, as
+launches the kernel, or raises. The kernel gives each block a group of cell
+rows of an image (`tail_rows`) and recomputes R and G on the two rows around
+them. Its backward is the plain version's, as
 npe_tpu's custom VJP is. `rgb_beta_tail.launches` counts kernel launches.
 """
 
@@ -91,10 +93,24 @@ def check_tensors(fn, tensors, shapes):
         raise ValueError(f"{fn} runs on cpu or cuda tensors, got {first.device}")
 
 
-def tail_smem_bytes(h, w):
-    """The R and G maps of one image, each plane with a zero border of one
-    cell, and both tap tensors."""
-    return (4 * RR * (h + 2) * (w + 2) + 9 * 2 * RR * 2 * RR + 9 * 4 * RR * 2 * RR) * 4
+def tail_smem_bytes(w, rows=1):
+    """What one block of the kernel holds: both tap tensors, and the R and G
+    maps of its `rows` cell rows, the two rows either side and one spare,
+    each plane with a zero border of one cell. The map's height does not
+    count."""
+    return (9 * 2 * RR * 2 * RR + 9 * 4 * RR * 2 * RR + 4 * RR * (rows + 5) * (w + 2)) * 4
+
+
+def tail_rows(batch, h, w, sm_count):
+    """Cell rows a block of the kernel computes: the fewest (a divisor of h
+    whose maps fit a block) that keep all batch x h / rows blocks in one
+    wave, one a multiprocessor (a block holds 138 to 207 KB of shared memory
+    at w = 16); past that, the most. A block's time grows with its rows, so
+    one image takes 16 blocks of one row, a batch of 16 eight blocks of two
+    rows each, a batch of 128 one block of 16 rows (scripts/tail_sweep.py
+    has the times behind this)."""
+    fits = [r for r in range(1, h + 1) if h % r == 0 and tail_smem_bytes(w, r) <= SMEM_LIMIT]
+    return next((r for r in fits if batch * (h // r) <= sm_count), fits[-1])
 
 
 def vjp_of_plain(plain, needs_grad, inputs, g):
@@ -110,7 +126,7 @@ def vjp_of_plain(plain, needs_grad, inputs, g):
 @functools.cache
 def _entry():
     fn = build.load("rgb_beta_tail").npe_rgb_beta_tail
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -121,10 +137,11 @@ class _Tail(torch.autograd.Function):
         ctx.save_for_backward(trunk, tg_taps, tb_taps)
         n, _, h, w = trunk.shape
         out = torch.empty((n, 3 * RR, h, w), dtype=trunk.dtype, device=trunk.device)
+        rows = tail_rows(n, h, w, torch.cuda.get_device_properties(trunk.device).multi_processor_count)
         with torch.cuda.device(trunk.device):
             rc = _entry()(
                 trunk.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), out.data_ptr(),
-                n, h, w, torch.cuda.current_stream(trunk.device).cuda_stream,
+                n, h, w, rows, torch.cuda.current_stream(trunk.device).cuda_stream,
             )
         if rc != 0:
             raise RuntimeError(f"rgb_beta_tail kernel launch failed with CUDA error {rc}")
@@ -151,8 +168,8 @@ def rgb_beta_tail(trunk, tg_taps, tb_taps):
         {"trunk": trunk, "tg_taps": tg_taps, "tb_taps": tb_taps},
         {"trunk": (n, 6 * RR, h, w), "tg_taps": (9, 2 * RR, 2 * RR), "tb_taps": (9, 4 * RR, 2 * RR)},
     )
-    if tail_smem_bytes(h, w) > SMEM_LIMIT:
-        raise ValueError(f"rgb_beta_tail: a {h}x{w} map needs {tail_smem_bytes(h, w)} B of shared memory")
+    if tail_smem_bytes(w) > SMEM_LIMIT:
+        raise ValueError(f"rgb_beta_tail: a map {w} cells wide needs {tail_smem_bytes(w)} B of shared memory a block")
     if trunk.device.type == "cpu":
         return rgb_beta_tail_reference(trunk, tg_taps, tb_taps)
     return _Tail.apply(trunk, tg_taps, tb_taps)

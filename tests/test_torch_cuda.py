@@ -78,21 +78,26 @@ def test_tiny_session_on_the_card_matches_the_cpu(cuda):
     assert np.isfinite(card.IM).all()
 
 
-def _head_inputs(batch, c, device, seed=6):
-    """Seeded O(1) features and tap matrices at unit gain."""
+def _head_inputs(batch, c, device, seed=6, cells=(16, 16)):
+    """Seeded O(1) features and tap matrices at unit gain; the trunk over
+    `cells` (h, w)."""
     rng = np.random.RandomState(seed)
     x = rng.randn(batch, c, 64, 64).astype(np.float32)
     tr = (rng.randn(9, 16 * c, 96) / np.sqrt(9 * 16 * c)).astype(np.float32)
-    trunk = rng.randn(batch, 96, 16, 16).astype(np.float32)
+    trunk = rng.randn(batch, 96, *cells).astype(np.float32)
     tg = (rng.randn(9, 32, 32) / np.sqrt(9 * 32 / 4)).astype(np.float32)
     tb = (rng.randn(9, 64, 32) / np.sqrt(9 * 64 / 4)).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (x, tr, trunk, tg, tb)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 8])
-def test_rgb_beta_tail_kernel_matches_plain(cuda, batch):
-    _, _, trunk, tg, tb = _head_inputs(batch, 2, cuda)
+@pytest.mark.parametrize("batch,cells", [
+    (1, (16, 16)), (8, (16, 16)), (16, (16, 16)), (128, (16, 16)),  # one row a block at 1 and 8, two at 16, 128
+    (1, (2, 16)), (3, (2, 5)),  # the smallest map height the wrapper takes
+    (1, (32, 32)), (2, (6, 77)),  # taller than the first kernel took; the widest a block holds
+])
+def test_rgb_beta_tail_kernel_matches_plain(cuda, batch, cells):
+    _, _, trunk, tg, tb = _head_inputs(batch, 2, cuda, cells=cells)
     before = rt.rgb_beta_tail.launches
     got = rt.rgb_beta_tail(trunk, tg, tb)
     torch.cuda.synchronize()
@@ -108,7 +113,7 @@ def test_rgb_beta_tail_kernel_matches_plain(cuda, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,channels", [(1, 64), (8, 64), (1, 8), (3, 8)])
+@pytest.mark.parametrize("batch,channels", [(1, 64), (8, 64), (16, 64), (1, 128), (1, 8), (3, 8)])
 def test_rgb_beta_head_kernel_matches_plain(cuda, batch, channels):
     x, tr, _, tg, tb = _head_inputs(batch, channels, cuda)
     before = rh.rgb_beta_head.launches
@@ -134,6 +139,12 @@ def test_wrappers_raise_on_the_card_too(cuda):
         rt.rgb_beta_tail(trunk, tg.cpu(), tb)
     with pytest.raises(TypeError, match="float32"):
         rh.rgb_beta_head(x.half(), tr, tg, tb)
+    before = rt.rgb_beta_tail.launches
+    with pytest.raises(ValueError, match="shared memory"):  # maps 78 cells wide: more than a block holds
+        rt.rgb_beta_tail(torch.zeros(1, 96, 2, 78, device=cuda), tg, tb)
+    with pytest.raises(ValueError, match="H even"):
+        rt.rgb_beta_tail(torch.zeros(1, 96, 3, 16, device=cuda), tg, tb)
+    assert rt.rgb_beta_tail.launches == before
 
 
 @pytest.mark.cuda
@@ -192,8 +203,10 @@ def _mdblock_inputs(batch, c, size, scales, device, seed=7):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,channels,size,scales", [
-    (1, 512, 8, (0, 2)), (1, 256, 16, (0, 2, 3)), (1, 128, 32, (0, 2, 3)),  # full IAN's three blocks
-    (8, 128, 32, (0, 2, 3)),
+    # full IAN's three blocks at batch 1 (8x8x512 takes the most slices, 64), 8 and 128 (one slice)
+    (1, 512, 8, (0, 2)), (1, 256, 16, (0, 2, 3)), (1, 128, 32, (0, 2, 3)),
+    (8, 512, 8, (0, 2)), (8, 256, 16, (0, 2, 3)), (8, 128, 32, (0, 2, 3)),
+    (128, 512, 8, (0, 2)), (128, 256, 16, (0, 2, 3)), (128, 128, 32, (0, 2, 3)),
     (2, 16, 8, (0, 2)), (3, 32, 16, (0, 2, 3)),  # the tiny profile's widths
     (3, 80, 16, (2, 3, 4)),  # a channel tile that is only part full; no scale 0
     (600, 64, 8, (0,)),  # more blocks than one wave: one slice, the epilogue in the product kernel

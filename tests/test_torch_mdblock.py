@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_parity as tp
 from npe_tpu.models import common as jcommon
@@ -255,3 +256,57 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(fault, error, match):
         x = x[0]
     with pytest.raises(error, match=match):
         tk.mdblock_fused(x, t1, t2, aff, scales)
+
+
+@pytest.mark.parametrize("batch,channels,size,scales,want", [
+    (1, 512, 8, (0, 2), 64), (1, 256, 16, (0, 2, 3), 27), (1, 128, 32, (0, 2, 3), 12),  # one image
+    (8, 512, 8, (0, 2), 8), (128, 512, 8, (0, 2), 1), (128, 128, 32, (0, 2, 3), 1),
+])
+def test_inner_splits_fill_one_wave_of_the_card(batch, channels, size, scales, want):
+    """The most slices (a divisor of the inner dimension's 16-channel steps)
+    that still let every block of the call run at once, BLOCKS_PER_SM to a
+    multiprocessor of 132; one slice once the batch fills the card."""
+    units = 9 * len(tk.dilations(scales)) * channels // tk.CHANNEL_STEP
+    tiles = (size * size // tk.TILE_PIXELS) * -(-channels // tk.TILE_CHANNELS)
+    got = tk.inner_splits(batch, tiles, units, 132)
+    assert got == want and units % got == 0
+    assert got == 1 or batch * tiles * got <= tk.BLOCKS_PER_SM * 132
+
+
+def test_tf32_split_rounds_as_cvt_rna_does():
+    """Ten mantissa bits kept, to nearest with ties away from zero; hi + lo
+    holds the value to 2^-21 of its size."""
+    x = torch.tensor([1.0, 1 + 2**-11, 1 + 2**-10 + 2**-11, -1 - 2**-11, 1 + 2**-12, 3.0e-30])
+    hi, lo = tk.tf32_split(x)
+    assert hi.tolist()[:5] == [1.0, 1 + 2**-10, 1 + 2**-9, -1 - 2**-10, 1.0]
+    assert torch.equal(hi + lo, x)
+    y = torch.from_numpy(np.random.RandomState(0).randn(10000).astype(np.float32))
+    hi, lo = tk.tf32_split(y)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF, torch.zeros_like(hi, dtype=torch.int32))
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0**-21
+
+
+def test_three_tf32_products_keep_float32_accuracy_and_one_does_not():
+    """Why the kernel takes three TF32 products per multiply-add. One MDCL of
+    full IAN's 8x8x512 block (18 taps: 9,216-term sums) on chip_smoke.py's
+    inputs, as the kernel's implicit GEMM, with the TF32 products emulated
+    (a product of two TF32 values is exact in float32): lo*hi + hi*lo +
+    hi*hi stays within MDBLOCK_TOL of float64, hi*hi alone does not."""
+    from chip_smoke import MDBLOCK_TOL, mdblock_inputs
+
+    scales = (0, 2)
+    x, taps, _, aff = mdblock_inputs(1, 512, 8, scales, 41, "cpu")
+    h = F.leaky_relu(x * aff[0, :, None, None] + aff[1, :, None, None], 0.2)
+    offs = tk.tap_offsets(scales)
+    hp = F.pad(h, (2, 2, 2, 2))
+    a = torch.cat([hp[0, :, 2 + dy:10 + dy, 2 + dx:10 + dx].reshape(512, 64).t() for dy, dx in offs], 1)
+    b = taps.reshape(-1, 512)  # (taps x Cin, Cout): rows in the order of a's columns
+    want = a.double() @ b.double()
+    assert torch.allclose(want.float(), tk._mdcl_taps(h, taps, offs).reshape(512, 64).t(), rtol=1e-4, atol=1e-4)
+    (a_hi, a_lo), (b_hi, b_lo) = tk.tf32_split(a), tk.tf32_split(b)
+    three = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    one = a_hi @ b_hi
+    err3, err1 = float((three.double() - want).abs().max()), float((one.double() - want).abs().max())
+    assert float(want.std()) > 1
+    assert err3 <= MDBLOCK_TOL / 20, err3
+    assert err1 > MDBLOCK_TOL, err1

@@ -7,6 +7,7 @@ by tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import torch_parity as tp
 from npe_tpu.models import common as jcommon
 from npe_tpu.ops.pallas import mdcl_kernels as jk
 from npe_tpu_torch.models import common as tcommon
+from npe_tpu_torch.ops.beta import beta_mean
 from npe_tpu_torch.ops.kernels import rgb_beta_head as th
 from npe_tpu_torch.ops.kernels import rgb_beta_tail as tt
 from npe_tpu_torch.utils.checkpoints import from_reference, unit_gain
@@ -153,8 +155,9 @@ def test_head_mode_default_and_fallbacks():
         with pytest.raises(ValueError, match="has shape"):
             tcommon.rgb_beta_head(tv, h, [2], mode=mode, block=2)
         # a wider map than the kernels' 16 cells: fused wants W = 64, the tail its shared memory
+        # (a block holds maps up to 77 cells wide)
         with pytest.raises(ValueError, match="rgb_beta_"):
-            tcommon.rgb_beta_head(tv, torch.zeros(1, 4, 128, 128), SCALES, mode=mode)
+            tcommon.rgb_beta_head(tv, torch.zeros(1, 4, 64, 320), SCALES, mode=mode)
     # scales up to 3 still pack to 3x3 taps at block 4: the kernel forms take them
     small = tcommon.rgb_beta_head(tv, h, [2, 3], mode="plain")
     for mode in ("hybrid", "fused"):
@@ -225,8 +228,10 @@ def test_wrappers_refuse_what_the_kernels_cannot_read():
         tt.rgb_beta_tail(trunk[:, :, :15].contiguous(), tg, tb)
     with pytest.raises(ValueError, match="trunk has shape"):
         tt.rgb_beta_tail(trunk[:, :48], tg, tb)
-    with pytest.raises(ValueError, match="shared memory"):
-        tt.rgb_beta_tail(torch.zeros(1, 96, 32, 32), tg, tb)
+    with pytest.raises(ValueError, match="shared memory"):  # a block holds maps 78 cells wide
+        tt.rgb_beta_tail(torch.zeros(1, 96, 16, 78), tg, tb)
+    assert tt.rgb_beta_tail(torch.zeros(1, 96, 32, 32), tg, tb).shape == (1, 48, 32, 32)  # any height
+    assert tt.rgb_beta_tail(torch.zeros(1, 96, 2, 77), tg, tb).shape == (1, 48, 2, 77)
     x = torch.zeros(1, 8, 64, 64)
     tr = torch.zeros(9, 16 * 8, 96)
     with pytest.raises(TypeError, match="float32"):
@@ -250,3 +255,54 @@ def test_trunk_splits_fill_the_card_for_a_small_batch():
     for batch in (1, 2, 3, 8, 64):
         s = th.trunk_splits(batch, 4, units, 132)
         assert units % s == 0 and 1 <= s <= th.MAX_SPLITS
+
+
+def test_tail_rows_and_shared_memory_of_the_row_group_kernel():
+    """The fewest cell rows a block that keep the blocks in one wave, a
+    divisor of the height whose maps fit; past that, the most. A block's
+    shared memory follows the map's width and its rows, not its height, and
+    at w = 16 two blocks of any row count fit no SM."""
+    assert [tt.tail_rows(b, 16, 16, 132) for b in (1, 8, 9, 16, 64, 128, 200)] == [1, 1, 2, 2, 8, 16, 16]
+    assert [tt.tail_rows(b, 2, 16, 132) for b in (1, 66, 67, 500)] == [1, 1, 2, 2]
+    assert tt.tail_rows(200, 6, 5, 132) == 6 and tt.tail_rows(40, 6, 5, 132) == 2
+    assert tt.tail_rows(128, 16, 77, 132) == 1  # at 77 cells wide a block's maps hold one row at most
+    assert tt.tail_smem_bytes(16) == (9 * 32 * 32 + 9 * 64 * 32 + 64 * 6 * 18) * 4 == 138240
+    assert tt.tail_smem_bytes(16) < tt.tail_smem_bytes(16, rows=2) < tt.SMEM_LIMIT < 2 * tt.tail_smem_bytes(16)
+    assert tt.tail_smem_bytes(16, rows=16) <= tt.SMEM_LIMIT
+    assert tt.tail_smem_bytes(77) <= tt.SMEM_LIMIT < tt.tail_smem_bytes(78)
+    assert tt.tail_smem_bytes(77, rows=2) > tt.SMEM_LIMIT
+
+
+def _tail_by_row_groups(trunk, tg, tb, rows):
+    """The kernel's cut of an image, in PyTorch: for each group of `rows`
+    cell rows, R on the rows +-2 and G on the rows +-1 from the trunk's
+    slice alone, zero outside the map, then B on the group's rows."""
+    pair = 2 * RR
+    n, _, h, w = trunk.shape
+    out = []
+    for i0 in range(0, h, rows):
+        lo, hi = max(i0 - 2, 0), min(i0 + rows + 2, h)
+        pad = (0, 0, lo - (i0 - 2), i0 + rows + 2 - hi)  # rows beyond the map are zero
+        red = F.pad(torch.sigmoid(trunk[:, :pair, lo:hi]), pad)
+        grn = torch.sigmoid(F.pad(trunk[:, pair:2 * pair, lo:hi], pad) + tt.tap_conv(red, tg))
+        inside = torch.tensor([0 <= i0 - 2 + r < h for r in range(rows + 4)], dtype=trunk.dtype)
+        grn = grn * inside[None, None, :, None]  # G is zero outside the map, as B's border
+        blu = torch.sigmoid(trunk[:, 2 * pair:, i0:i0 + rows] + tt.tap_conv(torch.cat([red, grn], 1), tb)[:, :, 2:-2])
+        out.append(torch.cat([beta_mean(c[:, :RR], c[:, RR:]) for c in (red[:, :, 2:-2], grn[:, :, 2:-2], blu)], 1))
+    return torch.cat(out, 2)
+
+
+@pytest.mark.parametrize("rows", [1, 2, "all"])
+@pytest.mark.parametrize("h,w", [(16, 16), (2, 16), (6, 5)])
+def test_row_groups_with_a_halo_of_two_compute_the_whole_tail(rows, h, w):
+    """R two rows beyond a group and G one are all that B on the group's rows
+    needs: the groups' results put together are the plain version's."""
+    rows = h if rows == "all" else rows
+    rng = np.random.RandomState(h * w + rows)
+    trunk = torch.from_numpy(rng.randn(2, 6 * RR, h, w).astype(np.float32))
+    tg = torch.from_numpy((rng.randn(9, 2 * RR, 2 * RR) * 0.1).astype(np.float32))
+    tb = torch.from_numpy((rng.randn(9, 4 * RR, 2 * RR) * 0.07).astype(np.float32))
+    want = tt.rgb_beta_tail_reference(trunk, tg, tb)
+    got = _tail_by_row_groups(trunk, tg, tb, rows)
+    assert float(want.std()) > 0.1
+    tp.assert_close(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
