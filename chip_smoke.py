@@ -28,11 +28,14 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 KERNEL_TOL = 1e-5  # kernel vs plain version on the card, max abs
-# rgb_beta_head's trunk adds 9 * 16 * C = 9216 products per output in another
-# order than cuDNN's conv does, before the sigmoids and the Beta mean's division.
+# rgb_beta_head's trunk adds 33 * C = 2112 products per output at C = 64 (its
+# four centre taps folded into one; 9 * 16 * C = 9216 in the space-to-depth
+# form it replaced) in another order than the plain version's cuDNN conv,
+# before the sigmoids and the Beta mean's division.
 HEAD_TOL = 5e-5
 # mdblock_fused adds up to 9 * 2 * 512 = 9216 products per output in another
 # order than the plain version's per-tap cuBLAS products, twice in a row, and
@@ -140,12 +143,14 @@ def edit_tail_bound_ms(batch, n, radius):
 
 
 def head_inputs(batch, channels, seed, device):
-    """Seeded O(1) decoder features and trunk pre-activations, and tap
-    matrices at unit gain (a pre-activation sums 9 * in products, of which a
-    9x9 composed kernel at r = 4 fills about a quarter)."""
+    """Seeded O(1) decoder features and trunk pre-activations, the trunk's
+    stacked taps for HEAD_SCALES (36 taps, 33 distinct offsets) and the
+    tail's tap matrices at unit gain (a tail pre-activation sums 9 * in
+    products, of which a 9x9 composed kernel at r = 4 fills about a
+    quarter)."""
     rng = np.random.RandomState(seed)
     x = rng.randn(batch, channels, 64, 64).astype(np.float32)
-    tr = (rng.randn(9, 16 * channels, 96) / np.sqrt(9 * 16 * channels)).astype(np.float32)
+    tr = (rng.randn(36, channels, 6) / np.sqrt(33 * channels)).astype(np.float32)
     trunk = rng.randn(batch, 96, 16, 16).astype(np.float32)
     tg = (rng.randn(9, 32, 32) / np.sqrt(9 * 32 / 4)).astype(np.float32)
     tb = (rng.randn(9, 64, 32) / np.sqrt(9 * 64 / 4)).astype(np.float32)
@@ -205,10 +210,24 @@ def rgb_beta_tail_bound_ms(batch):
     return roofline_ms(*tail_work(batch))
 
 
-def rgb_beta_head_bound_ms(batch, channels, cells=256, rr=16):
-    """Least time for rgb_beta_head: x and the three tap tensors read once,
-    the image written once; the trunk's 9 * 16C * 96 multiply-adds per cell
-    on top of the tail's operations."""
+def rgb_beta_head_bound_ms(batch, channels, cells=256, rr=16, offsets=33):
+    """Least time for rgb_beta_head: x and the three tap tensors it is given
+    read once, the image written once; the work the function needs, each
+    output pixel's MDCLs over their 33 distinct offsets (the trunk C -> 6,
+    the tail's G_b 2 -> 2 and B_b 4 -> 2), two operations a multiply-add,
+    and about ten operations for each sigmoid and Beta mean."""
+    px = batch * cells * rr
+    nbytes = 4 * (px * channels + 36 * channels * 6 + 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + px * 3)
+    flops = px * 2 * offsets * (channels * 6 + 2 * 2 + 4 * 2) + batch * cells * 10 * 9 * rr
+    return roofline_ms(nbytes, flops)
+
+
+def rgb_beta_head_s2d_bound_ms(batch, channels, cells=256, rr=16):
+    """The bound of the space-to-depth form the kernel had before its
+    direct trunk: the trunk's 9 * 16C * 96 multiply-adds per cell
+    (structural zeros included) on top of the tail's s2d operations, and its
+    3.5 MB tap tensor. Kept beside `rgb_beta_head_bound_ms`, the work the
+    function needs, so that older measurements stay comparable."""
     tail_bytes, tail_flops = tail_work(batch)
     tail_bytes -= 4 * batch * 6 * rr * cells  # the trunk never leaves the kernel
     nbytes = tail_bytes + 4 * (batch * channels * rr * cells + 9 * rr * channels * 6 * rr)
@@ -606,8 +625,11 @@ def main():
     from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
     from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
     from npe_tpu_torch.ops.kernels import staging
+    from npe_tpu_torch.ops.conv import conv2d, space_to_depth
     from npe_tpu_torch.utils.checkpoints import from_reference, save_weights, to_reference, unit_gain
     from npe_tpu_torch.utils.timing import cuda_ms, graph_ms
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import launch_floor  # scripts/launch_floor.py: the empty kernel edit_tail is read beside
 
     # 1. Device
     kind = torch.cuda.get_device_name(0)
@@ -631,7 +653,7 @@ def main():
     dev = torch.device("cuda")
     worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0, "mdblock": 0.0, "staging": 0.0}
     for batch in (1, 8):
-        for sigma in (0.7, 1.5):
+        for sigma in (0.7, 1.5, 3.0):  # radius 3, 6 and 12: the last wider than a band at batch 1 and 8
             for mask_kind in (None, "zeros", "random", "ones"):
                 xh, recon, err, um = edit_tail_inputs(batch, mask_kind, 1, dev)
                 got = et.edit_tail(xh, recon, err, um, sigma)
@@ -672,13 +694,18 @@ def main():
         _, _, trunk, tg, tb = head_inputs(batch, 64, 10 + batch, dev)
         check_kernel("rgb_beta_tail", f"batch {batch}", rt.rgb_beta_tail, rt.rgb_beta_tail_reference,
                      (trunk, tg, tb), KERNEL_TOL)
-    for batch in (1, 2):
-        x, tr, _, tg, tb = head_inputs(batch, 64, 20 + batch, dev)
-        check_kernel("rgb_beta_head", f"C 64 batch {batch}", rh.rgb_beta_head,
-                     rh.rgb_beta_head_reference_packed, (x, tr, tg, tb), HEAD_TOL)
-    x, tr, _, tg, tb = head_inputs(1, 128, 23, dev)  # full IAN's head
-    check_kernel("rgb_beta_head", "C 128 batch 1", rh.rgb_beta_head,
-                 rh.rgb_beta_head_reference_packed, (x, tr, tg, tb), HEAD_TOL)
+    head = lambda *a: rh.rgb_beta_head(*a, HEAD_SCALES)  # noqa: E731
+    head_plain = lambda *a: rh.rgb_beta_head_reference(*a, HEAD_SCALES)  # noqa: E731
+    for batch, channels in ((1, 64), (2, 64), (1, 128)):  # 128: full IAN's head
+        x, tr, _, tg, tb = head_inputs(batch, channels, 20 + batch + channels, dev)
+        # the trunk alone (its launch and the slice sum) against the plain trunk, then the whole head
+        got = rh.trunk_only(x, tr, HEAD_SCALES)
+        want = F.pixel_unshuffle(mk._mdcl_taps(x, tr, mk.tap_offsets(HEAD_SCALES)), 4)
+        e = float((got - want).abs().max())
+        log(f"[kernel] rgb_beta_head trunk alone C {channels} batch {batch}: max abs err {e:.3e} (tol {HEAD_TOL}), "
+            f"trunk std {float(want.std()):.3f}")
+        assert e <= HEAD_TOL, f"rgb_beta_head's trunk disagrees with its plain version: {e}"
+        check_kernel("rgb_beta_head", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb), HEAD_TOL)
     for _, channels, size, scales in MDBLOCK_SHAPES:
         for batch in (1, 8):
             check_kernel("mdblock", f"{size}x{size}x{channels} scales {list(scales)} batch {batch}",
@@ -809,60 +836,83 @@ def main():
     ian_fused_busy = profile_strokes("IAN fused MDBLOCKs", fused_ian, top=14)
 
     # what the head's weight packing costs on every decode (two a stroke)
-    v1 = card_v1.variables
     for as_taps, form in ((False, "hybrid"), (True, "fused")):
-        pack = lambda: common.packed_head_weights(v1, HEAD_SCALES, 4, as_taps)  # noqa: E731
+        pack = lambda: common.packed_head_weights(card_v1.variables, HEAD_SCALES, 4, as_taps)  # noqa: E731
         log(f"[time] head weight packing, {form} form, per decode: {cuda_ms(pack, 200):.4f} ms eager back "
             f"to back (host-bound), {graph_ms(pack, iters=20):.4f} ms device time (CUDA graph)")
 
-    xh, recon, err, um = edit_tail_inputs(1, "random", 2, dev)
+    # edit_tail beside an empty kernel of its grid and block, launched the same
+    # way: the launch floor, what no design of the kernel can go below
     _, radius = et.gaussian_kernel_1d(0.7)
     bm = et.blur_matrix(64, 0.7, device=dev)
-    kernel_ms = graph_ms(lambda: et.edit_tail(xh, recon, err, um, 0.7))
-    plain_ms = graph_ms(lambda: et.edit_tail_reference(xh, recon, err, bm, um))
-    bound_ms, bound_by = edit_tail_bound_ms(1, 64, radius)
-    log(f"[time] edit_tail batch 1, device time (CUDA graph): kernel {kernel_ms:.5f} ms, "
-        f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}) ({smi})")
+    edit_times = {}
+    for batch in (1, 8):
+        xh, recon, err, um = edit_tail_inputs(batch, "random", 2, dev)
+        edit_times[batch] = {
+            "ms": graph_ms(lambda: et.edit_tail(xh, recon, err, um, 0.7)),  # noqa: B023
+            "plain_ms": graph_ms(lambda: et.edit_tail_reference(xh, recon, err, bm, um)),  # noqa: B023
+            "launch_floor_ms": graph_ms(lambda: launch_floor.edit_tail_floor(batch, 64, 0.7, dev)),  # noqa: B023
+            "bands": 64 // et.band_rows(batch, 64, radius, torch.cuda.get_device_properties(dev).multi_processor_count),
+        }
+        t = edit_times[batch]
+        bound_ms, bound_by = edit_tail_bound_ms(batch, 64, radius)
+        log(f"[time] edit_tail batch {batch}, device time (CUDA graph): kernel {t['ms']:.5f} ms ({t['bands']} bands "
+            f"an image), plain {t['plain_ms']:.5f} ms, empty kernel of the same grid {t['launch_floor_ms']:.5f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}) ({smi})")
+    xh, recon, err, um = edit_tail_inputs(1, "random", 2, dev)
     loop_k = cuda_ms(lambda: et.edit_tail(xh, recon, err, um, 0.7), 2000)
     loop_p = cuda_ms(lambda: et.edit_tail_reference(xh, recon, err, bm, um), 2000)
     log(f"[time] edit_tail batch 1, eager calls back to back: wrapper {loop_k:.5f} ms, "
         f"plain {loop_p:.5f} ms per call")
-    xh8, recon8, err8, um8 = edit_tail_inputs(8, "random", 2, dev)
-    k8 = graph_ms(lambda: et.edit_tail(xh8, recon8, err8, um8, 0.7))
-    log(f"[time] edit_tail batch 8, device time: kernel {k8:.5f} ms, "
-        f"bound {edit_tail_bound_ms(8, 64, radius)[0]:.6f} ms")
-    entries = [{"name": "edit_tail", "source": et.SOURCE, "replaces": et.REPLACES, "ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}]
+    bound_ms, bound_by = edit_tail_bound_ms(1, 64, radius)
+    entries = [{"name": "edit_tail", "source": et.SOURCE, "replaces": et.REPLACES, "ms": edit_times[1]["ms"],
+                "plain_ms": edit_times[1]["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                "launch_floor_ms": edit_times[1]["launch_floor_ms"]}]
 
+    # the tail alone, and the head; beside the head's trunk, the hybrid
+    # form's trunk, one cuDNN conv over the s2d map (a yardstick for the trunk,
+    # not a computation of the whole head)
+    k_trunk = common.packed_head_weights(card_v1.variables, HEAD_SCALES, 4, as_taps=False)[0]
     for batch in (1, 8, 16):  # 16: IANv1's and full IAN's training batch, the tail alone
         x, tr, trunk, tg, tb = head_inputs(batch, 64, 30 + batch, dev)
         cases = [("rgb_beta_tail", rt, rt.rgb_beta_tail, rt.rgb_beta_tail_reference, (trunk, tg, tb),
                   rgb_beta_tail_bound_ms(batch))]
         if batch < 16:
-            cases.append(("rgb_beta_head", rh, rh.rgb_beta_head, rh.rgb_beta_head_reference_packed, (x, tr, tg, tb),
-                          rgb_beta_head_bound_ms(batch, 64)))
+            cases.append(("rgb_beta_head", rh, head, head_plain, (x, tr, tg, tb), rgb_beta_head_bound_ms(batch, 64)))
         for name, mod, kernel, plain, args, bound in cases:
             with torch.no_grad():
-                k_ms = graph_ms(lambda: kernel(*args), iters=50)
-                p_ms = graph_ms(lambda: plain(*args), iters=50)
-            log(f"[time] {name} batch {batch}, device time (CUDA graph): kernel {k_ms:.5f} ms, "
-                f"plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) ({smi})")
+                k_ms = graph_ms(lambda: kernel(*args), iters=50)  # noqa: B023
+                p_ms = graph_ms(lambda: plain(*args), iters=50)  # noqa: B023
+            line = (f"[time] {name} batch {batch}, device time (CUDA graph): kernel {k_ms:.5f} ms, "
+                    f"plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+            entry = {"name": name, "source": mod.SOURCE, "replaces": mod.REPLACES, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+            if name == "rgb_beta_head":
+                with torch.no_grad():
+                    trunk_ms = graph_ms(lambda: rh.trunk_only(x, tr, HEAD_SCALES), iters=50)  # noqa: B023
+                    cudnn_ms = graph_ms(lambda: conv2d(space_to_depth(x, 4), k_trunk, padding=1), iters=50)  # noqa: B023
+                line += (f"; its trunk (launch and slice sum) {trunk_ms:.5f} ms, the hybrid form's cuDNN trunk conv "
+                         f"{cudnn_ms:.5f} ms; the s2d form's bound {rgb_beta_head_s2d_bound_ms(batch, 64)[0]:.6f} ms")
+                entry.update(trunk_ms=trunk_ms, trunk_library_ms=cudnn_ms)
+            log(f"{line} ({smi})")
             if batch == 1:
-                entries.append({"name": name, "source": mod.SOURCE, "replaces": mod.REPLACES, "ms": k_ms,
-                                "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1]})
-    # the whole head from the weights: both kernel forms, and the all-library
-    # alternative to them, the fused kernel's plain version ("packed")
-    h1 = torch.from_numpy(rng.randn(1, 64, 64, 64).astype(np.float32)).to(dev)
-    forms = {
-        "packed": lambda: rh.rgb_beta_head_reference_packed(
-            h1, *common.packed_head_weights(v1, HEAD_SCALES, 4, as_taps=True)),
-        "hybrid": lambda: common.rgb_beta_head(v1, h1, HEAD_SCALES, mode="hybrid"),
-        "fused": lambda: common.rgb_beta_head(v1, h1, HEAD_SCALES, mode="fused"),
-    }
-    with torch.no_grad():
-        for form, fn in forms.items():
-            log(f"[time] whole head, {form} form, batch 1, weight packing included, device time "
-                f"(CUDA graph): {graph_ms(fn, iters=20):.5f} ms ({smi})")
+                entries.append(entry)
+    # the whole head from the weights, at the stroke's batch and the API's:
+    # both kernel forms, and the all-library alternative to them, the fused
+    # kernel's plain version over the fused form's weights
+    v1 = card_v1.variables
+    for batch in (1, 128):
+        h = torch.from_numpy(rng.randn(batch, 64, 64, 64).astype(np.float32)).to(dev)
+        forms = {
+            "plain version of fused": lambda: rh.rgb_beta_head_reference(  # noqa: B023
+                h, *common.packed_head_weights(v1, HEAD_SCALES, 4, as_taps=True), HEAD_SCALES),  # noqa: B023
+            "hybrid": lambda: common.rgb_beta_head(v1, h, HEAD_SCALES, mode="hybrid"),  # noqa: B023
+            "fused": lambda: common.rgb_beta_head(v1, h, HEAD_SCALES, mode="fused"),  # noqa: B023
+        }
+        with torch.no_grad():
+            for form, fn in forms.items():
+                log(f"[time] whole head, {form} form, batch {batch}, weight packing included, device time "
+                    f"(CUDA graph): {graph_ms(fn, iters=20 if batch == 1 else 5):.5f} ms ({smi})")
 
     # mdblock_fused at full IAN's three shapes: the kernel and its plain
     # version on prepared taps, then (batch 1 and 8) the whole block from the

@@ -14,25 +14,32 @@
 // Bound: bytes. The function must read xh, recon and error (3 x 12 n^2 B) and
 // the user mask (4 n^2 B) and write the output (12 n^2 B): 213 KB at n = 64,
 // 0.064 us at 3.35 TB/s. Its arithmetic (about 60 n^2 operations) is nothing
-// beside that. Far above both, the latency of three dependent passes inside
-// one block per image sets the time (PERF.md has the measured numbers).
+// beside that. What is left above both is latency: a launch, then the chain
+// of loads, blur passes and stores (PERF.md has the measured numbers, and the
+// time of an empty kernel launched the same way, scripts/launch_floor.py).
 //
-// Design: one thread block per image (grid = batch). The TPU kernel moves W
-// onto the lanes with a CHW transpose and runs the blur as two dense n x n
-// MXU matmuls; neither helps here. This reads HWC as it lies and runs the
-// blur as two stencil passes over shared memory, which holds m and the
-// row-blurred intermediate (2 n^2 floats, 32 KB at n = 64) and the taps.
-// With one block per image the three dependent passes are latency-bound, so
-// the block is as wide as a block can be (1024 threads: n^2 / 1024 pixels per
-// thread and pass, and more warps in flight to hide the loads). The composite pass
-// reads xh and recon a second time (from L2) instead of keeping DELTA in
-// registers. All sums are float32.
+// Design: one pass over row bands. The first version gave an image one block
+// and chained three passes over the whole image with block barriers, so a
+// stroke (batch 1) ran on one SM of 132. Here the grid is (bands, batch) and
+// a block owns `rows` rows of one image (the wrapper's `band_rows`: 64 bands
+// of one row at batch 1, wider bands as the batch grows). It computes m for
+// its rows and the blur radius r either side, folding rows outside the image
+// by scipy's reflect (as often as needed, so r may exceed the band and the
+// image), blurs along H into its rows, then along W over each whole row
+// (reflect at the column edges), adds the user-mask floor, clips, and writes
+// the composite of its rows. No block depends on another: one launch, no
+// step between blocks. The HWC rows are read and written as float4 (4 pixels
+// are 3 float4); a thread issues its composite loads (its float4 of xh,
+// recon and error) and its user-mask word first, so that they are in flight
+// behind the m and blur passes. Shared memory holds m for rows + 2r rows (the
+// W-blurred mask reuses it), the H-blurred rows and the taps. All sums are
+// float32.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include <algorithm>
 
-constexpr int kThreads = 1024;
+namespace {
 
 __device__ __forceinline__ int reflect_index(int j, int n) {
   // scipy 'reflect': (d c b a | a b c d | d c b a), folded as often as needed.
@@ -43,67 +50,118 @@ __device__ __forceinline__ int reflect_index(int j, int n) {
   return j;
 }
 
-__global__ void __launch_bounds__(kThreads)
-edit_tail_kernel(const float* __restrict__ xh, const float* __restrict__ recon,
-                 const float* __restrict__ err, const float* __restrict__ user_mask,
-                 const float* __restrict__ taps, int radius, int n,
-                 float* __restrict__ out) {
+__global__ void edit_tail_kernel(const float* __restrict__ xh, const float* __restrict__ recon,
+                                 const float* __restrict__ err, const float* __restrict__ user_mask,
+                                 const float* __restrict__ taps, int radius, int n, int rows,
+                                 float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int npix = n * n;
-  float* m = smem;            // (n, n) auto mask
-  float* rows = smem + npix;  // (n, n) m blurred along H
-  float* k = rows + npix;     // 2r+1 taps
+  const int span = rows + 2 * radius;  // m rows a band needs
+  float* m = smem;                     // (span, n) auto mask; later the final (rows, n) mask
+  float* hb = m + span * n;            // (rows, n) m blurred along H
+  float* k = hb + rows * n;            // 2r+1 taps
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int y0 = blockIdx.x * rows;
+  const size_t img = static_cast<size_t>(blockIdx.y) * n * n;
+  const int quads = n / 4;             // a row is `quads` groups of 4 pixels, 3 float4 each
+  const int chunks = rows * 3 * quads; // float4 of the band's rows
 
-  const size_t pix0 = static_cast<size_t>(blockIdx.x) * npix;
-  const float* xh_b = xh + 3 * pix0;
-  const float* rc_b = recon + 3 * pix0;
-  const float* er_b = err + 3 * pix0;
-  float* out_b = out + 3 * pix0;
-
-  for (int t = threadIdx.x; t <= 2 * radius; t += blockDim.x) k[t] = taps[t];
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const float s = fabsf(xh_b[3 * p] - rc_b[3 * p]) + fabsf(xh_b[3 * p + 1] - rc_b[3 * p + 1]) +
-                    fabsf(xh_b[3 * p + 2] - rc_b[3 * p + 2]);
-    m[p] = fminf(s / 3.0f, 1.0f);
+  // what the last pass needs, issued first
+  const float4* xh4 = reinterpret_cast<const float4*>(xh + 3 * (img + static_cast<size_t>(y0) * n));
+  const float4* rc4 = reinterpret_cast<const float4*>(recon + 3 * (img + static_cast<size_t>(y0) * n));
+  const float4* er4 = reinterpret_cast<const float4*>(err + 3 * (img + static_cast<size_t>(y0) * n));
+  float4 pre_x = make_float4(0.0f, 0.0f, 0.0f, 0.0f), pre_r = pre_x, pre_e = pre_x;
+  if (tid < chunks) {
+    pre_x = __ldg(xh4 + tid);
+    pre_r = __ldg(rc4 + tid);
+    pre_e = __ldg(er4 + tid);
   }
-  __syncthreads();
+  float pre_um = 0.0f;
+  if (user_mask != nullptr && tid < rows * n) pre_um = __ldg(user_mask + img + static_cast<size_t>(y0) * n + tid);
 
-  // Blur along H: rows[i, j] = sum_t k[t] m[reflect(i + t - r), j].
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int i = p / n, j = p - (p / n) * n;
-    float acc = 0.0f;
-    for (int t = -radius; t <= radius; ++t) acc += k[t + radius] * m[reflect_index(i + t, n) * n + j];
-    rows[p] = acc;
-  }
-  __syncthreads();
-
-  // Blur along W, then the mask floor and the composite.
-  for (int p = threadIdx.x; p < npix; p += blockDim.x) {
-    const int i = p / n, j = p - (p / n) * n;
-    float mask = 0.0f;
-    for (int t = -radius; t <= radius; ++t) mask += k[t + radius] * rows[i * n + reflect_index(j + t, n)];
-    if (user_mask != nullptr) mask = fminf(fmaxf(mask + user_mask[pix0 + p], 0.0f), 1.0f);
+  for (int t = tid; t <= 2 * radius; t += threads) k[t] = taps[t];
+  // m over rows y0 - r .. y0 + rows + r - 1, each folded into the image
+  for (int i = tid; i < span * quads; i += threads) {
+    const int row = i / quads, g = i - row * quads;
+    const size_t at = (img + static_cast<size_t>(reflect_index(y0 - radius + row, n)) * n) * 3 / 4 + 3 * g;
+    const float4* a = reinterpret_cast<const float4*>(xh) + at;
+    const float4* b = reinterpret_cast<const float4*>(recon) + at;
+    const float4 a0 = __ldg(a), a1 = __ldg(a + 1), a2 = __ldg(a + 2);
+    const float4 b0 = __ldg(b), b1 = __ldg(b + 1), b2 = __ldg(b + 2);
+    const float d[12] = {a0.x - b0.x, a0.y - b0.y, a0.z - b0.z, a0.w - b0.w, a1.x - b1.x, a1.y - b1.y,
+                         a1.z - b1.z, a1.w - b1.w, a2.x - b2.x, a2.y - b2.y, a2.z - b2.z, a2.w - b2.w};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float r = rc_b[3 * p + c];
-      const float d = xh_b[3 * p + c] - r;
-      out_b[3 * p + c] = r + mask * d + (1.0f - mask) * er_b[3 * p + c];
+    for (int p = 0; p < 4; ++p) {
+      const float s = fabsf(d[3 * p]) + fabsf(d[3 * p + 1]) + fabsf(d[3 * p + 2]);
+      m[row * n + 4 * g + p] = fminf(s / 3.0f, 1.0f);
     }
   }
+  __syncthreads();
+
+  // blur along H into the band's rows: hb[i, j] = sum_t k[t] m[reflect(y0 + i + t - r), j]
+  for (int p = tid; p < rows * n; p += threads) {
+    const int i = p / n, j = p - i * n;
+    float acc = 0.0f;
+    for (int t = 0; t <= 2 * radius; ++t) acc += k[t] * m[(i + t) * n + j];
+    hb[p] = acc;
+  }
+  __syncthreads();
+
+  // blur along W, the user-mask floor and the clip: the final mask, into m
+  for (int p = tid; p < rows * n; p += threads) {
+    const int i = p / n, j = p - i * n;
+    float mask = 0.0f;
+    for (int t = -radius; t <= radius; ++t) mask += k[t + radius] * hb[i * n + reflect_index(j + t, n)];
+    if (user_mask != nullptr) {
+      const float u = p == tid ? pre_um : __ldg(user_mask + img + static_cast<size_t>(y0) * n + p);
+      mask = fminf(fmaxf(mask + u, 0.0f), 1.0f);
+    }
+    m[p] = mask;
+  }
+  __syncthreads();
+
+  // the composite, a float4 (four of a row's 3n floats) a thread at a time
+  float4* out4 = reinterpret_cast<float4*>(out + 3 * (img + static_cast<size_t>(y0) * n));
+  for (int c = tid; c < chunks; c += threads) {
+    float4 vx = pre_x, vr = pre_r, ve = pre_e;
+    if (c != tid) {
+      vx = __ldg(xh4 + c);
+      vr = __ldg(rc4 + c);
+      ve = __ldg(er4 + c);
+    }
+    const float xs[4] = {vx.x, vx.y, vx.z, vx.w}, rs[4] = {vr.x, vr.y, vr.z, vr.w}, es[4] = {ve.x, ve.y, ve.z, ve.w};
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float mask = m[(4 * c + e) / 3];  // the band's pixels in order: row i, column j at i * n + j
+      o[e] = rs[e] + mask * (xs[e] - rs[e]) + (1.0f - mask) * es[e];
+    }
+    out4[c] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Threads of a block (scripts/launch_floor.py launches its empty kernel by
+// the same rule).
+int block_threads(int n, int radius, int rows) {
+  const int work = std::max((rows + 2 * radius) * (n / 4), rows * n);
+  return std::min(1024, std::max(64, (work + 31) / 32 * 32));
 }
 
 }  // namespace
 
-// xh, recon, err, out: (batch, n, n, 3) float32, contiguous; user_mask:
-// (batch, n, n) float32 or null (no floor, no clip); taps: 2*radius+1 float32.
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int npe_edit_tail(const void* xh, const void* recon, const void* err,
-                             const void* user_mask, const void* taps, int radius,
-                             void* out, int batch, int n, void* stream) {
-  const size_t smem = (2 * static_cast<size_t>(n) * n + 2 * radius + 1) * sizeof(float);
-  edit_tail_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xh), static_cast<const float*>(recon),
-      static_cast<const float*>(err), static_cast<const float*>(user_mask),
-      static_cast<const float*>(taps), radius, n, static_cast<float*>(out));
+// xh, recon, err, out: (batch, n, n, 3) float32, contiguous, 16-byte aligned,
+// n a multiple of 4; user_mask: (batch, n, n) float32 or null (no floor, no
+// clip); taps: 2*radius+1 float32; rows: the rows of a band, a divisor of n.
+// Needs ((rows + 2 radius) n + rows n + 2 radius + 1) * 4 bytes of shared
+// memory, at most 48 KB. Launches on `stream` and returns the CUDA error code.
+extern "C" int npe_edit_tail(const void* xh, const void* recon, const void* err, const void* user_mask,
+                             const void* taps, int radius, void* out, int batch, int n, int rows, void* stream) {
+  if (rows < 1 || n % rows || n % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(rows + 2 * radius) * n + static_cast<size_t>(rows) * n + 2 * radius + 1) *
+                      sizeof(float);
+  edit_tail_kernel<<<dim3(n / rows, batch), block_threads(n, radius, rows), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xh), static_cast<const float*>(recon), static_cast<const float*>(err),
+      static_cast<const float*>(user_mask), static_cast<const float*>(taps), radius, n, rows,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

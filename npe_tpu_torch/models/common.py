@@ -169,26 +169,24 @@ def mdblock(v, upd, name, x, scales, act, train, mode=None):
     return act(bn(v, upd, f"{name}bnorm2", x + h, train))
 
 
-def head_kernels(v, scales):
-    """The RGB-Beta head's three dense composed kernels: the trunk (R, G_a
-    and B_a read the same input, so their kernels stack along the output
-    channels into one conv with 6 outputs: R alpha, R beta, G alpha, ...),
-    G_b (2 -> 2) and B_b (4 -> 2)."""
-    k_trunk = torch.cat([_composed_mdcl_kernel(v, n, scales) for n in ("R", "G_a", "B_a")], dim=0)
-    return k_trunk, _composed_mdcl_kernel(v, "G_b", scales), _composed_mdcl_kernel(v, "B_b", scales)
-
-
 def packed_head_weights(v, scales, block, as_taps):
     """What the two kernel forms of the head make of the weights on every
-    call: (trunk, G_b taps, B_b taps) in space-to-depth(block) form, the
-    trunk as tap matrices for the fused kernel (`as_taps`) or as a packed
-    conv kernel for the hybrid form's library conv. In eager PyTorch this
-    runs on every decode (about 30 small launches; npe_tpu's jit folds it
-    into the program). It is built from torch ops so that gradients reach
-    the weights, and nothing is cached on a weight's identity, which
-    training will update in place."""
-    k_trunk, k_g, k_b = head_kernels(v, scales)
-    trunk = pack_head_taps(k_trunk, block) if as_taps else pack_kernel_s2d(k_trunk, block)
+    call: (trunk, G_b taps, B_b taps). The tail's taps are the per-tap
+    matrices of the composed G_b and B_b kernels in space-to-depth(block)
+    form (`pack_head_taps`). The trunk (R, G_a and B_a read the same input,
+    so they stack along the output channels: R alpha, R beta, G alpha, ...)
+    is, for the fused kernel (`as_taps`), the three MDCLs' stacked taps
+    (T, C, 6) for `tap_offsets(scales)`; for the hybrid form's library conv,
+    the packed conv kernel of the composed 9x9 kernels. In eager PyTorch
+    this runs on every decode (npe_tpu's jit folds it into the program). It
+    is built from torch ops so that gradients reach the weights, and nothing
+    is cached on a weight's identity, which training will update in place."""
+    if as_taps:
+        trunk = torch.cat([_stacked_mdcl_taps(v, n, scales) for n in ("R", "G_a", "B_a")], dim=2)
+    else:
+        k_trunk = torch.cat([_composed_mdcl_kernel(v, n, scales) for n in ("R", "G_a", "B_a")], dim=0)
+        trunk = pack_kernel_s2d(k_trunk, block)
+    k_g, k_b = (_composed_mdcl_kernel(v, n, scales) for n in ("G_b", "B_b"))
     return trunk, pack_head_taps(k_g, block), pack_head_taps(k_b, block)
 
 
@@ -210,9 +208,9 @@ def mdcl_multi(v, names, x, scales):
 #             `rgb_beta_tail` kernel;
 #   "fused"   the whole head in the hand-written `rgb_beta_head` kernel
 #             (npe_tpu calls this mode "pallas").
-# npe_tpu's fourth form, "packed" (every conv a library conv over the packed
-# maps), is the fused kernel's plain version here:
-# `ops.kernels.rgb_beta_head.rgb_beta_head_reference_packed`.
+# The fused kernel's plain version, `ops.kernels.rgb_beta_head.
+# rgb_beta_head_reference`, is all library calls: the trunk as one conv of its
+# stacked taps placed at their offsets, then the tail as packed convs.
 # HEAD_MODE is the form taken when the caller names none: a constant, the same
 # on every device. (npe_tpu reads its default from NPE_HEAD_MODE, a TPU tuning
 # switch; the port reads no environment.) A caller picks another form through
@@ -252,7 +250,7 @@ def rgb_beta_head(v, h, scales=(2, 3, 4), mode=None, block=4):
             'only mode="plain" takes such a map'
         )
     if mode == "fused":
-        return rgb_beta_head_kernel(h, *packed_head_weights(v, scales, block, as_taps=True))
+        return rgb_beta_head_kernel(h, *packed_head_weights(v, scales, block, as_taps=True), scales)
     k_trunk, tg_taps, tb_taps = packed_head_weights(v, scales, block, as_taps=False)
     trunk = conv2d(space_to_depth(h, block), k_trunk, padding=1)  # (N, 6*rr, H/r, W/r)
     return depth_to_space(rgb_beta_tail(trunk, tg_taps, tb_taps), block)

@@ -5,9 +5,11 @@ The kernel is `npe_tpu_torch/csrc/edit_tail.cu` (its header says what bounds
 it and how it is laid out); `edit_tail_reference` is its plain PyTorch
 version, a copy of npe_tpu's `edit_tail_reference` with its `blur_matrix`.
 
-`edit_tail` takes images (n, n, 3) or a batch (b, n, n, 3), float32, HWC.
-For CPU tensors it runs the plain version; for CUDA tensors it launches the
-kernel, or raises. `edit_tail.launches` counts the kernel's launches.
+`edit_tail` takes images (n, n, 3) or a batch (b, n, n, 3), float32, HWC,
+n a multiple of 4. For CPU tensors it runs the plain version; for CUDA
+tensors it launches the kernel, or raises. The kernel cuts each image into
+bands of rows (`band_rows`) that run as independent blocks.
+`edit_tail.launches` counts the kernel's launches.
 """
 
 import ctypes
@@ -22,8 +24,8 @@ from npe_tpu_torch.ops.kernels import build
 SOURCE = "npe_tpu_torch/csrc/edit_tail.cu"
 REPLACES = "npe_tpu/ops/pallas/editor_kernels.py:76"
 # The launch asks for no more than the default 48 KB of dynamic shared
-# memory, which must hold m, the row-blurred m and the taps (n <= 78 at
-# sigma 0.7).
+# memory, which must hold a band's m with its halo, its H-blurred rows and the
+# taps (`edit_tail_smem_bytes`).
 SMEM_LIMIT = 48 * 1024
 
 
@@ -63,14 +65,36 @@ def _taps(sigma, device):
     return torch.from_numpy(k).to(device), r
 
 
+def edit_tail_smem_bytes(n, rows, radius):
+    """Shared memory of one block: m over its `rows` rows and `radius` rows
+    either side, the H-blurred rows, and the 2 radius + 1 taps."""
+    return ((rows + 2 * radius) * n + rows * n + 2 * radius + 1) * 4
+
+
+def band_rows(batch, n, radius, sm_count):
+    """Rows of one band (a block of the kernel): the fewest, a divisor of n
+    whose block fits SMEM_LIMIT, that keep all batch x n / rows blocks in
+    one wave, one a multiprocessor; past that, the most that fit. One 64x64
+    image takes 64 bands of one row, a batch of 8 bands of four rows, a
+    batch of 128 whole images. None if not even one row fits."""
+    fits = [r for r in range(1, n + 1) if n % r == 0 and edit_tail_smem_bytes(n, r, radius) <= SMEM_LIMIT]
+    if not fits:
+        return None
+    return next((r for r in fits if batch * (n // r) <= sm_count), fits[-1])
+
+
 @functools.cache
 def _entry():
     fn = build.load("edit_tail").npe_edit_tail
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _geometry(batch, n, radius, device):
+    return band_rows(batch, n, radius, torch.cuda.get_device_properties(device).multi_processor_count)
 
 
 def _check(xh, recon, error, user_mask, radius):
@@ -92,10 +116,15 @@ def _check(xh, recon, error, user_mask, radius):
             raise ValueError(f"{name} is on {t.device}, xh on {xh.device}")
         if not t.is_contiguous():
             raise ValueError(f"edit_tail wants contiguous tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"edit_tail wants 16-byte aligned tensors; {name} is not")
     n = xh.shape[1]
-    smem = (2 * n * n + 2 * radius + 1) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"edit_tail: n={n} at radius {radius} needs {smem} B of shared memory")
+    if n % 4:
+        raise ValueError(f"edit_tail reads rows as float4: n must be a multiple of 4, got {n}")
+    if edit_tail_smem_bytes(n, 1, radius) > SMEM_LIMIT:
+        raise ValueError(
+            f"edit_tail: n={n} at radius {radius} needs {edit_tail_smem_bytes(n, 1, radius)} B of shared memory "
+            "for a band of one row")
 
 
 def edit_tail(xh, recon, error, user_mask=None, sigma=0.7):
@@ -124,6 +153,7 @@ def edit_tail(xh, recon, error, user_mask=None, sigma=0.7):
                 out.data_ptr(),
                 xh.shape[0],
                 xh.shape[1],
+                _geometry(xh.shape[0], xh.shape[1], radius, xh.device),
                 torch.cuda.current_stream(xh.device).cuda_stream,
             )
         if rc != 0:

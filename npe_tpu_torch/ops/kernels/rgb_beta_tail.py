@@ -107,7 +107,7 @@ def tail_rows(batch, h, w, sm_count):
     wave, one a multiprocessor (a block holds 138 to 207 KB of shared memory
     at w = 16); past that, the most. A block's time grows with its rows, so
     one image takes 16 blocks of one row, a batch of 16 eight blocks of two
-    rows each, a batch of 128 one block of 16 rows (scripts/tail_sweep.py
+    rows each, a batch of 128 one block of 16 rows (scripts/kernel_sweep.py
     has the times behind this)."""
     fits = [r for r in range(1, h + 1) if h % r == 0 and tail_smem_bytes(w, r) <= SMEM_LIMIT]
     return next((r for r in fits if batch * (h // r) <= sm_count), fits[-1])

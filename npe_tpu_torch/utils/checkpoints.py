@@ -3,9 +3,9 @@
 A weight file is a name-keyed .npz of arrays in `npe_tpu`'s layouts (conv
 kernels HWIO, deconv kernels (kh, kw, cin, cout), dense rows in NHWC-flatten
 order) plus a pickled metadata dict, written atomically through a unique
-temp file. MADE masks (`*.weights_mask`) are left out of the file: each MADE
-net's ordering rides in the metadata (`made_orderings`) and the masks are
-regenerated from it at load. Restore is name-matched; a shape mismatch or a missing name warns
+temp file. MADE masks (`*.weights_mask`) are left out of the file unless
+asked for: each MADE net's ordering rides in the metadata
+(`made_orderings`) and the masks are regenerated from it at load. Restore is name-matched; a shape mismatch or a missing name warns
 and skips, and a file newer than `FORMAT_VERSION` is refused. Files written
 by `npe_tpu` load here and files written here load into `npe_tpu`.
 
@@ -198,12 +198,14 @@ def _unique_tmp(fname):
     return f"{fname}.tmp-{os.getpid()}-{threading.get_ident()}-{uuid.uuid4().hex[:8]}.npz"
 
 
-def save_weights(fname, variables, metadata=None):
-    """Name-keyed save of port variables in npe_tpu's layout. MADE masks are
-    left out, as npe_tpu and the reference leave them out; each MADE net's
-    ordering rides in the metadata so that `load_weights` regenerates the
-    exact masks whatever mask seed the loading process would use."""
-    arrays = to_reference({k: v for k, v in variables.items() if not k.endswith(MASK_SUFFIX)})
+def save_weights(fname, variables, metadata=None, include_masks=False, compress=False):
+    """Name-keyed save of port variables in npe_tpu's layout, with npe_tpu's
+    signature. MADE masks are left out unless `include_masks`, as npe_tpu
+    and the reference leave them out; each MADE net's ordering rides in the
+    metadata so that `load_weights` regenerates the exact masks whatever
+    mask seed the loading process would use. `compress` writes with
+    `np.savez_compressed` (np.load reads both)."""
+    arrays = to_reference({k: v for k, v in variables.items() if include_masks or not k.endswith(MASK_SUFFIX)})
     metadata = dict(metadata or {})
     metadata.setdefault("format_version", FORMAT_VERSION)
     orderings = made_orderings_of(variables)
@@ -213,7 +215,7 @@ def save_weights(fname, variables, metadata=None):
     tmp = _unique_tmp(fname)
     try:
         with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
+            (np.savez_compressed if compress else np.savez)(f, **arrays)
         os.replace(tmp, fname)
     finally:
         if os.path.exists(tmp):
@@ -223,8 +225,10 @@ def save_weights(fname, variables, metadata=None):
 def load_weights(fname, variables):
     """In-place name-matched restore into port `variables` (name -> tensor);
     each restored tensor lands on the device of the one it replaces. Returns
-    the metadata dict ({} if none). Shape mismatches and missing names warn
-    and skip; names the model lacks warn. MADE masks the file lacks are
+    the metadata dict ({} if none). A floating array takes the dtype of the
+    tensor it replaces, as npe_tpu computes a float64 file in float32 (JAX
+    runs with x64 off). Shape mismatches and missing names warn and skip;
+    names the model lacks warn. MADE masks the file lacks are
     regenerated from the metadata's 'made_orderings' (else they stay as
     `variables` carries them from init)."""
     metadata = {}
@@ -249,7 +253,10 @@ def load_weights(fname, variables):
                 tuple(old.shape),
             )
             continue
-        variables[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(old.device)
+        new = torch.from_numpy(np.ascontiguousarray(arr))
+        if new.is_floating_point() and old.is_floating_point():
+            new = new.to(old.dtype)
+        variables[name] = new.to(old.device)
     for name in stored:
         if name not in variables:
             logger.warning("checkpoint %s has unused param %s", fname, name)

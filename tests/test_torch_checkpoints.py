@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "npe_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "mdblock_sweep.py"]
+    return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / f"{name}.py" for name in ("kernel_ab", "kernel_sweep", "launch_floor")]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -220,6 +221,63 @@ def test_npe_tpu_ianv1_file_loads_with_masks_regenerated(tmp_path, caplog, own_o
     assert not caplog.records, [r.getMessage() for r in caplog.records]
     for k in jv:
         np.testing.assert_array_equal(np.asarray(fresh[k]), np.asarray(jv[k]))
+
+
+def test_float64_file_decodes_in_float32_as_in_npe_tpu(tmp_path, caplog):
+    """A weight file of float64 arrays (a numpy writer's, or a converted
+    float64 source): npe_tpu computes it in float32 (x64 off), and so must
+    the port; it used to keep float64 and every decode raised."""
+    jv = tp.jax_variables(tp.TINY_JAX)
+    path = tmp_path / "f64.npz"
+    jckpt.save_weights(str(path), {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in jv.items()})
+    with np.load(path) as f:
+        assert f["dec_conv1.W"].dtype == np.float64
+    jm, tm = jax_config(tp.TINY_JAX), torch_config(tp.TINY_TORCH)
+    jfresh = jax_config(tp.TINY_JAX).init(jax.random.PRNGKey(4))
+    port = tm.init(torch.Generator().manual_seed(4), "cpu")
+    with caplog.at_level(logging.WARNING):
+        jckpt.load_weights(str(path), jfresh)
+        tckpt.load_weights(str(path), port)
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    assert all(t.dtype == torch.float32 for t in port.values() if t.is_floating_point())
+    z = np.random.RandomState(2).randn(2, 16).astype(np.float32)
+    want = np.asarray(jm.decode(jfresh, z))
+    got = tm.decode(port, torch.from_numpy(z))
+    assert want.dtype == np.float32 and got.dtype == torch.float32 and np.abs(want).max() > 0.1
+    tp.assert_close(tp.nhwc(got), want)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("include_masks", [False, True])
+def test_port_files_of_every_kind_load_into_both_packages(tmp_path, caplog, include_masks, compress):
+    """save_weights takes npe_tpu's include_masks and compress keywords; the
+    four kinds of file it writes load into npe_tpu and into the port, masks
+    included, in npe_tpu's layout."""
+    import zipfile
+
+    jv = jax_config(tp.TINY_V1_JAX).init(jax.random.PRNGKey(0))
+    jv = _with_ordering(jv, np.random.RandomState(3).permutation(16))
+    port = tckpt.from_reference(jv, "cpu")
+    path = tmp_path / "port.npz"
+    tckpt.save_weights(str(path), port, metadata={"epoch": 1}, include_masks=include_masks, compress=compress)
+    with zipfile.ZipFile(path) as z:
+        kinds = {i.compress_type for i in z.infolist()}
+    assert kinds == {zipfile.ZIP_DEFLATED if compress else zipfile.ZIP_STORED}
+    masks = [k for k in jv if k.endswith(".weights_mask")]
+    with np.load(path) as f:
+        assert sorted(k for k in f.files if k.endswith(".weights_mask")) == (sorted(masks) if include_masks else [])
+        for k in masks if include_masks else ():
+            np.testing.assert_array_equal(f[k], np.asarray(jv[k]))
+    jfresh = jax_config(tp.TINY_V1_JAX).init(jax.random.PRNGKey(5))
+    tfresh = torch_config(tp.TINY_V1_TORCH).init(torch.Generator().manual_seed(5), "cpu")
+    with caplog.at_level(logging.WARNING):
+        assert jckpt.load_weights(str(path), jfresh)["epoch"] == 1
+        assert tckpt.load_weights(str(path), tfresh)["epoch"] == 1
+    assert not caplog.records, [r.getMessage() for r in caplog.records]
+    back = tckpt.to_reference(tfresh)
+    for k in jv:
+        np.testing.assert_array_equal(np.asarray(jfresh[k]), np.asarray(jv[k]), err_msg=k)
+        np.testing.assert_array_equal(back[k], np.asarray(jv[k]), err_msg=k)
 
 
 def test_restore_made_masks_without_metadata_keeps_the_init_masks():

@@ -23,6 +23,7 @@ from npe_tpu_torch.utils.checkpoints import from_reference, to_reference, unit_g
 TINY = str(pathlib.Path(__file__).resolve().parent / "tiny_ian_torch.py")
 TINY_V1 = str(pathlib.Path(__file__).resolve().parent / "tiny_ianv1_torch.py")
 TINY_FULL = str(pathlib.Path(__file__).resolve().parent / "tiny_ian_full_torch.py")
+HEAD_SCALES = (2, 3, 4)
 
 
 @pytest.fixture
@@ -46,7 +47,7 @@ def _inputs(batch, user_mask, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("user_mask", [None, "random", "ones"])
-@pytest.mark.parametrize("sigma", [0.7, 1.5])
+@pytest.mark.parametrize("sigma", [0.7, 1.5, 3.0])  # radius 3, 6 and 12: wider than a band at batch 1
 def test_edit_tail_kernel_matches_plain(cuda, batch, user_mask, sigma):
     xh, recon, err, um = _inputs(batch, user_mask, cuda)
     before = et.edit_tail.launches
@@ -78,12 +79,13 @@ def test_tiny_session_on_the_card_matches_the_cpu(cuda):
     assert np.isfinite(card.IM).all()
 
 
-def _head_inputs(batch, c, device, seed=6, cells=(16, 16)):
-    """Seeded O(1) features and tap matrices at unit gain; the trunk over
-    `cells` (h, w)."""
+def _head_inputs(batch, c, device, seed=6, cells=(16, 16), height=64):
+    """Seeded O(1) features and tap matrices at unit gain: the trunk's
+    stacked taps for HEAD_SCALES (36 taps, 33 distinct offsets), the tail's
+    over the trunk of `cells` (h, w)."""
     rng = np.random.RandomState(seed)
-    x = rng.randn(batch, c, 64, 64).astype(np.float32)
-    tr = (rng.randn(9, 16 * c, 96) / np.sqrt(9 * 16 * c)).astype(np.float32)
+    x = rng.randn(batch, c, height, 64).astype(np.float32)
+    tr = (rng.randn(36, c, 6) / np.sqrt(33 * c)).astype(np.float32)
     trunk = rng.randn(batch, 96, *cells).astype(np.float32)
     tg = (rng.randn(9, 32, 32) / np.sqrt(9 * 32 / 4)).astype(np.float32)
     tb = (rng.randn(9, 64, 32) / np.sqrt(9 * 64 / 4)).astype(np.float32)
@@ -113,21 +115,43 @@ def test_rgb_beta_tail_kernel_matches_plain(cuda, batch, cells):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,channels", [(1, 64), (8, 64), (16, 64), (1, 128), (1, 8), (3, 8)])
+@pytest.mark.parametrize("batch,channels", [(1, 64), (8, 64), (16, 64), (1, 128), (1, 8), (3, 8),
+                                            (2, 64), (3, 64), (2, 128), (1, 7), (1, 3), (128, 64)])
 def test_rgb_beta_head_kernel_matches_plain(cuda, batch, channels):
+    """Slice counts from 8 to 1 (by batch, fewer when C is small), uneven
+    slices (C = 7, and 5 slices of 64 at batch 3), and one image's result
+    bit-equal from call to call (the slices are added in a fixed order)."""
     x, tr, _, tg, tb = _head_inputs(batch, channels, cuda)
     before = rh.rgb_beta_head.launches
-    got = rh.rgb_beta_head(x, tr, tg, tb)
+    got = rh.rgb_beta_head(x, tr, tg, tb, HEAD_SCALES)
     torch.cuda.synchronize()
     assert rh.rgb_beta_head.launches == before + 1
-    want = rh.rgb_beta_head_reference_packed(x, tr, tg, tb)
+    want = rh.rgb_beta_head_reference(x, tr, tg, tb, HEAD_SCALES)
     assert got.shape == (batch, 3, 64, 64) and float(want.std()) > 0.1
-    # the trunk sums 9 * 16 * C terms in another order than cuDNN does
+    # the trunk sums 36 * C terms in another order than the plain version's per-tap products
     assert float((got - want).abs().max()) <= 5e-5
+    assert torch.equal(rh.rgb_beta_head(x, tr, tg, tb, HEAD_SCALES), got)
     xg = x.clone().requires_grad_(True)
-    (got_g,) = torch.autograd.grad((rh.rgb_beta_head(xg, tr, tg, tb) ** 2).sum(), xg)
-    (want_g,) = torch.autograd.grad((rh.rgb_beta_head_reference_packed(xg, tr, tg, tb) ** 2).sum(), xg)
+    (got_g,) = torch.autograd.grad((rh.rgb_beta_head(xg, tr, tg, tb, HEAD_SCALES) ** 2).sum(), xg)
+    (want_g,) = torch.autograd.grad((rh.rgb_beta_head_reference(xg, tr, tg, tb, HEAD_SCALES) ** 2).sum(), xg)
     torch.testing.assert_close(got_g, want_g, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,scales", [(8, HEAD_SCALES), (24, HEAD_SCALES), (64, (2, 3)), (64, (0, 2))])
+def test_rgb_beta_head_kernel_takes_other_heights_and_scales(cuda, height, scales):
+    """Maps of any height of whole cell-row pairs (the halo reaches past a
+    map of two bands), and fewer dilations (27 or 18 taps; scale 0 folded
+    into the centre)."""
+    rng = np.random.RandomState(height)
+    n_taps = 9 * len(mk.dilations(scales))
+    x = torch.from_numpy(rng.randn(2, 16, height, 64).astype(np.float32)).to(cuda)
+    tr = torch.from_numpy((rng.randn(n_taps, 16, 6) / np.sqrt(n_taps * 16)).astype(np.float32)).to(cuda)
+    _, _, _, tg, tb = _head_inputs(1, 1, cuda)
+    got = rh.rgb_beta_head(x, tr, tg, tb, scales)
+    want = rh.rgb_beta_head_reference(x, tr, tg, tb, scales)
+    assert got.shape == (2, 3, height, 64) and float(want.std()) > 0.1
+    assert float((got - want).abs().max()) <= 5e-5
 
 
 @pytest.mark.cuda
@@ -138,7 +162,9 @@ def test_wrappers_raise_on_the_card_too(cuda):
     with pytest.raises(ValueError, match="is on"):
         rt.rgb_beta_tail(trunk, tg.cpu(), tb)
     with pytest.raises(TypeError, match="float32"):
-        rh.rgb_beta_head(x.half(), tr, tg, tb)
+        rh.rgb_beta_head(x.half(), tr, tg, tb, HEAD_SCALES)
+    with pytest.raises(ValueError, match="trunk_taps has shape"):
+        rh.rgb_beta_head(x, tr, tg, tb, (2, 3))
     before = rt.rgb_beta_tail.launches
     with pytest.raises(ValueError, match="shared memory"):  # maps 78 cells wide: more than a block holds
         rt.rgb_beta_tail(torch.zeros(1, 96, 2, 78, device=cuda), tg, tb)

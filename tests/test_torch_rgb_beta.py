@@ -44,10 +44,12 @@ def _head_variables(c, seed=0):
 
 
 def _head(tv, h, mode):
-    """One of the four forms of the head. "packed", every conv a library
-    conv over the packed maps, is the fused kernel's plain version."""
+    """One of the four forms of the head. "packed", all library calls, is
+    the fused kernel's plain version over the weights the fused form
+    makes: the direct trunk, then the tail over the packed maps."""
     if mode == "packed":
-        return th.rgb_beta_head_reference_packed(h, *tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True))
+        taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True)
+        return th.rgb_beta_head_reference(h, *taps, SCALES)
     return tcommon.rgb_beta_head(tv, h, SCALES, mode=mode)
 
 
@@ -102,18 +104,61 @@ def test_head_plain_version_matches_the_pallas_kernel_at_full_width():
     conv_kernel, *tail_taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=False)
     assert conv_kernel.shape == (96, 16 * 64, 3, 3)
     assert all(torch.equal(a, b) for a, b in zip(tail_taps, taps[1:]))
-    assert taps[0].shape == (9, 16 * 64, 96)
-    got = th.rgb_beta_head_reference_packed(tp.nchw(h), *taps)
+    assert taps[0].shape == (36, 64, 6)  # 55 KB of stacked taps, not the s2d form's 3.5 MB
+    got = th.rgb_beta_head_reference(tp.nchw(h), *taps, SCALES)
     assert got.shape == (1, 3, 64, 64) and np.abs(want).std() > 0.1
     tp.assert_close(tp.nhwc(got), want, rtol=1e-4, atol=1e-5)
     before = th.rgb_beta_head.launches
-    assert torch.equal(th.rgb_beta_head(tp.nchw(h), *taps), got)
+    assert torch.equal(th.rgb_beta_head(tp.nchw(h), *taps, SCALES), got)
     assert th.rgb_beta_head.launches == before
     # the full-width forms against each other and against npe_tpu's plain head
     plain = np.asarray(jcommon.rgb_beta_head(jv, jnp.asarray(h), SCALES, mode="plain"))
     for mode in MODES:
         out = _head(tv, tp.nchw(h), mode)
         tp.assert_close(tp.nhwc(out), plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [64, 8])
+def test_head_direct_trunk_matches_pallas_and_the_packed_reference(c):
+    """The fused form's plain version, the direct trunk over the stacked taps
+    of R, G_a and B_a, against npe_tpu's Pallas head (interpret mode) and
+    its packed reference, from the same seeded weights."""
+    jv, tv = _head_variables(c, seed=3)
+    h = _features(2, c, 9)
+    dense = _dense_kernels(jv)
+    want = np.asarray(jk.rgb_beta_head_pallas(jnp.asarray(h), *dense, 4, 1, True))
+    packed = np.asarray(jk.rgb_beta_head_reference_packed(jnp.asarray(h), *dense, 4))
+    taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True)
+    assert taps[0].shape == (36, c, 6)
+    got = tp.nhwc(th.rgb_beta_head_reference(tp.nchw(h), *taps, SCALES))
+    assert np.abs(want).std() > 0.1
+    tp.assert_close(got, want)
+    tp.assert_close(got, packed)
+
+
+def test_fused_head_gradients_in_float64_match_jax():
+    """d sum(head(h)^2) / d h and / d every MDCL weight and coefficient,
+    through what the fused form computes from the weights (stacked taps,
+    then its plain version, whose VJP is the kernel's backward), in float64
+    against npe_tpu's plain head under x64. (The kernel wrapper itself takes
+    float32 only.)"""
+    jv, tv = _head_variables(8, seed=4)
+    h = _features(2, 8, 11).astype(np.float64)
+    with tp.x64():
+        jgrad_h, jgrad_v = jax.grad(
+            lambda h, v: jnp.sum(jcommon.rgb_beta_head(v, h, SCALES, mode="plain") ** 2), argnums=(0, 1)
+        )(jnp.asarray(h), {k: jnp.asarray(a, jnp.float64) for k, a in jv.items()})
+    th_ = tp.nchw(h).requires_grad_(True)
+    tv = {k: t.double().requires_grad_(True) for k, t in tv.items()}
+    taps = tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True)
+    loss = (th.rgb_beta_head_reference(th_, *taps, SCALES) ** 2).sum()
+    names = sorted(tv)
+    grads = torch.autograd.grad(loss, [th_] + [tv[k] for k in names])
+    assert np.asarray(jgrad_h).dtype == np.float64 and np.abs(np.asarray(jgrad_h)).max() > 1e-2
+    tp.assert_close(tp.nhwc(grads[0]), jgrad_h, rtol=1e-7, atol=1e-7)
+    for k, g in zip(names, grads[1:]):
+        want = np.asarray(jgrad_v[k])
+        tp.assert_close(tp.hwio(g) if g.ndim == 4 else g.numpy(), want, rtol=1e-7, atol=1e-7 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -206,10 +251,11 @@ def test_kernel_backward_is_the_plain_versions_vjp():
     h = _features(1, 8, 7)
     dense = _dense_kernels(jv)
     jg = jax.grad(lambda h: jnp.sum(jk.rgb_beta_head_pallas(h, *dense, 4, 1, True) ** 2))(jnp.asarray(h))
-    taps = [tt.pack_head_taps(tp.oihw(k), 4) for k in dense]
+    taps = list(tcommon.packed_head_weights(tv, SCALES, 4, as_taps=True))
     x = tp.nchw(h)
-    out = th.rgb_beta_head_reference_packed(x, *taps)
-    gx, *_ = tt.vjp_of_plain(th.rgb_beta_head_reference_packed, (True, False, False, False), [x] + taps, 2 * out)
+    out = th.rgb_beta_head_reference(x, *taps, SCALES)
+    plain = lambda *a: th.rgb_beta_head_reference(*a, SCALES)  # noqa: E731
+    gx, *_ = tt.vjp_of_plain(plain, (True, False, False, False), [x] + taps, 2 * out)
     tp.assert_close(tp.nhwc(gx), jg)
 
 
@@ -233,28 +279,37 @@ def test_wrappers_refuse_what_the_kernels_cannot_read():
     assert tt.rgb_beta_tail(torch.zeros(1, 96, 32, 32), tg, tb).shape == (1, 48, 32, 32)  # any height
     assert tt.rgb_beta_tail(torch.zeros(1, 96, 2, 77), tg, tb).shape == (1, 48, 2, 77)
     x = torch.zeros(1, 8, 64, 64)
-    tr = torch.zeros(9, 16 * 8, 96)
+    tr = torch.zeros(36, 8, 6)
     with pytest.raises(TypeError, match="float32"):
-        th.rgb_beta_head(x.double(), tr, tg, tb)
+        th.rgb_beta_head(x.double(), tr, tg, tb, SCALES)
     with pytest.raises(ValueError, match="contiguous"):
-        th.rgb_beta_head(x.transpose(2, 3), tr, tg, tb)
-    with pytest.raises(ValueError, match="tr_taps has shape"):
-        th.rgb_beta_head(x, tr[:, :64], tg, tb)
-    for bad in (torch.zeros(1, 7, 64, 64), torch.zeros(1, 8, 24, 64), torch.zeros(1, 8, 64, 32)):
-        with pytest.raises(ValueError, match="C even and H a multiple of 16"):
-            th.rgb_beta_head(bad, tr, tg, tb)
-    assert th.rgb_beta_head(x, tr, tg, tb).shape == (1, 3, 64, 64)
+        th.rgb_beta_head(x.transpose(2, 3), tr, tg, tb, SCALES)
+    with pytest.raises(ValueError, match="trunk_taps has shape"):
+        th.rgb_beta_head(x, tr[:, :4], tg, tb, SCALES)
+    with pytest.raises(ValueError, match="trunk_taps has shape"):  # taps for other scales
+        th.rgb_beta_head(x, tr, tg, tb, [2, 3])
+    for bad in (torch.zeros(1, 8, 20, 64), torch.zeros(1, 8, 64, 32), torch.zeros(0, 8, 64, 64)):
+        with pytest.raises(ValueError, match="H a multiple of 8"):
+            th.rgb_beta_head(bad, tr, tg, tb, SCALES)
+    with pytest.raises(ValueError, match="dilations of at most 4"):  # the trunk kernel's halo
+        th.rgb_beta_head(x, torch.zeros(27, 8, 6), tg, tb, [2, 5])
+    assert th.rgb_beta_head(x, tr, tg, tb, SCALES).shape == (1, 3, 64, 64)
+    # the direct trunk takes any channel count and any height of whole cell-row pairs
+    assert th.rgb_beta_head(torch.zeros(1, 7, 24, 64), torch.zeros(36, 7, 6), tg, tb, SCALES).shape == (1, 3, 24, 64)
 
 
-def test_trunk_splits_fill_the_card_for_a_small_batch():
-    units = 9 * 64 // 2  # nine taps x 32 channel pairs
-    assert th.trunk_splits(1, 4, units, 132) == 36  # 144 blocks for one image
-    assert th.trunk_splits(8, 4, units, 132) == 9
-    assert th.trunk_splits(128, 4, units, 132) == 1
-    assert th.trunk_splits(1, 4, 9 * 8 // 2, 132) == 36  # the tiny profile: 36 units
-    for batch in (1, 2, 3, 8, 64):
-        s = th.trunk_splits(batch, 4, units, 132)
-        assert units % s == 0 and 1 <= s <= th.MAX_SPLITS
+def test_head_slices_fill_the_card_for_a_small_batch():
+    """The trunk's channel slices: 16 bands x 8 slices = 128 blocks for one
+    image on 132 multiprocessors, fewer slices as the batch grows (the most
+    that keep the blocks within two a multiprocessor; scripts/kernel_sweep.py
+    found that count the fastest at every batch it timed), never more than
+    8 or the channels."""
+    assert [th.head_slices(b, 16, 64, 132) for b in (1, 2, 3, 4, 8, 9, 16, 128)] == [8, 8, 5, 4, 2, 1, 1, 1]
+    assert th.head_slices(1, 16, 128, 132) == 8  # full IAN: 16 channels a slice
+    assert th.head_slices(1, 16, 3, 132) == 3 and th.head_slices(1, 16, 1, 132) == 1
+    for batch in (1, 2, 5, 8, 64, 500):
+        s = th.head_slices(batch, 16, 64, 132)
+        assert 1 <= s <= th.MAX_SLICES and (s == 1 or batch * 16 * s <= 2 * 132)
 
 
 def test_tail_rows_and_shared_memory_of_the_row_group_kernel():
