@@ -9,16 +9,25 @@ the model API on IAN_simple, on IANv1 and on full IAN (full width, seeded
 random weights at unit gain; IANv1 with the RGB-Beta head in both kernel
 forms, full IAN with its MDBLOCKs in the fused and the per-op form), holds
 the card's results against the port on the CPU, and times the edit step, the
-kernels and encode+decode. Then the trainer: `training.train.train` on
-IAN_simple at full width (batch 128, the procedural dataset, two epochs and a
-resumed third, with the dataset resident on the card and with per-chunk
-uploads, each chunk staged by the `staging` kernel), one G and one D step held
-against the CPU, the same steps on IANv1 and full IAN, and the training
-times. The last line is {"ok": true, "device": {...}}; any failed phase ends the run with a
-nonzero exit before it. Without a CUDA device it exits nonzero at once.
+kernels and encode+decode. Then serving on the same weights: an
+`InferenceServer` per model and form (IAN_simple on either wire, the uint8
+one through the `staging` kernel; IANv1 with either head kernel; full IAN
+with the fused MDBLOCKs), 64 concurrent 1-image requests per op, a request
+split at `max_batch` and an encode/decode burst, each held against
+`api.IAN` on the card; a `ModelHost` of the three models over HTTP; the web
+editor over HTTP held exactly against a direct `EditSession`; and the
+serving times (bench_torch_serving.py's functions). Then the trainer:
+`training.train.train` on IAN_simple at full width (batch 128, the procedural
+dataset, two epochs and a resumed third, with the dataset resident on the card
+and with per-chunk uploads, each chunk staged by the `staging` kernel), one G
+and one D step held against the CPU, the same steps on IANv1 and full IAN,
+and the training times. The last line is {"ok": true, "device": {...}}; any
+failed phase ends the run with a nonzero exit before it. Without a CUDA
+device it exits nonzero at once.
 """
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -62,6 +71,11 @@ GRAD64_TOL = 1e-6
 TRAIN_BATCH, TRAIN_BATCHES_PER_CHUNK = 128, 8
 TRAIN_EXAMPLES = 2 * TRAIN_BATCHES_PER_CHUNK * TRAIN_BATCH + TRAIN_BATCH // 2  # two chunks at either offset
 HEAD_SCALES = [2, 3, 4]
+# serving: requests a phase case sends per op, the max_batch that a 20-image
+# request overflows, sequential requests a timed op, concurrent encodes of the
+# throughput leg, timed runs a case (their median is reported), and the
+# longest any served future or HTTP request may take
+SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_TIMED, SERVE_LOAD, SERVE_REPEATS, SERVE_WAIT = 64, 16, 50, 256, 3, 600
 # Full IAN's three MDBLOCKs: (name, channels, map size, scales)
 MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2, 3)),
                   ("dec_conv4a", 128, 32, (0, 2, 3)))
@@ -607,7 +621,313 @@ def profile_training(label, module, state, batch_size, top):
     return busy / 8, 1 - busy / wall
 
 
+# --- serving: InferenceServer, ModelHost over HTTP, the web editor -----------
+
+
+def http_json(url, body=None, timeout=SERVE_WAIT):
+    """GET (body None) or POST a JSON body; the decoded JSON answer."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's default algorithms for a deconv (a convolution's backward-data
+    pass) may add with atomics, so two runs of one decode can differ in the
+    last bits: the exact comparisons of two paths run with deterministic
+    algorithms. The flag is global, so it reaches the servers' threads."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def start_http(httpd):
+    """serve_forever on a thread of its own; returns (base url, stop)."""
+    import threading
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        assert not thread.is_alive(), "the HTTP thread did not stop"
+
+    return f"http://127.0.0.1:{httpd.server_address[1]}", stop
+
+
+def count_group_calls(server):
+    """Count the server's model calls by op: each runs one group part of at
+    most max_batch images, and launches each kernel of its path once."""
+    calls = {"encode": 0, "decode": 0}
+    for op, fn in list(server._kernels.items()):
+        def counted(x, op=op, fn=fn):
+            calls[op] += 1
+            return fn(x)
+        server._kernels[op] = counted
+    return calls
+
+
+def serve_requests(server, x_nhwc):
+    """The serving path of one server: 64 concurrent 1-image requests per
+    op, one 20-image request per op over max_batch 16 (split in two), and
+    an alternating encode/decode burst whose futures must finish in order.
+    Every future's result is read. Returns the encodes' and decodes'
+    results, the decode inputs (the served encodes) and the burst's."""
+    n = SERVE_REQUESTS
+    z = np.concatenate([f.result(timeout=SERVE_WAIT) for f in [server.encode(x_nhwc[i:i + 1]) for i in range(n)]])
+    y = np.concatenate([f.result(timeout=SERVE_WAIT) for f in [server.decode(z[i:i + 1]) for i in range(n)]])
+    z20 = server.encode(x_nhwc[:20]).result(timeout=SERVE_WAIT)
+    y20 = server.decode(z[:20]).result(timeout=SERVE_WAIT)
+    done, burst = [], []
+    for i in range(8):
+        fut = server.decode(z[i:i + 1]) if i % 2 else server.encode(x_nhwc[i:i + 1])
+        fut.add_done_callback(lambda _, i=i: done.append(i))
+        burst.append(fut)
+    burst = [f.result(timeout=SERVE_WAIT) for f in burst]
+    assert done == list(range(8)), f"the burst finished out of order: {done}"
+    return {"z": z, "y": y, "z20": z20, "y20": y20, "burst_z": np.concatenate(burst[0::2]),
+            "burst_y": np.concatenate(burst[1::2])}
+
+
+def check_served(label, out, ian, x_nhwc, wire):
+    """The served results against api.IAN's direct calls on the card, on
+    the same inputs and weights (NCHW there): the golden tolerance; under
+    the uint8 wire, a decode within one uint8 step of the float32 decode
+    (check_recon_close against it quantised)."""
+    from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
+
+    nchw = lambda a: np.ascontiguousarray(a.transpose(0, 3, 1, 2))  # noqa: E731
+    nhwc = lambda a: a.transpose(0, 2, 3, 1)  # noqa: E731
+    check_close(f"{label}: 64 served encodes vs api.IAN", out["z"], ian.encode_images(nchw(x_nhwc)))
+    check_close(f"{label}: 20-image encode, split at 16, vs api.IAN", out["z20"], ian.encode_images(nchw(x_nhwc[:20])))
+    check_close(f"{label}: burst encodes vs api.IAN", out["burst_z"], ian.encode_images(nchw(x_nhwc[0:8:2])))
+    decodes = (("64 served decodes", out["y"], out["z"]), ("20-image decode, split at 16", out["y20"], out["z"][:20]),
+               ("burst decodes", out["burst_y"], out["z"][1:8:2]))
+    for what, got, z in decodes:
+        want = nhwc(ian.sample_at(z))
+        assert np.isfinite(got).all() and got.shape == want.shape
+        if wire == "float32":
+            check_close(f"{label}: {what} vs api.IAN", got, want)
+        else:
+            check_recon_close(f"{label}: {what} vs api.IAN quantised to uint8",
+                              got, to_tanh(np.clip(np.round(from_tanh(want)), 0, 255)))
+            assert max_err(got, want) <= UINT8_STEP + 1e-6, f"{label}: {what} over one uint8 step"
+
+
+def drive_serving(variables, counters, smi, seed=17):
+    """Five InferenceServers on the card (IAN_simple with either wire, IANv1
+    with the head in either kernel form, full IAN with the fused MDBLOCKs),
+    each driven through `serve_requests` with the counts set to 0 just
+    before and read just after, held against api.IAN, then timed with
+    bench_torch_serving.py's functions; then a ModelHost of the three models
+    over HTTP. Returns (launches summed over the cases, times)."""
+    import bench_torch_serving as bench
+    from npe_tpu_torch.api import IAN
+    from npe_tpu_torch.serving import InferenceServer
+    from npe_tpu_torch.utils.ranges import to_tanh
+
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (SERVE_REQUESTS, 64, 64, 3)).astype(np.float32)
+    x_grid = to_tanh(np.float32(rng.randint(0, 256, x.shape)))  # on the uint8 grid
+    # (label, config, wire, forms, {kernel: (op whose calls launch it, launches a call)})
+    cases = (("IAN_simple float32 wire", "IAN_simple", "float32", {}, {}),
+             ("IAN_simple uint8 wire", "IAN_simple", "uint8", {}, {"staging": ("encode", 1)}),
+             ("IANv1 hybrid head", "IANv1", "float32", {"head_mode": "hybrid"}, {"rgb_beta_tail": ("decode", 1)}),
+             ("IANv1 fused head", "IANv1", "float32", {"head_mode": "fused"}, {"rgb_beta_head": ("decode", 1)}),
+             ("IAN fused MDBLOCKs", "IAN", "float32", {"mdblock_mode": "fused"},
+              {"mdblock": ("decode", 3), "rgb_beta_tail": ("decode", 1)}))
+    total = {name: 0 for name in counters}
+    times = {}
+    for label, config, wire, forms, expect in cases:
+        server = InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH, wire=wire,
+                                 device="cuda", **forms)
+        try:
+            calls = count_group_calls(server)
+            inputs = x_grid if wire == "uint8" else x
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = serve_requests(server, inputs)
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            log(f"[serve] {label}: {2 * SERVE_REQUESTS + 2 + 8} requests in {time.perf_counter() - t0:.3f} s, "
+                f"{server.stats['batches']} groups, model calls {calls}; launches {launches}")
+            for name, n in launches.items():
+                want = calls[expect[name][0]] * expect[name][1] if name in expect else 0
+                assert n == want, f"{label}: {name} launched {n} times, not {want}"
+                total[name] += n
+            assert all(launches[name] > 0 for name in expect)
+            assert server.stats["errors"] == 0 and server.stats["timeouts"] == 0, server.stats
+            check_served(label, out, IAN(config, variables=variables[config], device="cuda", **forms), inputs, wire)
+            runs = [bench.measure(server, SERVE_TIMED, SERVE_LOAD) for _ in range(SERVE_REPEATS)]
+            times[label] = bench.median_of(runs)
+            t = times[label]
+            log(f"[serve] {label} times, median of {SERVE_REPEATS} runs: encode p50 {t['encode_p50_ms']:.4f} / "
+                f"p95 {t['encode_p95_ms']:.4f} ms, decode p50 {t['decode_p50_ms']:.4f} / p95 "
+                f"{t['decode_p95_ms']:.4f} ms ({SERVE_TIMED} sequential 1-image requests each); {SERVE_LOAD} "
+                f"concurrent 1-image encodes {t['load_req_per_s']:.1f} req/s in groups of {t['load_mean_group']:.2f} "
+                f"on average; EMA of a group encode "
+                f"{t['encode_ema_ms']:.4f} / decode {t['decode_ema_ms']:.4f} ms; transport floor p50 "
+                f"{t['transport_floor_p50_ms']:.4f} ms ({smi})")
+        finally:
+            server.close()
+
+    # three models in one process over HTTP: the answers equal the direct calls
+    with cudnn_deterministic():
+        check_model_host(variables, x[:2])
+    return total, times
+
+
+def check_model_host(variables, x):
+    """A ModelHost of the three models over HTTP on the card: /healthz,
+    /models, /stats, encode and decode through /<model>/... and the default
+    route equal to the same servers' direct answers, a 404 for an unknown
+    model."""
+    import urllib.error
+
+    from npe_tpu_torch.serving import InferenceServer, ModelHost, serve_http
+
+    host = ModelHost()
+    for config in ("IAN_simple", "IANv1", "IAN"):
+        host.add(config, InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH,
+                                         device="cuda"))
+    url, stop = start_http(serve_http(host, port=0))
+    try:
+        assert http_json(url + "/healthz") == {"ok": True}
+        assert http_json(url + "/models") == {"models": sorted(host.servers), "default": "IAN_simple"}
+        for config, route in (("IAN_simple", ""), ("IAN_simple", "/IAN_simple"), ("IANv1", "/IANv1"),
+                              ("IAN", "/IAN")):
+            direct = host.get(config)
+            z = np.asarray(http_json(f"{url}{route}/encode", {"data": x[:2].tolist()})["result"], np.float32)
+            want = direct.encode(x[:2]).result(timeout=SERVE_WAIT)
+            assert np.array_equal(z, want), f"{route}/encode: max abs diff {max_err(z, want):.3e}"
+            y = np.asarray(http_json(f"{url}{route}/decode", {"data": z.tolist()})["result"], np.float32)
+            assert y.shape == (2, 64, 64, 3) and np.isfinite(y).all()
+            want = direct.decode(z).result(timeout=SERVE_WAIT)
+            assert np.array_equal(y, want), f"{route}/decode: max abs diff {max_err(y, want):.3e}"
+            log(f"[serve] HTTP {route or '(default)'}/encode and /decode: equal to {config}'s direct answers")
+        try:
+            http_json(url + "/nope/decode", {"data": x[:1].tolist()})
+        except urllib.error.HTTPError as exc:
+            assert exc.code == 404, exc
+        else:
+            raise AssertionError("an unknown model was served")
+        stats = http_json(url + "/stats")
+        assert sorted(stats) == sorted(host.servers) and all(
+            s["requests"] >= 4 and s["errors"] == 0 for s in stats.values()), stats
+        log(f"[serve] HTTP /healthz, /models, /stats ({ {k: v['requests'] for k, v in stats.items()} } requests) "
+            f"and a 404 for an unknown model")
+    finally:
+        stop()
+        host.close()
+
+
+def drive_web(variables, counters, smi, index=7):
+    """The web editor over HTTP on the card: /infer, the 16-stroke script as
+    /paint calls, /undo and a /session fork, held exactly against an
+    EditSession on the card that runs the same script directly; edit_tail
+    launches once a stroke. Then /paint's p50 over HTTP. Returns
+    (launches, times)."""
+    from http.server import ThreadingHTTPServer
+
+    from npe_tpu_torch.editor.engine import EditSession
+    from npe_tpu_torch.editor.web import EditorService, make_handler
+
+    service = EditorService(EditSession("IAN_simple", variables=variables, device="cuda"))
+    url, stop = start_http(ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service)))
+    try:
+        with cudnn_deterministic():
+            launches = check_web_script(url, variables, counters, index)
+        # /paint over HTTP, and where its time goes: the same route through
+        # EditorService.handle (the stroke, two PNGs) on this thread, then on
+        # a new thread each, as the HTTP server runs it
+        strokes = stroke_script()
+        ways = {"http": lambda body: http_json(url + "/paint", body),
+                "handle": lambda body: service.handle("/paint", body),
+                "handle on a new thread": lambda body: on_new_thread(lambda: service.handle("/paint", body))}
+        times = {}
+        for way, call in ways.items():
+            ms = []
+            for i in range(SERVE_TIMED):
+                t0 = time.perf_counter()
+                call(paint_body(strokes[i % N_STROKES]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[way] = [float(v) for v in np.percentile(ms, [50, 95])]
+            log(f"[serve] web editor /paint, {way}, IAN_simple, {SERVE_TIMED} strokes: p50 {times[way][0]:.4f} ms, "
+                f"p95 {times[way][1]:.4f} ms ({smi})")
+    finally:
+        stop()
+    return launches, {"paint_http_p50_ms": times["http"][0], "paint_http_p95_ms": times["http"][1],
+                      "paint_handle_p50_ms": times["handle"][0],
+                      "paint_handle_new_thread_p50_ms": times["handle on a new thread"][0]}
+
+
+def on_new_thread(fn):
+    import threading
+
+    out = []
+    thread = threading.Thread(target=lambda: out.append(fn()))
+    thread.start()
+    thread.join(timeout=SERVE_WAIT)
+    assert out, "the call on a new thread did not return"
+    return out[0]
+
+
+def paint_body(stroke):
+    x1, y1, x2, y2, rgb, sigma = stroke
+    return {"x1": x1, "y1": y1, "x2": x2, "y2": y2, "rgb": list(rgb), "sigma": sigma}
+
+
+def check_web_script(url, variables, counters, index):
+    """/infer, the stroke script as /paint calls and /undo, with the counts
+    set to 0 just before and read just after; the latents and the photo
+    against a direct session's, exactly; then a /session fork."""
+    import base64
+
+    from npe_tpu_torch.data import SyntheticFaces
+    from npe_tpu_torch.editor.engine import EditSession
+    from npe_tpu_torch.utils.png import decode_rgb
+    from npe_tpu_torch.utils.ranges import to_tanh
+
+    for fn in counters.values():
+        fn.launches = 0
+    http_json(url + "/infer", {"index": index})
+    for stroke in stroke_script():
+        http_json(url + "/paint", paint_body(stroke))
+    st = http_json(url + "/undo", {})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"[serve] web editor: /infer, {N_STROKES} /paint, /undo over HTTP; launches {launches}")
+    assert launches["edit_tail"] == N_STROKES and sum(launches.values()) == N_STROKES, launches
+
+    direct = EditSession("IAN_simple", variables=variables, device="cuda")
+    direct.infer(to_tanh(np.float32(SyntheticFaces(num_examples=4096).get_data([index])[0])))
+    for stroke in stroke_script():
+        direct.paint_stroke(*stroke)
+    direct.undo()
+    z, photo = np.asarray(st["z"], np.float32), decode_rgb(base64.b64decode(st["photo_png"]))
+    want_photo = direct.im_uint8().transpose(1, 2, 0)
+    log(f"[serve] web editor vs a direct session: latents max abs diff {max_err(z, direct.Z_grid):.3e}, "
+        f"photo pixels that differ {int((photo != want_photo).sum())}")
+    assert np.array_equal(z, direct.Z_grid) and np.array_equal(photo, want_photo)
+    st = http_json(url + "/session", {"name": "img2"})
+    assert st["session"] == "img2" and st["sessions"] == ["img2", "main"] and not np.any(st["z"])
+    st = http_json(url + "/session", {"name": "main"})
+    assert np.array_equal(np.asarray(st["z"], np.float32), direct.Z_grid)
+    log("[serve] web editor: latents and photo equal to the direct session's, exactly; /session forks "
+        "a fresh session and keeps main's")
+    return launches
+
+
 def main():
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
@@ -628,7 +948,8 @@ def main():
     from npe_tpu_torch.ops.conv import conv2d, space_to_depth
     from npe_tpu_torch.utils.checkpoints import from_reference, save_weights, to_reference, unit_gain
     from npe_tpu_torch.utils.timing import cuda_ms, graph_ms
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [root, os.path.join(root, "scripts")]  # bench_torch_serving.py; scripts/launch_floor.py
     import launch_floor  # scripts/launch_floor.py: the empty kernel edit_tail is read beside
 
     # 1. Device
@@ -807,6 +1128,18 @@ def main():
     compare_api("IAN, card fused vs cpu per-op",
                 IAN("IAN", variables=card_ian.variables, device="cuda", mdblock_mode="fused"),
                 IAN("IAN", variables=cpu_ian.variables, device="cpu"), rng)
+
+    # 5b. Serving: InferenceServer, ModelHost over HTTP and the web editor on
+    # the same weights; each case with the counts set to 0 just before it
+    t0 = time.perf_counter()
+    serving_launches, serve_times = drive_serving(
+        {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}, counters, smi)
+    web_launches, serve_times["web_editor"] = drive_web(card.variables, counters, smi)
+    serving_launches = {name: n + web_launches[name] for name, n in serving_launches.items()}
+    assert all(n > 0 for n in serving_launches.values()), serving_launches
+    serve_times["phase_s"] = time.perf_counter() - t0
+    log(f"[serve] launches on the serving and web paths: {serving_launches}; phase 5b took "
+        f"{serve_times['phase_s']:.1f} s")
 
     # 6. Training: the trainer's main path on IAN_simple, then single steps
     main_launches["staging"] = drive_training(counters)
@@ -1013,6 +1346,7 @@ def main():
 
     for entry in entries:
         entry.update(route="cuda", launches=main_launches[entry["name"]],
+                     serving_launches=serving_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"paint_stroke_p50_ms": p50, "paint_stroke_p95_ms": p95,
@@ -1028,7 +1362,9 @@ def main():
                     "ian_fused_device_ms_per_stroke": ian_fused_busy,
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
-                    "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches}))
+                    "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,
+                    "serving": serve_times, "wall_s": time.perf_counter() - started}))
+    log(f"[time] chip_smoke.py wall time {time.perf_counter() - started:.1f} s ({smi})")
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -425,3 +425,62 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, config):
                 for k, want in g_b.items():
                     np.testing.assert_allclose(g_a[k].numpy(), want.numpy(), rtol=1e-5,
                                                atol=1e-6 * float(want.abs().max()) + 1e-10, err_msg=k)
+
+
+# --- serving ------------------------------------------------------------------
+
+
+def _unit_gain_variables(config):
+    seeded = get_config(config).init(torch.Generator().manual_seed(0), "cpu")
+    return from_reference(unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1), "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,option,mode,counter,per_call", [
+    (TINY_V1, "head_mode", "hybrid", "rgb_beta_tail", 1),
+    (TINY_V1, "head_mode", "fused", "rgb_beta_head", 1),
+    (TINY_FULL, "mdblock_mode", "fused", "mdblock", 3),
+])
+def test_served_decode_on_the_card_launches_its_kernel(cuda, config, option, mode, counter, per_call):
+    """Three 1-image decodes through the server on the card, one group of
+    max_batch 4: the form's kernel launches `per_call` times, and the images
+    match the same server on the CPU."""
+    from npe_tpu_torch.serving import InferenceServer
+
+    kernel = {"rgb_beta_tail": rt.rgb_beta_tail, "rgb_beta_head": rh.rgb_beta_head,
+              "mdblock": mk.mdblock_fused}[counter]
+    variables = _unit_gain_variables(config)
+    z = np.random.RandomState(4).randn(3, 16).astype(np.float32)
+    outs = []
+    for device in (cuda, "cpu"):
+        server = InferenceServer(config, variables={k: v.to(device) for k, v in variables.items()}, max_batch=4,
+                                 linger_ms=200.0, device=device, **{option: mode})
+        try:
+            before = kernel.launches
+            futs = [server.decode(z[i:i + 1]) for i in range(3)]
+            outs.append(np.concatenate([f.result(timeout=60) for f in futs]))
+            assert kernel.launches == before + (per_call * server.stats["batches"] if device == cuda else 0)
+            assert server.stats["batches"] >= 1
+        finally:
+            server.close()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_uint8_wire_encode_on_the_card_launches_the_staging_kernel(cuda):
+    from npe_tpu_torch.ops.kernels import staging
+    from npe_tpu_torch.serving import InferenceServer
+
+    variables = _unit_gain_variables(TINY)
+    u8 = np.random.RandomState(5).randint(0, 256, (2, 64, 64, 3)).astype(np.uint8)
+    outs = []
+    for device in (cuda, "cpu"):
+        server = InferenceServer(TINY, variables={k: v.to(device) for k, v in variables.items()}, device=device,
+                                 wire="uint8")
+        try:
+            before = staging.stage_chunk.launches
+            outs.append(server.encode(u8).result(timeout=60))
+            assert staging.stage_chunk.launches == before + (device == cuda)
+        finally:
+            server.close()
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)
