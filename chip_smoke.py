@@ -21,9 +21,15 @@ serving times (bench_torch_serving.py's functions). Then the trainer:
 dataset, two epochs and a resumed third, with the dataset resident on the card
 and with per-chunk uploads, each chunk staged by the `staging` kernel), one G
 and one D step held against the CPU, the same steps on IANv1 and full IAN,
-and the training times. The last line is {"ok": true, "device": {...}}; any
-failed phase ends the run with a nonzero exit before it. Without a CUDA
-device it exits nonzero at once.
+and the training times. Then bfloat16: the bf16 forms of `rgb_beta_tail`,
+`rgb_beta_head` and `mdblock_fused` held against their bf16 plain versions,
+`api.IAN`, `EditSession` and `InferenceServer` (both wires) with
+`dtype=torch.bfloat16` on the same weights for every model and form, held
+against the card's float32 results within npe_tpu's bf16 bounds, their launch
+counts by form, and the bf16 times (kernels, encode+decode at batch 256 with
+bench_torch.py's function, strokes with bench_torch_edit.py's). The last line
+is {"ok": true, "device": {...}}; any failed phase ends the run with a nonzero
+exit before it. Without a CUDA device it exits nonzero at once.
 """
 
 import concurrent.futures
@@ -38,7 +44,10 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd import DeviceType
+
+import bench_torch
+import bench_torch_edit
+from bench_torch_edit import stroke_script
 
 KERNEL_TOL = 1e-5  # kernel vs plain version on the card, max abs
 # rgb_beta_head's trunk adds 33 * C = 2112 products per output at C = 64 (its
@@ -57,7 +66,25 @@ UINT8_STEP = 2.0 / 255.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
-N_STROKES = 16
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+N_STROKES = bench_torch_edit.N_STROKES
+# bfloat16. A bf16 kernel against its bf16 plain version: both round at the
+# same points and add in other orders, so at each point that rounds a float32
+# sum a hair either side of a boundary may land one bf16 ulp (two of bf16's
+# relative steps of 2^-8) away. Each of the three kernels rounds at three
+# points (mdblock: each MDCL's input and the output; the tail and the head: R
+# and [R, G] before their products, and the output), so each output is held to
+# |got - want| <= 3 steps of (|want| + std(want)).
+BF16_STEP, BF16_POINTS = 2.0 ** -8, 3
+# A bf16 path against the port's float32 path on the same weights: npe_tpu's
+# own bounds, mean abs (tests/test_api_bf16.py on images, tests/test_editor.py
+# on Z).
+IMAGE_BOUND, Z_BOUND = 0.05, 0.2
+BF16_TIMED_STROKES = 30
+# strokes a profiler window holds: the profiler's own cost, not the strokes',
+# is most of phase 7's time, so the window is kept short to leave room for
+# the bf16 phases within the run's time
+PROFILED_STROKES = 10
 TIMED_STROKES = 100
 # staging kernel vs plain: x * (2/255) - 1 in float32, rounded alike
 STAGING_TOL = 1e-6
@@ -83,6 +110,22 @@ MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2,
 
 def log(*args):
     print(*args, flush=True)
+
+
+class Counts:
+    """The kernels' launch counts by form: name -> (wrapper, attribute); a
+    wrapper counts its float32 form's launches in `launches` and its bf16
+    form's in `launches_bf16`."""
+
+    def __init__(self, forms):
+        self.forms = forms
+
+    def zero(self):
+        for fn, attr in self.forms.values():
+            setattr(fn, attr, 0)
+
+    def read(self):
+        return {name: getattr(fn, attr) for name, (fn, attr) in self.forms.items()}
 
 
 def nvidia_smi():
@@ -188,18 +231,45 @@ def mdblock_bound_ms(batch, channels, size, scales, route="3xtf32"):
     """Least time for one MDBLOCK: x and both tap tensors and the affines
     read once, the output written once; two MDCLs of H*W*T*C^2 multiply-adds,
     and about ten float32 operations per element for the three affines,
-    lrelus and the residual. route "3xtf32", the kernel's: each multiply-add
-    is three TF32 products on the tensor cores (two operations each);
-    "fp32": one float32 multiply-add outside them."""
+    lrelus and the residual. route "3xtf32", the float32 kernel's: each
+    multiply-add is three TF32 products on the tensor cores (two operations
+    each); "fp32": one float32 multiply-add outside them; "bf16", the bf16
+    form's: x, the taps and the output 2 bytes an element, one bf16 product."""
     n_taps = 9 * (1 + sum(s > 0 for s in scales))
     px = batch * size * size
-    nbytes = 4 * (2 * px * channels + 2 * n_taps * channels * channels + 6 * channels)
+    elt = 2 if route == "bf16" else 4
+    nbytes = elt * (2 * px * channels + 2 * n_taps * channels * channels) + 4 * 6 * channels
     macs = 2 * px * n_taps * channels * channels
     other = 10 * px * channels
-    if route == "fp32":
-        return roofline_ms(nbytes, 2 * macs + other)
+    if route != "3xtf32":
+        return kernel_bound_ms(nbytes, 2 * macs, other, "bfloat16" if route == "bf16" else "float32")
     # the elementwise operations in TF32-rate units, so that one peak divides both
     return roofline_ms(nbytes, 3 * 2 * macs + other * TF32_OPS_PER_S / FP32_OPS_PER_S, TF32_OPS_PER_S)
+
+
+def within_steps(label, got, want, points=BF16_POINTS):
+    """Hold bf16 `got` to `want` (same shape, both bf16) within `points` of
+    bf16's relative steps of |want| + std(want), element by element. Returns
+    the largest difference."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, (got.dtype, want.dtype)
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    limit = points * BF16_STEP * (w.abs() + w.std())
+    worst = float((err / limit).max())
+    log(f"  {label}: max abs diff {float(err.max()):.3e}, mean {float(err.mean()):.3e}; worst {worst:.3f} of "
+        f"{points} bf16 steps of |want| + std {float(w.std()):.3f}")
+    assert worst <= 1.0, f"{label}: {int((err > limit).sum())} values beyond {points} bf16 steps"
+    return float(err.max())
+
+
+def mean_close(label, got, want, bound):
+    """A bf16 path's float32 output against the float32 path's: mean abs
+    within npe_tpu's bound."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all(), label
+    gap = float(np.abs(got - want).mean())
+    log(f"  {label}: mean abs diff {gap:.4e} (bound {bound}), max {float(np.abs(got - want).max()):.3e}")
+    assert gap < bound, f"{label}: mean abs diff {gap} over {bound}"
 
 
 def roofline_ms(nbytes, flops, peak=FP32_OPS_PER_S):
@@ -209,31 +279,46 @@ def roofline_ms(nbytes, flops, peak=FP32_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def tail_work(batch, cells=256, rr=16):
-    """(bytes, float32 operations) of the autoregressive tail: the G_b
-    (2rr -> 2rr) and B_b (4rr -> 2rr) tap products at two operations a
-    multiply-add, and about ten operations for each sigmoid and Beta mean."""
-    nbytes = 4 * (batch * 6 * rr * cells + 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + batch * 3 * rr * cells)
-    flops = batch * cells * (2 * 9 * (2 * rr * 2 * rr + 4 * rr * 2 * rr) + 10 * 9 * rr)
-    return nbytes, flops
+def kernel_bound_ms(nbytes, products, other, dtype):
+    """roofline_ms of a kernel's bytes, its multiply-adds' operations
+    (`products`) and its elementwise float32 operations (`other`): in float32
+    all of them at the float32 rate; in bfloat16 the products at the tensor
+    cores' bf16 rate and the rest at the float32 rate, in bf16-rate units."""
+    if dtype == "bfloat16":
+        return roofline_ms(nbytes, products + other * BF16_OPS_PER_S / FP32_OPS_PER_S, BF16_OPS_PER_S)
+    return roofline_ms(nbytes, products + other)
 
 
-def rgb_beta_tail_bound_ms(batch):
+def tail_work(batch, cells=256, rr=16, elt=4, trunk_elt=None):
+    """(bytes, multiply-add operations, other operations) of the
+    autoregressive tail: the G_b (2rr -> 2rr) and B_b (4rr -> 2rr) tap
+    products at two operations a multiply-add, and about ten operations for
+    each sigmoid and Beta mean; `elt` bytes an element of the taps and the
+    output, `trunk_elt` (default `elt`) of the trunk."""
+    nbytes = (batch * 6 * rr * cells * (trunk_elt or elt)
+              + elt * (9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + batch * 3 * rr * cells))
+    return nbytes, batch * cells * 2 * 9 * (2 * rr * 2 * rr + 4 * rr * 2 * rr), batch * cells * 10 * 9 * rr
+
+
+def rgb_beta_tail_bound_ms(batch, dtype="float32", trunk_elt=None):
     """Least time for rgb_beta_tail on this card: trunk and taps read once,
-    the output written once, or its float32 operations, whichever is larger."""
-    return roofline_ms(*tail_work(batch))
+    the output written once, or its operations, whichever is larger; in
+    bfloat16 2 bytes an element (the trunk `trunk_elt`: 4 for a float32 one)."""
+    return kernel_bound_ms(*tail_work(batch, elt=2 if dtype == "bfloat16" else 4, trunk_elt=trunk_elt), dtype)
 
 
-def rgb_beta_head_bound_ms(batch, channels, cells=256, rr=16, offsets=33):
+def rgb_beta_head_bound_ms(batch, channels, cells=256, rr=16, offsets=33, dtype="float32"):
     """Least time for rgb_beta_head: x and the three tap tensors it is given
     read once, the image written once; the work the function needs, each
     output pixel's MDCLs over their 33 distinct offsets (the trunk C -> 6,
     the tail's G_b 2 -> 2 and B_b 4 -> 2), two operations a multiply-add,
-    and about ten operations for each sigmoid and Beta mean."""
+    and about ten operations for each sigmoid and Beta mean; in bfloat16 2
+    bytes an element."""
     px = batch * cells * rr
-    nbytes = 4 * (px * channels + 36 * channels * 6 + 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + px * 3)
-    flops = px * 2 * offsets * (channels * 6 + 2 * 2 + 4 * 2) + batch * cells * 10 * 9 * rr
-    return roofline_ms(nbytes, flops)
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = elt * (px * channels + 36 * channels * 6 + 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + px * 3)
+    products = px * 2 * offsets * (channels * 6 + 2 * 2 + 4 * 2)
+    return kernel_bound_ms(nbytes, products, batch * cells * 10 * 9 * rr, dtype)
 
 
 def rgb_beta_head_s2d_bound_ms(batch, channels, cells=256, rr=16):
@@ -242,23 +327,11 @@ def rgb_beta_head_s2d_bound_ms(batch, channels, cells=256, rr=16):
     (structural zeros included) on top of the tail's s2d operations, and its
     3.5 MB tap tensor. Kept beside `rgb_beta_head_bound_ms`, the work the
     function needs, so that older measurements stay comparable."""
-    tail_bytes, tail_flops = tail_work(batch)
+    tail_bytes, tail_products, tail_other = tail_work(batch)
     tail_bytes -= 4 * batch * 6 * rr * cells  # the trunk never leaves the kernel
     nbytes = tail_bytes + 4 * (batch * channels * rr * cells + 9 * rr * channels * 6 * rr)
-    flops = tail_flops + batch * cells * 2 * 9 * rr * channels * 6 * rr
+    flops = tail_products + tail_other + batch * cells * 2 * 9 * rr * channels * 6 * rr
     return roofline_ms(nbytes, flops)
-
-
-def stroke_script():
-    """16 strokes with varied boxes, colours and sigma in {0, 0.5}."""
-    rng = np.random.RandomState(7)
-    strokes = []
-    for i in range(N_STROKES):
-        w, h = rng.randint(4, 21, 2)
-        x1, y1 = rng.randint(0, 64 - w), rng.randint(0, 64 - h)
-        rgb = tuple(int(c) for c in rng.randint(0, 256, 3))
-        strokes.append((int(x1), int(y1), int(x1 + w), int(y1 + h), rgb, 0.5 * (i % 2)))
-    return strokes
 
 
 def run_session_script(session, image, z_grid, n_strokes=N_STROKES, tail=True):
@@ -321,17 +394,8 @@ def compare_api(label, ian_card, ian_cpu, rng):
 
 def time_strokes(label, session, image, smi, n=TIMED_STROKES):
     """p50 / p95 of paint_stroke over `n` strokes on the host's clock (each
-    ends in a device-to-host copy)."""
-    session.infer(image)
-    strokes = stroke_script()
-    for i in range(10):
-        session.paint_stroke(*strokes[i % N_STROKES])
-    times = []
-    for i in range(n):
-        t = time.perf_counter()
-        session.paint_stroke(*strokes[i % N_STROKES])
-        times.append((time.perf_counter() - t) * 1e3)
-    p50, p95 = np.percentile(times, [50, 95])
+    ends in a device-to-host copy): bench_torch_edit.py's loop."""
+    p50, p95 = np.percentile(bench_torch_edit.stroke_times(session, image, n), [50, 95])
     log(f"[time] {label} paint_stroke over {n} strokes: p50 {p50:.4f} ms, "
         f"p95 {p95:.4f} ms ({smi})")
     return p50, p95
@@ -341,25 +405,17 @@ def profile_strokes(label, session, top):
     """torch.profiler over 20 strokes: device time by kernel name and the
     device's idle share. Returns the device kernel time per stroke in ms, or
     None if the profiler recorded no device time."""
-    strokes = stroke_script()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for i in range(20):
-            session.paint_stroke(*strokes[i % N_STROKES])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy <= 0:
+    busy, idle, kernels = bench_torch_edit.device_ms_per_stroke(session, PROFILED_STROKES)
+    if busy is None:
         log(f"[time] {label} profiler: no device time recorded (idle share not measured)")
         return None
-    log(f"[time] {label} profiler, 20 strokes: wall {wall:.3f} ms, device kernels {busy:.3f} ms "
-        f"(idle share {1 - busy / wall:.3f}); kernels by device time:")
+    log(f"[time] {label} profiler, {PROFILED_STROKES} strokes: device kernels {busy:.4f} ms a stroke (idle share "
+        f"{idle:.3f}); "
+        "kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[time]   {e.self_device_time_total / 20:9.2f} us/stroke  {e.count / 20:5.1f}x  {e.key[:90]}")
-    return busy / 20
+        log(f"[time]   {e.self_device_time_total / PROFILED_STROKES:9.2f} us/stroke  "
+            f"{e.count / PROFILED_STROKES:5.1f}x  {e.key[:90]}")
+    return busy
 
 
 def staging_bound_ms(n, chw):
@@ -428,12 +484,11 @@ def drive_training(counters):
         kw = dict(config="IAN_simple", dataset_spec="synthetic", num_examples=TRAIN_EXAMPLES, out_dir=tmp,
                   pics_dir=os.path.join(tmp, "pics"), checkpoint_grids=False,
                   cfg_overrides={"batches_per_chunk": TRAIN_BATCHES_PER_CHUNK})
-        for fn in counters.values():
-            fn.launches = 0
+        counters.zero()
         t0 = time.perf_counter()
         state = tt.train(max_epochs=2, **kw)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = counters.read()
         log(f"[train] IAN_simple batch {TRAIN_BATCH}, {TRAIN_EXAMPLES} examples, 2 epochs of 2 chunks of "
             f"{TRAIN_BATCHES_PER_CHUNK} batches, dataset on the card: {time.perf_counter() - t0:.2f} s; launches {launches}")
         assert launches["staging"] == 4, launches  # one per chunk
@@ -454,14 +509,13 @@ def drive_training(counters):
         assert ck.load_weights(files[".npz"], fresh)["itr"] == 32
         assert all(torch.equal(fresh[k], v) for k, v in ts.variables_of(state).items())
 
-        for fn in counters.values():
-            fn.launches = 0
+        counters.zero()
         t0 = time.perf_counter()
         resumed = tt.train(max_epochs=3, resume=True, device_cache_bytes=0, **kw)
         torch.cuda.synchronize()
         log(f"[train] resumed for a third epoch, chunks sent up from pinned memory: {time.perf_counter() - t0:.2f} s; "
-            f"staging launches {counters['staging'].launches}")
-        assert counters["staging"].launches == 2
+            f"staging launches {counters.read()['staging']}")
+        assert counters.read()["staging"] == 2
         recs = read_metrics(files["METRICS.jsonl"])
         assert [r["itr"] for r in recs] == [8, 16, 24, 32, 40, 48] and recs[-1]["epoch"] == 2, recs
         for r in recs:
@@ -531,13 +585,12 @@ def kernel_steps(label, module, variables, counters, batch_size=16):
     cfg = dict(module.cfg, batch_size=batch_size)
     state0 = ts.init_train_state(module, variables, cfg)
     batch = step_batch(cfg, batch_size, 31, "cuda")
-    for fn in counters.values():
-        fn.launches = 0
+    counters.zero()
     gen_step, discrim_step = ts.make_train_steps(module, cfg)
     state, m_g = gen_step(state0, *batch, 2e-4)
     state, m_d = discrim_step(state, *batch, 2e-4)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = counters.read()
     log(f"[train] {label} batch {batch_size}, one G and one D step on the card: launches {launches}; "
         f"G pixel_loss {float(m_g['pixel_loss']):.4f}, D discrim_acc {float(m_d['discrim_acc']):.4f}")
     assert launches["rgb_beta_tail"] == 4 and launches["mdblock"] == 0 and launches["rgb_beta_head"] == 0, launches
@@ -609,7 +662,7 @@ def profile_training(label, module, state, batch_size, top):
             state, _ = steps[i % 2](state, *batch, 2e-4)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
         log(f"[time] {label} training profiler: no device time recorded (idle share not measured)")
@@ -722,6 +775,75 @@ def check_served(label, out, ian, x_nhwc, wire):
             assert max_err(got, want) <= UINT8_STEP + 1e-6, f"{label}: {what} over one uint8 step"
 
 
+def serve_case(label, server, counters, expect, inputs, total):
+    """`serve_requests` on one server with the counts set to 0 just before
+    and read just after: each kernel of `expect` ({name: (op whose calls
+    launch it, launches a call)}) launched that many times a model call, every
+    other none. Adds the launches into `total`; returns the results."""
+    calls = count_group_calls(server)
+    counters.zero()
+    t0 = time.perf_counter()
+    out = serve_requests(server, inputs)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    log(f"[serve] {label}: {2 * SERVE_REQUESTS + 2 + 8} requests in {time.perf_counter() - t0:.3f} s, "
+        f"{server.stats['batches']} groups, model calls {calls}; launches {launches}")
+    for name, n in launches.items():
+        want = calls[expect[name][0]] * expect[name][1] if name in expect else 0
+        assert n == want, f"{label}: {name} launched {n} times, not {want}"
+        total[name] += n
+    assert all(launches[name] > 0 for name in expect)
+    assert server.stats["errors"] == 0 and server.stats["timeouts"] == 0, server.stats
+    return out
+
+
+def drive_serving_bf16(variables, counters, smi, seed=18):
+    """bf16 InferenceServers on the card (IAN_simple on either wire, the uint8
+    one through the float32 `staging` kernel and a cast after it; IANv1 with
+    the fused head; full IAN with the fused MDBLOCKs and the hybrid head),
+    each through `serve_case`, its results held against the float32 api.IAN
+    within npe_tpu's bf16 bounds, then one run of bench_torch_serving.py's
+    single-request times. Returns (launches summed over the cases, times)."""
+    import bench_torch_serving as bench
+    from npe_tpu_torch.api import IAN
+    from npe_tpu_torch.serving import InferenceServer
+    from npe_tpu_torch.utils.ranges import to_tanh
+
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (SERVE_REQUESTS, 64, 64, 3)).astype(np.float32)
+    x_grid = to_tanh(np.float32(rng.randint(0, 256, x.shape)))
+    cases = (("IAN_simple bf16, float32 wire", "IAN_simple", "float32", {}, {}),
+             ("IAN_simple bf16, uint8 wire", "IAN_simple", "uint8", {}, {"staging": ("encode", 1)}),
+             ("IANv1 bf16, fused head", "IANv1", "float32", {"head_mode": "fused"},
+              {"rgb_beta_head_bf16": ("decode", 1)}),
+             ("IAN bf16, fused MDBLOCKs", "IAN", "float32", {"mdblock_mode": "fused"},
+              {"mdblock_bf16": ("decode", 3), "rgb_beta_tail_bf16": ("decode", 1)}))
+    total = {name: 0 for name in counters.forms}
+    times = {}
+    for label, config, wire, forms, expect in cases:
+        server = InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH, wire=wire,
+                                 device="cuda", dtype=torch.bfloat16, **forms)
+        try:
+            assert all(t.dtype == torch.bfloat16 for t in server.variables.values())
+            inputs = x_grid if wire == "uint8" else x
+            out = serve_case(label, server, counters, expect, inputs, total)
+            ian32 = IAN(config, variables=variables[config], device="cuda", **forms)
+            nchw = np.ascontiguousarray(inputs.transpose(0, 3, 1, 2))
+            assert all(a.dtype == np.float32 for a in out.values())
+            mean_close(f"{label}: 64 served encodes vs float32 api.IAN", out["z"], ian32.encode_images(nchw), Z_BOUND)
+            mean_close(f"{label}: 64 served decodes vs float32 api.IAN", out["y"],
+                       ian32.sample_at(out["z"]).transpose(0, 2, 3, 1), IMAGE_BOUND)
+            mean_close(f"{label}: 20-image decode, split at 16, vs float32 api.IAN", out["y20"],
+                       ian32.sample_at(out["z"][:20]).transpose(0, 2, 3, 1), IMAGE_BOUND)
+            times[label] = t = bench.measure(server, SERVE_TIMED, 0)
+            log(f"[serve] {label} times, one run: encode p50 {t['encode_p50_ms']:.4f} / p95 {t['encode_p95_ms']:.4f} "
+                f"ms, decode p50 {t['decode_p50_ms']:.4f} / p95 {t['decode_p95_ms']:.4f} ms ({SERVE_TIMED} "
+                f"sequential 1-image requests each) ({smi})")
+        finally:
+            server.close()
+    return total, times
+
+
 def drive_serving(variables, counters, smi, seed=17):
     """Five InferenceServers on the card (IAN_simple with either wire, IANv1
     with the head in either kernel form, full IAN with the fused MDBLOCKs),
@@ -744,28 +866,14 @@ def drive_serving(variables, counters, smi, seed=17):
              ("IANv1 fused head", "IANv1", "float32", {"head_mode": "fused"}, {"rgb_beta_head": ("decode", 1)}),
              ("IAN fused MDBLOCKs", "IAN", "float32", {"mdblock_mode": "fused"},
               {"mdblock": ("decode", 3), "rgb_beta_tail": ("decode", 1)}))
-    total = {name: 0 for name in counters}
+    total = {name: 0 for name in counters.forms}
     times = {}
     for label, config, wire, forms, expect in cases:
         server = InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH, wire=wire,
                                  device="cuda", **forms)
         try:
-            calls = count_group_calls(server)
             inputs = x_grid if wire == "uint8" else x
-            for fn in counters.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            out = serve_requests(server, inputs)
-            torch.cuda.synchronize()
-            launches = {name: fn.launches for name, fn in counters.items()}
-            log(f"[serve] {label}: {2 * SERVE_REQUESTS + 2 + 8} requests in {time.perf_counter() - t0:.3f} s, "
-                f"{server.stats['batches']} groups, model calls {calls}; launches {launches}")
-            for name, n in launches.items():
-                want = calls[expect[name][0]] * expect[name][1] if name in expect else 0
-                assert n == want, f"{label}: {name} launched {n} times, not {want}"
-                total[name] += n
-            assert all(launches[name] > 0 for name in expect)
-            assert server.stats["errors"] == 0 and server.stats["timeouts"] == 0, server.stats
+            out = serve_case(label, server, counters, expect, inputs, total)
             check_served(label, out, IAN(config, variables=variables[config], device="cuda", **forms), inputs, wire)
             runs = [bench.measure(server, SERVE_TIMED, SERVE_LOAD) for _ in range(SERVE_REPEATS)]
             times[label] = bench.median_of(runs)
@@ -897,13 +1005,12 @@ def check_web_script(url, variables, counters, index):
     from npe_tpu_torch.utils.png import decode_rgb
     from npe_tpu_torch.utils.ranges import to_tanh
 
-    for fn in counters.values():
-        fn.launches = 0
+    counters.zero()
     http_json(url + "/infer", {"index": index})
     for stroke in stroke_script():
         http_json(url + "/paint", paint_body(stroke))
     st = http_json(url + "/undo", {})
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = counters.read()
     log(f"[serve] web editor: /infer, {N_STROKES} /paint, /undo over HTTP; launches {launches}")
     assert launches["edit_tail"] == N_STROKES and sum(launches.values()) == N_STROKES, launches
 
@@ -952,12 +1059,14 @@ def main():
     sys.path[:0] = [root, os.path.join(root, "scripts")]  # bench_torch_serving.py; scripts/launch_floor.py
     import launch_floor  # scripts/launch_floor.py: the empty kernel edit_tail is read beside
 
+    log(f"[phase] 1 starts at {time.perf_counter() - started:.1f} s")
     # 1. Device
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     log(f"[device] {kind}; nvidia-smi name, power.limit: {smi}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    log(f"[phase] 2 starts at {time.perf_counter() - started:.1f} s")
     # 2. Build: one nvcc per source, all started together
     names = build.kernel_names()
     assert names == ["edit_tail", "mdblock", "rgb_beta_head", "rgb_beta_tail", "staging"], names
@@ -970,9 +1079,11 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    log(f"[phase] 3 starts at {time.perf_counter() - started:.1f} s")
     # 3. Kernel checks: each kernel vs its plain version on the card
     dev = torch.device("cuda")
-    worst = {"edit_tail": 0.0, "rgb_beta_tail": 0.0, "rgb_beta_head": 0.0, "mdblock": 0.0, "staging": 0.0}
+    worst = {name: 0.0 for name in ("edit_tail", "rgb_beta_tail", "rgb_beta_head", "mdblock", "staging",
+                                    "rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")}
     for batch in (1, 8):
         for sigma in (0.7, 1.5, 3.0):  # radius 3, 6 and 12: the last wider than a band at batch 1 and 8
             for mask_kind in (None, "zeros", "random", "ones"):
@@ -1035,16 +1146,66 @@ def main():
                          mdblock_inputs(batch, channels, size, scales, 40 + batch, dev), MDBLOCK_TOL,
                          grad_atol_of_largest=True)
 
+    log(f"[phase] 3b starts at {time.perf_counter() - started:.1f} s")
+    # 3b. The bf16 forms of the three dtype-generic kernels, each against its
+    # bf16 plain version on the same bf16 inputs, compared in bf16
+    def check_bf16_kernel(name, case, kernel, plain, args, grad=False):
+        """Forward and (`grad`) the gradient of sum(out^2) through the
+        wrapper's autograd.Function (the plain version's VJP, in bf16), each
+        within BF16_POINTS steps of the plain version's."""
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        worst[name] = max(worst[name], within_steps(f"[kernel] {name} {case}", got, plain(*args)))
+        if grad:
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            got_g = torch.autograd.grad((kernel(*leaves).float() ** 2).sum(), leaves)
+            want_g = torch.autograd.grad((plain(*leaves).float() ** 2).sum(), leaves)
+            torch.cuda.synchronize()
+            for i, (g, w) in enumerate(zip(got_g, want_g)):
+                within_steps(f"[kernel] {name} {case} gradient {i}", g, w, BF16_POINTS + 1)
+
+    bf16 = lambda tensors: [t.to(torch.bfloat16) for t in tensors]  # noqa: E731
+    for batch in (1, 128):
+        _, _, trunk, tg, tb = bf16(head_inputs(batch, 64, 60 + batch, dev))
+        check_bf16_kernel("rgb_beta_tail_bf16", f"batch {batch}, bf16 trunk", rt.rgb_beta_tail,
+                          rt.rgb_beta_tail_reference, (trunk, tg, tb))
+        # the fused head's case: a float32 trunk, never rounded (not counted)
+        f32_trunk = head_inputs(batch, 64, 60 + batch, dev)[2]
+        check_bf16_kernel("rgb_beta_tail_bf16", f"batch {batch}, float32 trunk", rt.tail_only,
+                          rt.rgb_beta_tail_reference, (f32_trunk, tg, tb))
+    for batch, channels in ((1, 64), (2, 64), (1, 128)):
+        x, tr, _, tg, tb = bf16(head_inputs(batch, channels, 70 + batch + channels, dev))
+        got = rh.trunk_only(x, tr, HEAD_SCALES)
+        want = F.pixel_unshuffle(mk._mdcl_taps(x.float(), tr.float(), mk.tap_offsets(HEAD_SCALES)), 4)
+        e = float((got - want).abs().max())
+        log(f"[kernel] rgb_beta_head_bf16 trunk alone C {channels} batch {batch}: float32 trunk of bf16 operands, "
+            f"max abs err {e:.3e} (tol {HEAD_TOL})")
+        assert got.dtype == torch.float32 and e <= HEAD_TOL, f"the bf16 head's trunk disagrees: {e}"
+        check_bf16_kernel("rgb_beta_head_bf16", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb),
+                          grad=True)
+    for _, channels, size, scales in MDBLOCK_SHAPES:
+        for batch in (1, 128):
+            x, t1, t2, aff = mdblock_inputs(batch, channels, size, scales, 80 + batch, dev)
+            check_bf16_kernel("mdblock_bf16", f"{size}x{size}x{channels} scales {list(scales)} batch {batch}",
+                              lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
+                              lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
+                              (*bf16((x, t1, t2)), aff))
+
     staging_cache = check_staging(staging, dev, worst)
 
+    log(f"[phase] 4 starts at {time.perf_counter() - started:.1f} s")
     # 4. Main path: the edit session on the card, then the same on the CPU;
     # seeded weights at unit gain, so the card-vs-CPU comparisons are not a
     # match of near-zero activations
     rng = np.random.RandomState(3)
     image = (rng.rand(3, 64, 64).astype(np.float32) * 2 - 1) * 0.8
     z_grid = rng.randn(10, 10).astype(np.float32)
-    counters = {"edit_tail": et.edit_tail, "rgb_beta_tail": rt.rgb_beta_tail, "rgb_beta_head": rh.rgb_beta_head,
-                "mdblock": mk.mdblock_fused, "staging": staging.stage_chunk}
+    counters = Counts({"edit_tail": (et.edit_tail, "launches"), "rgb_beta_tail": (rt.rgb_beta_tail, "launches"),
+                       "rgb_beta_head": (rh.rgb_beta_head, "launches"), "mdblock": (mk.mdblock_fused, "launches"),
+                       "staging": (staging.stage_chunk, "launches"),
+                       "rgb_beta_tail_bf16": (rt.rgb_beta_tail, "launches_bf16"),
+                       "rgb_beta_head_bf16": (rh.rgb_beta_head, "launches_bf16"),
+                       "mdblock_bf16": (mk.mdblock_fused, "launches_bf16")})
 
     def sessions_of(config, module):
         """A card and a CPU session of `config` from the same seeded
@@ -1068,22 +1229,25 @@ def main():
         """Counts to 0, the script on the card, counts read; then the same
         script on the CPU and the comparison. `expect` maps each kernel to
         'composites', 'decodes', '3 x decodes' or 0."""
-        for fn in counters.values():
-            fn.launches = 0
+        counters.zero()
         t0 = time.perf_counter()
         composites, decodes, card_painted = run_session_script(card, image, z_grid, **script)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = counters.read()
         log(f"[main] {label} card script: {time.perf_counter() - t0:.3f} s; composite steps {composites}, "
             f"decodes {decodes}; launches {launches}")
         for name, what in expect.items():
             want = {"composites": composites, "decodes": decodes, "3 x decodes": 3 * decodes, 0: 0}[what]
             assert launches[name] == want, f"{label}: {name} launched {launches[name]} times, not {want}"
             assert what == 0 or launches[name] > 0
+        assert not any(n for name, n in launches.items() if name.endswith("_bf16")), launches
         _, _, cpu_painted = run_session_script(cpu, image, z_grid, **script)
-        assert launches == {name: fn.launches for name, fn in counters.items()}  # the CPU launches nothing
+        assert launches == counters.read()  # the CPU launches nothing
         compare_sessions(label, card, cpu, card_painted, cpu_painted)
+        painted[label] = card_painted
         return launches
+
+    painted = {}  # the card's float32 state after each script, for the bf16 paths
 
     card, cpu = sessions_of("IAN_simple", ian_simple)
     main_launches = drive("IAN_simple", card, cpu,
@@ -1119,6 +1283,7 @@ def main():
           {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0},
           n_strokes=4, tail=False)
 
+    log(f"[phase] 5 starts at {time.perf_counter() - started:.1f} s")
     # 5. API
     compare_api("IAN_simple", IAN("IAN_simple", variables=card.variables, device="cuda"),
                 IAN("IAN_simple", variables=cpu.variables, device="cpu"), rng)
@@ -1129,6 +1294,7 @@ def main():
                 IAN("IAN", variables=card_ian.variables, device="cuda", mdblock_mode="fused"),
                 IAN("IAN", variables=cpu_ian.variables, device="cpu"), rng)
 
+    log(f"[phase] 5b starts at {time.perf_counter() - started:.1f} s")
     # 5b. Serving: InferenceServer, ModelHost over HTTP and the web editor on
     # the same weights; each case with the counts set to 0 just before it
     t0 = time.perf_counter()
@@ -1136,11 +1302,87 @@ def main():
         {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}, counters, smi)
     web_launches, serve_times["web_editor"] = drive_web(card.variables, counters, smi)
     serving_launches = {name: n + web_launches[name] for name, n in serving_launches.items()}
-    assert all(n > 0 for n in serving_launches.values()), serving_launches
+    assert all(serving_launches[name] > 0 for name in ("edit_tail", "rgb_beta_tail", "rgb_beta_head", "mdblock",
+                                                        "staging")), serving_launches
     serve_times["phase_s"] = time.perf_counter() - t0
     log(f"[serve] launches on the serving and web paths: {serving_launches}; phase 5b took "
         f"{serve_times['phase_s']:.1f} s")
 
+    log(f"[phase] 5c starts at {time.perf_counter() - started:.1f} s")
+    # 5c. bfloat16: the API, the session and the servers with dtype=bf16 on
+    # the same weights (cast once), each path with the counts set to 0 just
+    # before it and read just after, held against the card's float32 results
+    # within npe_tpu's bf16 bounds; the bf16 kernels' launches summed
+    t0 = time.perf_counter()
+    bf16_launches = {name: 0 for name in counters.forms}
+    bf16_sessions = {}
+    # (label, config, forms, {kernel: what launches it}, script), the float32 scripts' labels
+    bf16_paths = (("IAN_simple", "IAN_simple", {}, {}, {}),
+                  ("IANv1 hybrid head", "IANv1", {"head_mode": "hybrid"}, {"rgb_beta_tail_bf16": "decodes"}, {}),
+                  ("IANv1 fused head", "IANv1", {"head_mode": "fused"}, {"rgb_beta_head_bf16": "decodes"},
+                   {"n_strokes": 4, "tail": False}),
+                  ("IAN fused MDBLOCKs", "IAN", {"mdblock_mode": "fused"},
+                   {"rgb_beta_tail_bf16": "decodes", "mdblock_bf16": "3 x decodes"}, {}),
+                  ("IAN per-op MDBLOCKs", "IAN", {"mdblock_mode": "plain"}, {"rgb_beta_tail_bf16": "decodes"},
+                   {"n_strokes": 4, "tail": False}))
+    variables_of = {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}
+    x64 = rng.uniform(-1, 1, (64, 3, 64, 64)).astype(np.float32)
+    rgb = np.broadcast_to(np.float32([0.5, -0.5, 0.2])[None, :, None, None], (1, 3, 64, 64))
+
+    def expect_launches(label, launches, expect, decodes, composites):
+        """`expect`'s kernels launched once a decode (three times for the
+        MDBLOCK), edit_tail once a composite step in float32, nothing else."""
+        wants = {"decodes": decodes, "3 x decodes": 3 * decodes}
+        for name, n in launches.items():
+            want = wants[expect[name]] if name in expect else composites if name == "edit_tail" else 0
+            assert n == want, f"{label}: {name} launched {n} times, not {want}"
+            bf16_launches[name] += n
+
+    for label, config, forms, expect, script in bf16_paths:
+        # api.IAN: encode_images, sample_at and imgradRGB (one decode each of the two)
+        m32 = IAN(config, variables=variables_of[config], device="cuda", **forms)
+        z32 = m32.encode_images(x64)
+        y32, g32 = m32.sample_at(z32), m32.imgradRGB(8, 8, 24, 24, rgb, z32[:1])
+        m16 = IAN(config, variables=variables_of[config], device="cuda", dtype=torch.bfloat16, **forms)
+        assert all(t.dtype == torch.bfloat16 for t in m16.variables.values() if t.is_floating_point())
+        counters.zero()
+        z16 = m16.encode_images(x64)
+        y16, g16 = m16.sample_at(z32), m16.imgradRGB(8, 8, 24, 24, rgb, z32[:1])
+        torch.cuda.synchronize()
+        launches = counters.read()
+        log(f"[bf16] {label} api.IAN(dtype=bf16), encode_images and sample_at at batch 64, imgradRGB: "
+            f"launches {launches}")
+        expect_launches(f"{label} api", launches, expect, 2, 0)
+        assert z16.dtype == y16.dtype == g16.dtype == np.float32
+        mean_close(f"[bf16] {label} encode_images, bf16 vs float32", z16, z32, Z_BOUND)
+        mean_close(f"[bf16] {label} sample_at, bf16 vs float32", y16, y32, IMAGE_BOUND)
+        cosine = float((g16 * g32).sum() / np.linalg.norm(g16) / np.linalg.norm(g32))
+        log(f"  [bf16] {label} imgradRGB, bf16 vs float32: cosine {cosine:.5f}")
+        assert cosine > 0.9, f"{label}: the bf16 gradient points elsewhere ({cosine})"
+        # EditSession: the float32 scripts' strokes
+        session = EditSession(config, variables=variables_of[config], device="cuda", dtype="bfloat16", **forms)
+        counters.zero()
+        composites, decodes, got = run_session_script(session, image, z_grid, **script)
+        torch.cuda.synchronize()
+        launches = counters.read()
+        log(f"[bf16] {label} EditSession(dtype=bf16) script: composite steps {composites}, decodes {decodes}; "
+            f"launches {launches}")
+        expect_launches(f"{label} session", launches, expect, decodes, composites)
+        z32_painted, im32_painted, _ = painted[label]
+        assert session.Z.dtype == torch.float32 and got[1].dtype == np.float32 and np.isfinite(session.IM).all()
+        mean_close(f"[bf16] {label} Z after the strokes, bf16 vs float32", got[0], z32_painted, Z_BOUND)
+        mean_close(f"[bf16] {label} IM after the strokes, bf16 vs float32", got[1], im32_painted, IMAGE_BOUND)
+        bf16_sessions[label] = session
+    bf16_serving, serve_times["bf16"] = drive_serving_bf16(variables_of, counters, smi)
+    bf16_kernels = ("rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")
+    assert all(bf16_launches[name] > 0 and bf16_serving[name] > 0 for name in bf16_kernels), (bf16_launches,
+                                                                                                 bf16_serving)
+    main_launches.update({name: bf16_launches[name] for name in bf16_kernels})
+    serving_launches.update({name: bf16_serving[name] for name in bf16_kernels})
+    log(f"[bf16] launches on the bf16 API and session paths {bf16_launches}, on the bf16 serving paths "
+        f"{bf16_serving}; phase 5c took {time.perf_counter() - t0:.1f} s")
+
+    log(f"[phase] 6 starts at {time.perf_counter() - started:.1f} s")
     # 6. Training: the trainer's main path on IAN_simple, then single steps
     main_launches["staging"] = drive_training(counters)
 
@@ -1156,6 +1398,7 @@ def main():
                           for label, module, variables in (("IANv1", ian_v1, card_v1.variables),
                                                            ("IAN", ian, card_ian.variables))}
 
+    log(f"[phase] 7 starts at {time.perf_counter() - started:.1f} s")
     # 7. Times
     p50, p95 = time_strokes("IAN_simple", card, image, smi)
     profile_strokes("IAN_simple", card, top=12)
@@ -1167,6 +1410,7 @@ def main():
     ian_busy = profile_strokes("IAN per-op MDBLOCKs", card_ian, top=14)
     ian_fused_p50, ian_fused_p95 = time_strokes("IAN fused MDBLOCKs", fused_ian, image, smi, n=50)
     ian_fused_busy = profile_strokes("IAN fused MDBLOCKs", fused_ian, top=14)
+    log(f"[phase] 7's strokes done at {time.perf_counter() - started:.1f} s")
 
     # what the head's weight packing costs on every decode (two a stroke)
     for as_taps, form in ((False, "hybrid"), (True, "fused")):
@@ -1311,6 +1555,78 @@ def main():
         rates[label] = 128e3 / ed_ms
         log(f"[time] {label} encode+decode batch 128: {ed_ms:.4f} ms/batch, {rates[label]:.1f} imgs/s ({smi})")
 
+    log(f"[phase] 7b starts at {time.perf_counter() - started:.1f} s")
+    # 7b. bfloat16 times: the three bf16 kernels beside their bounds (2 bytes
+    # an element, 989 TFLOP/s), encode+decode at bench.py's headline batch of
+    # 256 (bench_torch.py's function), and the bf16 strokes (bench_torch_edit.py's)
+    bf16_times = {"kernels": {}}
+    with torch.no_grad():
+        for batch in (1, 128):
+            _, _, trunk32, tg, tb = head_inputs(batch, 64, 90 + batch, dev)
+            trunk, tg, tb = (t.to(torch.bfloat16) for t in (trunk32, tg, tb))
+            for what, fn, args, bound in (
+                    ("bf16 trunk", rt.rgb_beta_tail, (trunk, tg, tb), rgb_beta_tail_bound_ms(batch, "bfloat16")),
+                    ("float32 trunk (tail_only)", rt.tail_only, (trunk32, tg, tb),
+                     rgb_beta_tail_bound_ms(batch, "bfloat16", trunk_elt=4))):
+                k_ms = graph_ms(lambda: fn(*args), iters=50)  # noqa: B023
+                p_ms = graph_ms(lambda: rt.rgb_beta_tail_reference(*args), iters=50)  # noqa: B023
+                log(f"[time] rgb_beta_tail_bf16 batch {batch}, {what}, device time (CUDA graph): kernel {k_ms:.5f} ms, "
+                    f"plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) ({smi})")
+                if batch == 1 and fn is rt.rgb_beta_tail:
+                    entries.append({"name": "rgb_beta_tail_bf16", "source": rt.SOURCE, "replaces": rt.REPLACES,
+                                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1]})
+                bf16_times["kernels"][f"rgb_beta_tail_bf16 batch {batch} {what}"] = k_ms
+        for batch in (1, 128):
+            x, tr, _, tg, tb = (t.to(torch.bfloat16) for t in head_inputs(batch, 64, 95 + batch, dev))
+            bound = rgb_beta_head_bound_ms(batch, 64, dtype="bfloat16")
+            k_ms = graph_ms(lambda: head(x, tr, tg, tb), iters=50 if batch == 1 else 5)  # noqa: B023
+            p_ms = graph_ms(lambda: head_plain(x, tr, tg, tb), iters=50 if batch == 1 else 5)  # noqa: B023
+            trunk_ms = graph_ms(lambda: rh.trunk_only(x, tr, HEAD_SCALES), iters=50 if batch == 1 else 5)  # noqa: B023
+            log(f"[time] rgb_beta_head_bf16 C 64 batch {batch}, device time (CUDA graph): kernel {k_ms:.5f} ms, plain "
+                f"{p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); its trunk {trunk_ms:.5f} ms ({smi})")
+            if batch == 1:
+                entries.append({"name": "rgb_beta_head_bf16", "source": rh.SOURCE, "replaces": rh.REPLACES,
+                                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                                "trunk_ms": trunk_ms})
+            bf16_times["kernels"][f"rgb_beta_head_bf16 C 64 batch {batch}"] = k_ms
+        per_shape = []
+        for name, channels, size, scales in MDBLOCK_SHAPES:
+            for batch in (1, 128):
+                x, t1, t2, aff = mdblock_inputs(batch, channels, size, scales, 100 + batch, dev)
+                args = (x.to(torch.bfloat16), t1.to(torch.bfloat16), t2.to(torch.bfloat16), aff)
+                reps = dict(iters=5, reps=4) if batch == 128 else dict(iters=20)
+                k_ms = graph_ms(lambda: mk.mdblock_fused(*args, scales), **reps)  # noqa: B023
+                p_ms = graph_ms(lambda: mk.mdblock_taps_reference(*args, scales), **reps)  # noqa: B023
+                bound = mdblock_bound_ms(batch, channels, size, scales, route="bf16")
+                log(f"[time] mdblock_bf16 {size}x{size}x{channels} batch {batch}, device time (CUDA graph): kernel "
+                    f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) ({smi})")
+                bf16_times["kernels"][f"mdblock_bf16 {size}x{size}x{channels} batch {batch}"] = k_ms
+                if batch == 1:
+                    per_shape.append({"shape": f"{size}x{size}x{channels}", "ms": k_ms, "plain_ms": p_ms,
+                                      "bound_ms": bound[0], "bound_by": bound[1]})
+        entries.append({"name": "mdblock_bf16", "source": mk.SOURCE, "replaces": mk.REPLACES,
+                        **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms")},
+                        "bound_by": max(per_shape, key=lambda e: e["bound_ms"])["bound_by"], "per_shape": per_shape})
+
+    log(f"[phase] 7b's kernels done at {time.perf_counter() - started:.1f} s")
+    x256 = torch.from_numpy(rng.uniform(-1, 1, (256, 3, 64, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+    bf16_times["encode_decode_imgs_per_s_b256"] = {}
+    for label, _, forms, _, _ in bf16_paths:
+        session = bf16_sessions[label]
+        rate, _, spread = bench_torch.encode_decode_rate(session.module, session.variables, x256, 3, 3, forms)
+        bf16_times["encode_decode_imgs_per_s_b256"][label] = rate
+        log(f"[time] {label} bf16 encode+decode batch 256: {rate:.1f} imgs/s (median of 3 rounds of 3 chained "
+            f"passes, spread {spread:.3f}) ({smi})")
+    # (the device time a bf16 stroke takes is bench_torch_edit.py's to report:
+    # a profiler run here costs more wall time than the strokes themselves)
+    bf16_times["strokes"] = {}
+    for label, session in bf16_sessions.items():
+        n = BF16_TIMED_STROKES // 2 if "fused MDBLOCKs" in label else BF16_TIMED_STROKES
+        p50_16, p95_16 = time_strokes(f"{label} bf16", session, image, smi, n=n)
+        bf16_times["strokes"][label] = {"p50_ms": p50_16, "p95_ms": p95_16}
+    del x256
+    log(f"[phase] 7b's strokes done at {time.perf_counter() - started:.1f} s")
+
     # the staging kernel at the trainer's two chunk sizes (IAN_simple's 64
     # batches of 128; IAN's and IANv1's 64 of 16), rows gathered out of a
     # 16384-image dataset resident on the card
@@ -1328,6 +1644,7 @@ def main():
                     "per_n": {str(n): t for n, t in staging_times.items()}})
     del staging_cache
 
+    log(f"[phase] 7, training times, starts at {time.perf_counter() - started:.1f} s")
     # training: seeded default-init weights on the card (what `train` starts from)
     training = {}
     for label, module, batch_size, bpc in (("IAN_simple", ian_simple, 128, 8), ("IANv1", ian_v1, 16, 16),
@@ -1363,7 +1680,7 @@ def main():
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
                     "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,
-                    "serving": serve_times, "wall_s": time.perf_counter() - started}))
+                    "serving": serve_times, "bf16": bf16_times, "wall_s": time.perf_counter() - started}))
     log(f"[time] chip_smoke.py wall time {time.perf_counter() - started:.1f} s ({smi})")
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,16 @@
 """Plat-style inference API -- the 5-method contract the NPE consumes
 (npe_tpu `api.py`, reference `API.py`). Image arrays cross this boundary as
 NCHW float32 in [-1, 1], as numpy; the brush box (c1, r1, c2, r2) is a
-mask built from index ramps, so any box runs the same code."""
+mask built from index ramps, so any box runs the same code. With
+`dtype=torch.bfloat16` the model runs in bf16 (weights cast once, inputs cast
+at the model's boundary), and every array that comes back is float32."""
 
 import numpy as np
 import torch
 
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.utils import checkpoints
+from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
 
 
@@ -56,11 +59,17 @@ class IAN:
         device="cuda",
         head_mode=None,
         mdblock_mode=None,
+        dtype=None,
     ):
         """head_mode: for a model with the RGB-Beta head, the form every
         decode takes (`models.common.HEAD_MODES`); mdblock_mode: for a model
         with MDBLOCKs, theirs (`models.common.MDBLOCK_MODES`). None leaves
-        the model's default."""
+        the model's default. dtype: torch.bfloat16 (or "bfloat16") runs the
+        whole inference path in bf16, as npe_tpu's `dtype=jnp.bfloat16`: the
+        weights, drawn or loaded in float32, are cast once, inputs are cast at
+        the model's boundary, and outputs come back float32. None or float32
+        runs in float32; any other dtype raises ValueError."""
+        self.dtype = resolve_dtype(dtype)
         self.decode_options = decode_options(head_mode, mdblock_mode)
         self.device = resolve_device(device)
         self.module = get_config(config_path)
@@ -69,14 +78,21 @@ class IAN:
             variables = self.module.init(torch.Generator().manual_seed(seed), self.device)
         if weights_path is not None:
             checkpoints.load_weights(weights_path, variables)
+        if dtype is not None:
+            variables = cast_floating(variables, self.dtype)
         self.variables = variables
 
     def _tensor(self, x):
         return torch.tensor(np.asarray(x, np.float32), device=self.device)
 
+    def _decode(self, z):
+        """The model's decode of a float32 z, run in this model's dtype, widened
+        to float32."""
+        return self.module.decode(self.variables, z.to(self.dtype), **self.decode_options).float()
+
     def _patch_loss_grad(self, z, c1, r1, c2, r2, rgb=None):
         z = self._tensor(z).requires_grad_(True)
-        xh = self.module.decode(self.variables, z, **self.decode_options)  # (n, C, H, W)
+        xh = self._decode(z)  # (n, C, H, W)
         m = patch_mask(xh.shape[2], xh.shape[3], c1, r1, c2, r2, xh.dtype, self.device)
         if rgb is None:
             # mean of X_hat[0, :, r1:r2, c1:c2] (reference `API.py:59`)
@@ -93,12 +109,12 @@ class IAN:
     @torch.no_grad()
     def encode_images(self, images):
         """images: (n, 3, s, s) in [-1, 1] -> (n, zdim)."""
-        return self.module.encode(self.variables, self._tensor(images)).cpu().numpy()
+        return self.module.encode(self.variables, self._tensor(images).to(self.dtype)).float().cpu().numpy()
 
     @torch.no_grad()
     def sample_at(self, z):
         """z: (n, zdim) -> images (n, 3, s, s) in [-1, 1]."""
-        return self.module.decode(self.variables, self._tensor(z), **self.decode_options).cpu().numpy()
+        return self._decode(self._tensor(z)).cpu().numpy()
 
     def imgrad(self, c1, r1, c2, r2, z):
         """dZ that lightens the local patch (reference `API.py:66-70`)."""

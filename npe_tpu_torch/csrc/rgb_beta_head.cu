@@ -49,6 +49,15 @@
 // later change: double-buffered chunks (a block has one at batch 1), more
 // pixels a thread (fewer shared-memory reads per product), and a
 // programmatic dependent launch of the second pass.
+//
+// bfloat16. Given bf16 x and taps, npe_tpu's kernel takes bf16 operands and
+// keeps the trunk in float32 (`_beta_head_kernel`: the products'
+// preferred_element_type), then runs the tail in bf16. The bf16 form here is
+// the same trunk kernel over a template: x and the taps are widened to
+// float32 as they are staged (exact; ordinary 16-byte loads where the float32
+// form has cp.async), the products and sums are float32, and the trunk and
+// the slices' partial sums stay float32; the tail is rgb_beta_tail.cuh's bf16
+// form over that float32 trunk, and the image is bf16.
 
 #include "rgb_beta_tail.cuh"
 
@@ -126,9 +135,10 @@ __device__ __forceinline__ void tap_products(const float* xs, const float* ws, i
 // taps: (T, channels, 6), T = 9 * n_dil, in the order of `tap_offsets`;
 // sums: the trunk (batch, 96, hh, 16), the tail's component-major s2d
 // layout, or with more than one slice the partial sums (batch, slices, 96,
-// hh, 16).
+// hh, 16), float32 in both forms. T is float or __nv_bfloat16 (x and taps).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-head_trunk_kernel(const float* __restrict__ x, const float* __restrict__ taps, float* __restrict__ sums,
+head_trunk_kernel(const T* __restrict__ x, const T* __restrict__ taps, float* __restrict__ sums,
                   int channels, int hh, int n_dil, Dilations dil) {
   __shared__ __align__(16) float xs[kChunk * kRows * kStride];
   __shared__ __align__(16) float ws[kChunk * kMaxTaps * kTapStride];
@@ -153,16 +163,36 @@ head_trunk_kernel(const float* __restrict__ x, const float* __restrict__ taps, f
     __syncthreads();  // the zeroing, or the last chunk's reads, are done
     // the band and its halo, kc channels, as 16-byte rows (zero outside the
     // map), and their taps: every copy in flight at once
-    for (int i = tid; i < kc * kRows * (kWidth / 4); i += kThreads) {
-      const int cl = i / (kRows * (kWidth / 4)), row = (i / (kWidth / 4)) % kRows, q = i % (kWidth / 4);
-      const int y = band * kBand - kHaloPx + row;
-      const bool inside = y >= 0 && y < height;
-      cp_async16(&xs[(cl * kRows + row) * kStride + kHaloPx + 4 * q],
-                 inside ? x + ((static_cast<size_t>(n) * channels + c0 + cl) * height + y) * kWidth + 4 * q : x, inside);
-    }
-    for (int i = tid; i < kc * n_taps * kCo; i += kThreads) {
-      const int o = i % kCo, cl = (i / kCo) % kc, t = i / (kCo * kc);  // a tap's rows are contiguous
-      cp_async4(&ws[(cl * kMaxTaps + t) * kTapStride + o], taps + (static_cast<size_t>(t) * channels + c0 + cl) * kCo + o);
+    if constexpr (std::is_same_v<T, float>) {
+      for (int i = tid; i < kc * kRows * (kWidth / 4); i += kThreads) {
+        const int cl = i / (kRows * (kWidth / 4)), row = (i / (kWidth / 4)) % kRows, q = i % (kWidth / 4);
+        const int y = band * kBand - kHaloPx + row;
+        const bool inside = y >= 0 && y < height;
+        cp_async16(&xs[(cl * kRows + row) * kStride + kHaloPx + 4 * q],
+                   inside ? x + ((static_cast<size_t>(n) * channels + c0 + cl) * height + y) * kWidth + 4 * q : x,
+                   inside);
+      }
+      for (int i = tid; i < kc * n_taps * kCo; i += kThreads) {
+        const int o = i % kCo, cl = (i / kCo) % kc, t = i / (kCo * kc);  // a tap's rows are contiguous
+        cp_async4(&ws[(cl * kMaxTaps + t) * kTapStride + o],
+                  taps + (static_cast<size_t>(t) * channels + c0 + cl) * kCo + o);
+      }
+    } else {  // bf16: eight pixels (16 bytes) a load, widened into the same float32 rows
+      for (int i = tid; i < kc * kRows * (kWidth / 8); i += kThreads) {
+        const int cl = i / (kRows * (kWidth / 8)), row = (i / (kWidth / 8)) % kRows, q = i % (kWidth / 8);
+        const int y = band * kBand - kHaloPx + row;
+        float v[8] = {};
+        if (y >= 0 && y < height)
+          npe::bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(
+                                 x + ((static_cast<size_t>(n) * channels + c0 + cl) * height + y) * kWidth) + q), v);
+        float4* dst = reinterpret_cast<float4*>(&xs[(cl * kRows + row) * kStride + kHaloPx + 8 * q]);
+        dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+      for (int i = tid; i < kc * n_taps * kCo; i += kThreads) {
+        const int o = i % kCo, cl = (i / kCo) % kc, t = i / (kCo * kc);
+        ws[(cl * kMaxTaps + t) * kTapStride + o] = npe::to_f32(taps[(static_cast<size_t>(t) * channels + c0 + cl) * kCo + o]);
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -215,6 +245,39 @@ add_slices_kernel(const float* __restrict__ partial, float* __restrict__ trunk, 
   trunk[static_cast<size_t>(blockIdx.y) * per_image + i] = s;
 }
 
+template <typename T>
+int head_trunk(const void* x, const void* taps, void* trunk, void* partial, int batch, int channels, int hh,
+               int n_dil, const int* dil, int slices, void* stream) {
+  if (n_dil < 1 || n_dil > kMaxDil || slices < 1 || slices > kMaxSlices || slices > channels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Dilations d = {};
+  for (int b = 0; b < n_dil; ++b) {
+    if (dil[b] < 1 || dil[b] > kHaloPx) return static_cast<int>(cudaErrorInvalidValue);
+    d.d[b] = dil[b];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sums = static_cast<float*>(slices > 1 ? partial : trunk);
+  head_trunk_kernel<T><<<dim3(hh, slices, batch), kThreads, 0, s>>>(static_cast<const T*>(x),
+                                                                     static_cast<const T*>(taps), sums, channels,
+                                                                     hh, n_dil, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return static_cast<int>(err);
+  const int per_image = kCo * npe::kRR * hh * (kWidth / 4);
+  add_slices_kernel<<<dim3((per_image + kAddThreads - 1) / kAddThreads, batch), kAddThreads, 0, s>>>(
+      sums, static_cast<float*>(trunk), slices, per_image);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int head(const void* x, const void* taps, const void* tg, const void* tb, void* trunk, void* partial, void* out,
+         int batch, int channels, int hh, int n_dil, const int* dil, int slices, int tail_rows, void* stream) {
+  const int err = head_trunk<T>(x, taps, trunk, partial, batch, channels, hh, n_dil, dil, slices, stream);
+  if (err != 0) return err;
+  return npe::launch_tail<true>(static_cast<const float*>(trunk), static_cast<const T*>(tg),
+                                static_cast<const T*>(tb), static_cast<T*>(out), batch, hh, kWidth / 4,
+                                tail_rows, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // The trunk alone. x: (batch, channels, 4*hh, 64) float32 NCHW; taps:
@@ -225,24 +288,7 @@ add_slices_kernel(const float* __restrict__ partial, float* __restrict__ trunk, 
 // aligned. One launch, or two with slices; returns the first CUDA error code.
 extern "C" int npe_rgb_beta_head_trunk(const void* x, const void* taps, void* trunk, void* partial, int batch,
                                        int channels, int hh, int n_dil, const int* dil, int slices, void* stream) {
-  if (n_dil < 1 || n_dil > kMaxDil || slices < 1 || slices > kMaxSlices || slices > channels)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Dilations d = {};
-  for (int b = 0; b < n_dil; ++b) {
-    if (dil[b] < 1 || dil[b] > kHaloPx) return static_cast<int>(cudaErrorInvalidValue);
-    d.d[b] = dil[b];
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sums = static_cast<float*>(slices > 1 ? partial : trunk);
-  head_trunk_kernel<<<dim3(hh, slices, batch), kThreads, 0, s>>>(static_cast<const float*>(x),
-                                                                  static_cast<const float*>(taps), sums, channels,
-                                                                  hh, n_dil, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || slices == 1) return static_cast<int>(err);
-  const int per_image = kCo * npe::kRR * hh * (kWidth / 4);
-  add_slices_kernel<<<dim3((per_image + kAddThreads - 1) / kAddThreads, batch), kAddThreads, 0, s>>>(
-      sums, static_cast<float*>(trunk), slices, per_image);
-  return static_cast<int>(cudaGetLastError());
+  return head_trunk<float>(x, taps, trunk, partial, batch, channels, hh, n_dil, dil, slices, stream);
 }
 
 // The whole head: the trunk, then the tail's launch. x, taps, dil, slices,
@@ -253,9 +299,21 @@ extern "C" int npe_rgb_beta_head_trunk(const void* x, const void* taps, void* tr
 extern "C" int npe_rgb_beta_head(const void* x, const void* taps, const void* tg, const void* tb, void* trunk,
                                  void* partial, void* out, int batch, int channels, int hh, int n_dil,
                                  const int* dil, int slices, int tail_rows, void* stream) {
-  const int err = npe_rgb_beta_head_trunk(x, taps, trunk, partial, batch, channels, hh, n_dil, dil, slices, stream);
-  if (err != 0) return err;
-  return npe::launch_tail<true>(static_cast<const float*>(trunk), static_cast<const float*>(tg),
-                                static_cast<const float*>(tb), static_cast<float*>(out), batch, hh, kWidth / 4,
-                                tail_rows, static_cast<cudaStream_t>(stream));
+  return head<float>(x, taps, tg, tb, trunk, partial, out, batch, channels, hh, n_dil, dil, slices, tail_rows,
+                     stream);
+}
+
+// The bfloat16 forms of the two: x, taps, tg, tb and out bf16; trunk and
+// partial float32, as in the float32 forms.
+extern "C" int npe_rgb_beta_head_trunk_bf16(const void* x, const void* taps, void* trunk, void* partial,
+                                            int batch, int channels, int hh, int n_dil, const int* dil,
+                                            int slices, void* stream) {
+  return head_trunk<__nv_bfloat16>(x, taps, trunk, partial, batch, channels, hh, n_dil, dil, slices, stream);
+}
+
+extern "C" int npe_rgb_beta_head_bf16(const void* x, const void* taps, const void* tg, const void* tb,
+                                      void* trunk, void* partial, void* out, int batch, int channels, int hh,
+                                      int n_dil, const int* dil, int slices, int tail_rows, void* stream) {
+  return head<__nv_bfloat16>(x, taps, tg, tb, trunk, partial, out, batch, channels, hh, n_dil, dil, slices,
+                             tail_rows, stream);
 }

@@ -20,3 +20,16 @@ extern "C" int npe_rgb_beta_tail(const void* trunk, const void* tg, const void* 
                                  static_cast<float*>(out), batch, hh, ww, rows,
                                  static_cast<cudaStream_t>(stream));
 }
+
+// The bfloat16 form: tg, tb and out bf16, the trunk bf16 or, with trunk_f32,
+// float32 (the fused head's trunk, which is never rounded). Otherwise as
+// npe_rgb_beta_tail.
+extern "C" int npe_rgb_beta_tail_bf16(const void* trunk, const void* tg, const void* tb, void* out,
+                                      int batch, int hh, int ww, int rows, int trunk_f32, void* stream) {
+  const auto* g = static_cast<const __nv_bfloat16*>(tg);
+  const auto* b = static_cast<const __nv_bfloat16*>(tb);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (trunk_f32) return npe::launch_tail<false>(static_cast<const float*>(trunk), g, b, o, batch, hh, ww, rows, s);
+  return npe::launch_tail<false>(static_cast<const __nv_bfloat16*>(trunk), g, b, o, batch, hh, ww, rows, s);
+}

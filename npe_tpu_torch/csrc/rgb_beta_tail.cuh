@@ -56,6 +56,19 @@
 // multiply-adds in the order tap, then channel, as in the first version;
 // expf and the division are the accurate ones.
 //
+// bfloat16. npe_tpu's kernel is dtype-generic: given bf16 it multiplies bf16
+// operands, adds in float32 and rounds at fixed points. The bf16 form here is
+// the same code over templates (T, the taps' and the output's type; TTrunk,
+// the trunk's): the trunk is widened on load (bf16 from the hybrid head's
+// library conv, or float32 from the fused head's trunk, which npe_tpu never
+// rounds); the taps are widened into the same float32 tap planes in shared
+// memory (exact), by ordinary loads where the float32 form has cp.async; R and
+// G are rounded to bf16 where they enter the maps, which feed only the tap
+// products, so the red Beta mean is taken from R recomputed unrounded from the
+// trunk; every sum, sigmoid and Beta mean is float32, and the output is
+// rounded to bf16. (npe_tpu/ops/pallas/mdcl_kernels.py `_beta_tail_kernel`:
+// `pad1` rounds R and [R, G] before the products, nothing else.)
+//
 // Left for a later change: a TMA copy of the taps (multicast to the blocks of
 // an image in a cluster), and splitting a cell's 8 sums over more threads.
 
@@ -64,7 +77,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "bf16.cuh"
 #include "dynamic_smem.cuh"
 
 namespace npe {
@@ -116,23 +131,24 @@ __device__ __forceinline__ void tap_sum(const float* __restrict__ at, int pw, in
 
 // What a block of the kernel works on: one image's trunk, the output, its
 // maps and taps in shared memory, and where its rows lie.
+template <typename TTrunk, typename T>
 struct TailBlock {
-  const float* trunk_n;  // (6 rr, hh, ww) of this image
-  float* out;
+  const TTrunk* trunk_n;  // (6 rr, hh, ww) of this image
+  T* out;
   float* maps;           // 4 rr planes of (rows + 5) x (ww + 2); map row r is cell row i0 - 2 + r
   const float* tg_s;
   const float* tb_s;
   int n, hh, ww, rows, i0, pw, plane;
 
-  __device__ float pre(int ch, int cell) const { return trunk_n[ch * hh * ww + cell]; }
+  __device__ float pre(int ch, int cell) const { return to_f32(trunk_n[ch * hh * ww + cell]); }
 
   template <bool kImageOut>
   __device__ void store(int colour, int pos, int i, int j, float v) const {
     if (kImageOut) {
       const int y = 4 * i + pos / 4, x = 4 * j + pos % 4;
-      out[(static_cast<size_t>(n * 3 + colour) * (4 * hh) + y) * (4 * ww) + x] = v;
+      out[(static_cast<size_t>(n * 3 + colour) * (4 * hh) + y) * (4 * ww) + x] = from_f32<T>(v);
     } else {
-      out[(static_cast<size_t>(n * 3 + colour) * kRR + pos) * hh * ww + i * ww + j] = v;
+      out[(static_cast<size_t>(n * 3 + colour) * kRR + pos) * hh * ww + i * ww + j] = from_f32<T>(v);
     }
   }
 
@@ -161,7 +177,7 @@ struct TailBlock {
       for (int k = 0; k < 8; ++k) v[k] = pre((k / 4) * kRR + 4 * g + k % 4, row * ww + j);
       float* centre = maps + (row - i0 + kHalo) * pw + j + 1;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) centre[((k / 4) * kRR + 4 * g + k % 4) * plane] = sigmoid_f32(v[k]);
+      for (int k = 0; k < 8; ++k) centre[((k / 4) * kRR + 4 * g + k % 4) * plane] = round_to<T>(sigmoid_f32(v[k]));
     }
   }
 
@@ -194,10 +210,15 @@ struct TailBlock {
           const int cell = row * ww + j;
           const float a = sigmoid_f32(pre(kPair + pos, cell) + acc[c][k]);
           const float b = sigmoid_f32(pre(kPair + kRR + pos, cell) + acc[c][4 + k]);
-          centre[(kPair + pos) * plane] = a;
-          centre[(kPair + kRR + pos) * plane] = b;
+          centre[(kPair + pos) * plane] = round_to<T>(a);
+          centre[(kPair + kRR + pos) * plane] = round_to<T>(b);
           if (own) {
-            store<kImageOut>(0, pos, row, j, beta_mean_f32(centre[pos * plane], centre[(kRR + pos) * plane]));
+            // the red Beta mean of unrounded R: the maps hold it as it is in
+            // float32, and rounded to bf16 in the bf16 form
+            if constexpr (std::is_same_v<T, float>)
+              store<kImageOut>(0, pos, row, j, beta_mean_f32(centre[pos * plane], centre[(kRR + pos) * plane]));
+            else
+              store<kImageOut>(0, pos, row, j, beta_mean_f32(sigmoid_f32(pre(pos, cell)), sigmoid_f32(pre(kRR + pos, cell))));
             store<kImageOut>(1, pos, row, j, beta_mean_f32(a, b));
           }
         }
@@ -233,13 +254,31 @@ struct TailBlock {
   }
 };
 
+// The taps (n values, a multiple of 8) into float32 planes in shared memory:
+// float32 by 16-byte cp.async, in the caller's commit group; bf16 widened by
+// ordinary 16-byte loads.
+template <typename T>
+__device__ __forceinline__ void stage_taps(float* dst, const T* __restrict__ src, int n) {
+  if constexpr (std::is_same_v<T, float>) {
+    for (int idx = threadIdx.x; idx < n / 4; idx += blockDim.x) tail_cp_async16(dst + 4 * idx, src + 4 * idx);
+  } else {
+    for (int idx = threadIdx.x; idx < n / 8; idx += blockDim.x) {
+      float v[8];
+      bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(src) + idx), v);
+      reinterpret_cast<float4*>(dst)[2 * idx] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(dst)[2 * idx + 1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
 // trunk: (batch, 6*rr, hh, ww). out: (batch, 3*rr, hh, ww), or with kImageOut
 // the image itself, (batch, 3, 4*hh, 4*ww). Block b is image b / (hh / rows),
-// cell rows rows * (b % (hh / rows)) onwards; rows divides hh.
-template <bool kImageOut>
+// cell rows rows * (b % (hh / rows)) onwards; rows divides hh. T is float
+// (the float32 form) or __nv_bfloat16 (the bf16 form); TTrunk is T or float.
+template <typename TTrunk, typename T, bool kImageOut>
 __global__ void __launch_bounds__(kTailThreads)
-rgb_beta_tail_kernel(const float* __restrict__ trunk, const float* __restrict__ tg, const float* __restrict__ tb,
-                     float* __restrict__ out, int hh, int ww, int rows) {
+rgb_beta_tail_kernel(const TTrunk* __restrict__ trunk, const T* __restrict__ tg, const T* __restrict__ tb,
+                     T* __restrict__ out, int hh, int ww, int rows) {
   extern __shared__ __align__(16) float smem[];
   float* tg_s = smem;
   float* tb_s = tg_s + kTgFloats;
@@ -247,16 +286,16 @@ rgb_beta_tail_kernel(const float* __restrict__ trunk, const float* __restrict__ 
   const int groups = hh / rows;
   const int n = blockIdx.x / groups;
   const int cells = hh * ww;
-  const TailBlock blk{trunk + static_cast<size_t>(n) * 6 * kRR * cells, out, maps, tg_s, tb_s, n, hh, ww, rows,
-                      static_cast<int>(blockIdx.x % groups) * rows, ww + 2, (rows + kMapRows) * (ww + 2)};
+  const TailBlock<TTrunk, T> blk{trunk + static_cast<size_t>(n) * 6 * kRR * cells, out, maps, tg_s, tb_s, n, hh,
+                                 ww, rows, static_cast<int>(blockIdx.x % groups) * rows, ww + 2,
+                                 (rows + kMapRows) * (ww + 2)};
 
   // 1. Both tap tensors on their way into shared memory, tg in the first
-  // group, tb in the second.
-  for (int idx = threadIdx.x; idx < kTgFloats / 4; idx += blockDim.x)
-    tail_cp_async16(tg_s + 4 * idx, tg + 4 * idx);
+  // group, tb in the second (in the bf16 form both are in place before the
+  // barrier after the zeroing, and the groups are empty).
+  stage_taps(tg_s, tg, kTgFloats);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int idx = threadIdx.x; idx < kTbFloats / 4; idx += blockDim.x)
-    tail_cp_async16(tb_s + 4 * idx, tb + 4 * idx);
+  stage_taps(tb_s, tb, kTbFloats);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   // 2. The maps zeroed (border columns, rows outside the image, G planes),
@@ -270,26 +309,26 @@ rgb_beta_tail_kernel(const float* __restrict__ trunk, const float* __restrict__ 
   // 3. G, then 4. B: two cells a thread where the block has four rows or
   // more (a tap row read serves both), else one (more threads at work).
   const bool pairs = rows >= 4 && rows % 2 == 0;
-  if (pairs) blk.green<kImageOut, 2>();
-  else blk.green<kImageOut, 1>();
+  if (pairs) blk.template green<kImageOut, 2>();
+  else blk.template green<kImageOut, 1>();
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  if (pairs) blk.blue<kImageOut, 2>();
-  else blk.blue<kImageOut, 1>();
+  if (pairs) blk.template blue<kImageOut, 2>();
+  else blk.template blue<kImageOut, 1>();
 }
 
 // Launches the tail on `stream` over row groups of `rows` cell rows (rows
 // divides hh); returns the CUDA error code (0 = launched).
-template <bool kImageOut>
-inline int launch_tail(const float* trunk, const float* tg, const float* tb, float* out, int batch, int hh,
-                       int ww, int rows, cudaStream_t stream) {
+template <bool kImageOut, typename TTrunk, typename T>
+inline int launch_tail(const TTrunk* trunk, const T* tg, const T* tb, T* out, int batch, int hh, int ww,
+                       int rows, cudaStream_t stream) {
   if (rows < 1 || hh % rows) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       (kTgFloats + kTbFloats + static_cast<size_t>(2 * kPair) * (rows + kMapRows) * (ww + 2)) * sizeof(float);
-  const cudaError_t err = allow_dynamic_smem<rgb_beta_tail_kernel<kImageOut>>(smem);
+  const cudaError_t err = allow_dynamic_smem<rgb_beta_tail_kernel<TTrunk, T, kImageOut>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rgb_beta_tail_kernel<kImageOut><<<batch * (hh / rows), kTailThreads, smem, stream>>>(trunk, tg, tb, out, hh,
-                                                                                          ww, rows);
+  rgb_beta_tail_kernel<TTrunk, T, kImageOut><<<batch * (hh / rows), kTailThreads, smem, stream>>>(
+      trunk, tg, tb, out, hh, ww, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

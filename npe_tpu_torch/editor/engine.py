@@ -9,6 +9,11 @@ RECON / ERROR images stay on the device between events.
 
 Image convention at the session boundary: CHW float32 in [-1, 1] (tanh
 range), as numpy, like the model API. `*_uint8()` helpers convert for display.
+
+With `dtype=torch.bfloat16` the decode and its gradient run in bf16, as in
+npe_tpu: the weights are cast once, z is cast at the model's boundary and the
+decoded image widened to float32 there, so Z, RECON, DELTA, the masks, the
+composite and `edit_tail` stay float32.
 """
 
 import numpy as np
@@ -18,6 +23,7 @@ from npe_tpu_torch.api import decode_options, soft_patch_mask
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.ops.kernels.edit_tail import edit_tail
 from npe_tpu_torch.utils import checkpoints
+from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
 from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
 
@@ -63,13 +69,18 @@ class EditSession:
         device="cuda",
         head_mode=None,
         mdblock_mode=None,
+        dtype=None,
     ):
         """variables: port variables on `device` (see
         `utils.checkpoints.from_reference`); drawn from torch.Generator(seed)
         when None. head_mode: for a model with the RGB-Beta head, the form
         every decode of this session takes (`models.common.HEAD_MODES`);
         mdblock_mode: for a model with MDBLOCKs, theirs
-        (`models.common.MDBLOCK_MODES`). None leaves the model's default."""
+        (`models.common.MDBLOCK_MODES`). None leaves the model's default.
+        dtype: torch.bfloat16 (or "bfloat16") runs the decode and gradient in
+        bf16, the weights drawn or loaded in float32 and cast once; None or
+        float32 runs in float32; any other dtype raises ValueError."""
+        self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
         self.module = get_config(config)
         self.decode_options = decode_options(head_mode, mdblock_mode)
@@ -77,6 +88,8 @@ class EditSession:
             variables = self.module.init(torch.Generator().manual_seed(seed), self.device)
         if weights_path is not None:
             checkpoints.load_weights(weights_path, variables)
+        if dtype is not None:
+            variables = cast_floating(variables, self.dtype)
         self.variables = variables
         self.dim = tuple(dim)
         zdim = self.module.cfg["num_latents"]
@@ -104,7 +117,7 @@ class EditSession:
         """A new session with fresh editor state that SHARES this session's
         weights; only the per-image state is new."""
         s = object.__new__(EditSession)
-        for attr in ("device", "module", "variables", "dim", "decode_options"):
+        for attr in ("device", "dtype", "module", "variables", "dim", "decode_options"):
             setattr(s, attr, getattr(self, attr))
         s._init_state()
         return s
@@ -112,8 +125,10 @@ class EditSession:
     # --- the model pieces of one event -------------------------------------
 
     def _decode_hwc(self, z_flat):
-        xh = self.module.decode(self.variables, z_flat[None], **self.decode_options)
-        return xh[0].permute(1, 2, 0).contiguous()
+        """The decode of a float32 z in this session's dtype, as a float32
+        (H, W, 3) image."""
+        xh = self.module.decode(self.variables, z_flat[None].to(self.dtype), **self.decode_options)
+        return xh[0].permute(1, 2, 0).float().contiguous()
 
     def _patch_grad(self, z, c1, r1, c2, r2, sigma, rgb_hwc=None):
         """d(patch loss)/dz through the decoder: the mean squared distance to
@@ -200,7 +215,7 @@ class EditSession:
         self._gim = np.float32(image_chw_tanh)
         self.IM = self._gim.copy()
         x = torch.from_numpy(self._gim).to(self.device)
-        self.Z = self.module.encode(self.variables, x[None])[0]
+        self.Z = self.module.encode(self.variables, x[None].to(self.dtype))[0].float()
         self._recon = self._quantized(self._decode_hwc(self.Z))
         self._error = (x.permute(1, 2, 0) - self._recon).contiguous()
         self.DELTA = np.zeros_like(self._gim)

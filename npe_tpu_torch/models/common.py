@@ -119,10 +119,12 @@ def mdcl(v, name, x, scales):
 
 
 def _bn_affine(v, name):
-    """Inference batch norm as a per-channel affine: (s, t) with
-    BN(x) = s * x + t."""
-    s = v[f"{name}.gamma"] * v[f"{name}.inv_std"]
-    return s, v[f"{name}.beta"] - v[f"{name}.mean"] * s
+    """Inference batch norm as a per-channel float32 affine: (s, t) with
+    BN(x) = s * x + t. As npe_tpu's (`models/common.py:_bn_affine`), gamma *
+    inv_std is formed in the weights' dtype (bf16 under a bf16 cast) and then
+    widened, so the fused MDBLOCK's affines are float32 in both forms."""
+    s = (v[f"{name}.gamma"] * v[f"{name}.inv_std"]).float()
+    return s, v[f"{name}.beta"].float() - v[f"{name}.mean"].float() * s
 
 
 def _stacked_mdcl_taps(v, name, scales):

@@ -26,7 +26,10 @@ One call is two launches of one MDCL kernel (the first leaves
 lrelu(BN1(MDCL1(..))) in a scratch map, the second reads it and the raw x),
 each followed, when the inner dimension is cut into slices so that a single
 image still spreads over the card, by a launch that adds the slices' partial
-sums in a fixed order. `mdblock_fused.launches` counts calls.
+sums in a fixed order. The bfloat16 form (x and the taps in bf16, the
+affines float32) multiplies bf16 operands on the tensor cores in one product
+(`mma.sync` m16n8k16) into float32 sums. `mdblock_fused.launches` counts the
+float32 form's calls, `mdblock_fused.launches_bf16` the bf16 form's.
 """
 
 import ctypes
@@ -36,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from npe_tpu_torch.ops.kernels import build
-from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, vjp_of_plain
+from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, count_launch, sum_dtype, vjp_of_plain
 
 SOURCE = "npe_tpu_torch/csrc/mdblock.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
@@ -96,13 +99,20 @@ def _mdcl_taps(h, taps, offs):
 
 def mdblock_taps_reference(x, taps1, taps2, affines, scales):
     """Plain version of exactly what the kernel computes, and its backward.
-    x: (N, C, H, W); taps1, taps2: (T, C, C); affines: (6, C)."""
+    x: (N, C, H, W); taps1, taps2: (T, C, C); affines: (6, C). In bfloat16
+    (x and the taps; the affines stay float32) it rounds where npe_tpu's
+    kernel rounds: x is widened to float32, each MDCL's input is rounded to
+    bf16 just before its products (after BN0's and BN1's affine and lrelu),
+    the sums, affines and the residual x + h are float32, and the output is
+    rounded to bf16. In float32 every cast is the identity."""
+    mx, acc = x.dtype, sum_dtype(x.dtype)
     offs = tap_offsets(scales)
     s0, t0, s1, t1, s2, t2 = (a[None, :, None, None] for a in affines)
-    h = _lrelu(x * s0 + t0)
-    h = _lrelu(_mdcl_taps(h, taps1, offs) * s1 + t1)
-    h = _mdcl_taps(h, taps2, offs)
-    return _lrelu((x + h) * s2 + t2)
+    xf = x.to(acc)
+    h = _lrelu(xf * s0 + t0)
+    h = _lrelu(_mdcl_taps(h.to(mx).to(acc), taps1.to(acc), offs) * s1 + t1)
+    h = _mdcl_taps(h.to(mx).to(acc), taps2.to(acc), offs)
+    return _lrelu((xf + h) * s2 + t2).to(mx)
 
 
 def tf32_split(x):
@@ -130,8 +140,9 @@ def inner_splits(batch, tiles, units, sm_count):
 
 
 @functools.cache
-def _entry():
-    fn = build.load("mdblock").npe_mdblock
+def _entry(bf16):
+    lib = build.load("mdblock")
+    fn = lib.npe_mdblock_bf16 if bf16 else lib.npe_mdblock
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -147,10 +158,13 @@ class _MDBlock(torch.autograd.Function):
         tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits = inner_splits(n, tiles, 9 * len(branches) * c // CHANNEL_STEP, sms)
+        # h1 = lrelu(BN1(MDCL1(..))) in x's dtype: under bfloat16 it is rounded
+        # where npe_tpu rounds it, after the activation and before MDCL2's
+        # products; the slices' partial sums stay float32 in both forms
         h1, out = torch.empty_like(x), torch.empty_like(x)
-        partial = x.new_empty((n, splits, c, h, w)) if splits > 1 else None
+        partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=x.device) if splits > 1 else None
         with torch.cuda.device(x.device):
-            rc = _entry()(
+            rc = _entry(x.dtype == torch.bfloat16)(
                 x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(),
                 h1.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
                 n, c, h, w, len(branches), (ctypes.c_int * len(branches))(*branches), splits,
@@ -158,7 +172,7 @@ class _MDBlock(torch.autograd.Function):
             )
         if rc != 0:
             raise RuntimeError(f"mdblock kernel launch failed with CUDA error {rc}")
-        mdblock_fused.launches += 1
+        count_launch(mdblock_fused, x.dtype)
         return out
 
     @staticmethod
@@ -168,12 +182,14 @@ class _MDBlock(torch.autograd.Function):
 
 
 def mdblock_fused(x, taps1, taps2, affines, scales):
-    """Fused inference MDBLOCK. x: (N, C, H, W) float32, C a multiple of 16
-    and H*W a multiple of 64; taps1, taps2: (T, C, C) from `stack_mdcl_taps`;
-    affines: (6, C), rows s0, t0, s1, t1, s2, t2; scales: the MDCLs' scale
-    list, e.g. (0, 2, 3), not tensor data. Returns (N, C, H, W). The gradient
-    is the plain version's, and only the inputs that need one get one: the
-    edit step asks for x's alone, so no tap gradient is built."""
+    """Fused inference MDBLOCK. x: (N, C, H, W), C a multiple of 16 and
+    H*W a multiple of 64; taps1, taps2: (T, C, C) from `stack_mdcl_taps`, in
+    x's dtype, float32 (the float32 form) or bfloat16 (the bf16 form:
+    `mdblock_taps_reference` says where it rounds); affines: (6, C) float32,
+    rows s0, t0, s1, t1, s2, t2; scales: the MDCLs' scale list, e.g. (0, 2,
+    3), not tensor data. Returns (N, C, H, W) in x's dtype. The gradient is
+    the plain version's, and only the inputs that need one get one: the edit
+    step asks for x's alone, so no tap gradient is built."""
     scales = tuple(int(s) for s in scales)
     branches = dilations(scales)
     if x.ndim != 4 or x.shape[0] < 1 or x.shape[1] % CHANNEL_STEP or (x.shape[2] * x.shape[3]) % TILE_PIXELS:
@@ -189,6 +205,7 @@ def mdblock_fused(x, taps1, taps2, affines, scales):
         {"x": x, "taps1": taps1, "taps2": taps2, "affines": affines},
         {"x": x.shape, "taps1": (9 * len(branches), c, c), "taps2": (9 * len(branches), c, c),
          "affines": (6, c)},
+        float32=("affines",),
     )
     if x.device.type == "cpu":
         return mdblock_taps_reference(x, taps1, taps2, affines, scales)
@@ -196,3 +213,4 @@ def mdblock_fused(x, taps1, taps2, affines, scales):
 
 
 mdblock_fused.launches = 0
+mdblock_fused.launches_bf16 = 0

@@ -21,8 +21,10 @@ bands of four rows and slices of the input channels (`head_slices`) so that
 a single image still spreads over the card, into the tail's space-to-depth
 trunk; with more than one slice, a pass that adds the slices' partial sums
 in a fixed order (so the result does not change from run to run); then the
-tail kernel of `rgb_beta_tail`, which finishes the head.
-`rgb_beta_head.launches` counts calls.
+tail kernel of `rgb_beta_tail`, which finishes the head. In both forms, float32
+and bfloat16 (picked by the tensors' dtype), the trunk between the launches is
+float32. `rgb_beta_head.launches` counts the float32 form's calls,
+`rgb_beta_head.launches_bf16` the bf16 form's.
 """
 
 import ctypes
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 from npe_tpu_torch.ops.kernels import build
 from npe_tpu_torch.ops.kernels.mdblock import dilations, tap_offsets
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import (
-    RR, check_tensors, rgb_beta_tail_reference, tail_rows, vjp_of_plain,
+    RR, check_tensors, count_launch, rgb_beta_tail_reference, sum_dtype, tail_rows, vjp_of_plain,
 )
 
 SOURCE = "npe_tpu_torch/csrc/rgb_beta_head.cu"
@@ -77,9 +79,13 @@ def rgb_beta_head_reference(x, trunk_taps, tg_taps, tb_taps, scales):
     their offsets (`trunk_kernel`; its backward is a few launches, where one
     product per tap would be dozens), packed by `pixel_unshuffle` into the
     tail's component-major channels (component * 16 + position); the tail;
-    unpacked. x: (N, C, H, W); returns (N, 3, H, W)."""
-    k = trunk_kernel(trunk_taps, scales)
-    trunk = F.conv2d(x, k, padding=k.shape[-1] // 2)
+    unpacked. x: (N, C, H, W); returns (N, 3, H, W). In bfloat16 (x and the
+    taps) the trunk takes the bf16 operands and stays float32, never rounded,
+    as in npe_tpu's kernel; the tail rounds as `rgb_beta_tail_reference`
+    says; the image is bf16. In float32 every cast is the identity."""
+    acc = sum_dtype(x.dtype)
+    k = trunk_kernel(trunk_taps.to(acc), scales)
+    trunk = F.conv2d(x.to(acc), k, padding=k.shape[-1] // 2)
     return F.pixel_shuffle(rgb_beta_tail_reference(F.pixel_unshuffle(trunk, R), tg_taps, tb_taps), R)
 
 
@@ -92,8 +98,9 @@ def head_slices(batch, bands, channels, sm_count):
 
 
 @functools.cache
-def _entry():
-    fn = build.load("rgb_beta_head").npe_rgb_beta_head
+def _entry(bf16):
+    lib = build.load("rgb_beta_head")
+    fn = lib.npe_rgb_beta_head_bf16 if bf16 else lib.npe_rgb_beta_head
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] + \
         [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -101,8 +108,9 @@ def _entry():
 
 
 @functools.cache
-def _trunk_entry():
-    fn = build.load("rgb_beta_head").npe_rgb_beta_head_trunk
+def _trunk_entry(bf16):
+    lib = build.load("rgb_beta_head")
+    fn = lib.npe_rgb_beta_head_trunk_bf16 if bf16 else lib.npe_rgb_beta_head_trunk
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] + \
         [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -114,14 +122,14 @@ def trunk_only(x, trunk_taps, scales, slices=None):
     the pass that adds them), for checking and timing it on the card; not a
     path of the models, not counted in `launches`. `slices` defaults to
     `head_slices`. Returns the tail's (N, 96, H/4, 16) space-to-depth trunk,
-    `pixel_unshuffle` of the plain version's trunk."""
+    `pixel_unshuffle` of the plain version's trunk, float32 in both forms."""
     n, c, h, w = x.shape
     dil = dilations(scales)
-    trunk = torch.empty((n, CO * RR, h // R, w // R), dtype=x.dtype, device=x.device)
+    trunk = torch.empty((n, CO * RR, h // R, w // R), dtype=torch.float32, device=x.device)
     slices = slices or head_slices(n, h // BAND_ROWS, c, torch.cuda.get_device_properties(x.device).multi_processor_count)
     partial = trunk.new_empty((n, slices) + trunk.shape[1:]) if slices > 1 else None
     with torch.cuda.device(x.device):
-        rc = _trunk_entry()(
+        rc = _trunk_entry(x.dtype == torch.bfloat16)(
             x.data_ptr(), trunk_taps.data_ptr(), trunk.data_ptr(), None if partial is None else partial.data_ptr(),
             n, c, h // R, len(dil), (ctypes.c_int * len(dil))(*dil), slices,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -141,11 +149,12 @@ class _Head(torch.autograd.Function):
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         dil = dilations(scales)
         slices = head_slices(n, h // BAND_ROWS, c, sms)
-        trunk = torch.empty((n, CO * RR, cells_h, w // R), dtype=x.dtype, device=x.device)
+        # float32 in both forms: npe_tpu's kernel never rounds the trunk
+        trunk = torch.empty((n, CO * RR, cells_h, w // R), dtype=torch.float32, device=x.device)
         partial = trunk.new_empty((n, slices) + trunk.shape[1:]) if slices > 1 else None
         out = torch.empty((n, 3, h, w), dtype=x.dtype, device=x.device)
         with torch.cuda.device(x.device):
-            rc = _entry()(
+            rc = _entry(x.dtype == torch.bfloat16)(
                 x.data_ptr(), trunk_taps.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), trunk.data_ptr(),
                 None if partial is None else partial.data_ptr(), out.data_ptr(), n, c, cells_h, len(dil),
                 (ctypes.c_int * len(dil))(*dil), slices, tail_rows(n, cells_h, w // R, sms),
@@ -153,7 +162,7 @@ class _Head(torch.autograd.Function):
             )
         if rc != 0:
             raise RuntimeError(f"rgb_beta_head kernel launch failed with CUDA error {rc}")
-        rgb_beta_head.launches += 1
+        count_launch(rgb_beta_head, x.dtype)
         return out
 
     @staticmethod
@@ -165,10 +174,12 @@ class _Head(torch.autograd.Function):
 
 
 def rgb_beta_head(x, trunk_taps, tg_taps, tb_taps, scales):
-    """Fused RGB-Beta head. x: (N, C, H, 64) float32 with H a multiple of 8;
+    """Fused RGB-Beta head. x: (N, C, H, 64) with H a multiple of 8;
     trunk_taps (T, C, 6) for `tap_offsets(scales)` (every dilation at most
     4, at most 4 branches), tg_taps (9, 32, 32), tb_taps (9, 64, 32) from
-    `pack_head_taps`. Returns the image (N, 3, H, 64)."""
+    `pack_head_taps`; all float32 (the float32 form) or all bfloat16 (the
+    bf16 form: `rgb_beta_head_reference` says where it rounds). Returns the
+    image (N, 3, H, 64) in that dtype."""
     if x.ndim != 4 or x.shape[0] < 1 or x.shape[1] < 1 or x.shape[2] % (2 * R) or x.shape[3] != WIDTH:
         raise ValueError(f"rgb_beta_head wants (N, C, H, {WIDTH}) with H a multiple of {2 * R}, got {tuple(x.shape)}")
     scales = tuple(scales)
@@ -188,3 +199,4 @@ def rgb_beta_head(x, trunk_taps, tg_taps, tb_taps, scales):
 
 
 rgb_beta_head.launches = 0
+rgb_beta_head.launches_bf16 = 0

@@ -24,7 +24,10 @@ row-major, tap t = 3*(dy + 1) + (dx + 1), from `pack_head_taps`.
 launches the kernel, or raises. The kernel gives each block a group of cell
 rows of an image (`tail_rows`) and recomputes R and G on the two rows around
 them. Its backward is the plain version's, as
-npe_tpu's custom VJP is. `rgb_beta_tail.launches` counts kernel launches.
+npe_tpu's custom VJP is. It has a float32 and a bfloat16 form, picked by the
+dtype of the tensors it is given (`check_tensors`; the bf16 form rounds where
+npe_tpu's kernel rounds under bf16); `rgb_beta_tail.launches` counts the
+float32 form's launches, `rgb_beta_tail.launches_bf16` the bf16 form's.
 """
 
 import ctypes
@@ -63,24 +66,50 @@ def tap_conv(h, taps):
     return F.conv2d(h, taps.reshape(3, 3, n_in, n_out).permute(3, 2, 0, 1), padding=1)
 
 
+def sum_dtype(dtype):
+    """The dtype in which the plain versions add, for a working dtype: float32
+    for bfloat16 (npe_tpu's kernels multiply bf16 operands and add in float32),
+    else the dtype itself, so float32 and float64 run as they are."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def rgb_beta_tail_reference(trunk, tg_taps, tb_taps):
     """Plain version. trunk: (N, 6*rr, H, W) component-major pre-activations;
-    tg_taps (9, 2rr, 2rr), tb_taps (9, 4rr, 2rr). Returns (N, 3*rr, H, W)."""
-    pair = trunk.shape[1] // 3  # the (alpha, beta) planes of one colour
-    red = torch.sigmoid(trunk[:, :pair])
-    grn = torch.sigmoid(trunk[:, pair : 2 * pair] + tap_conv(red, tg_taps))
-    blu = torch.sigmoid(trunk[:, 2 * pair :] + tap_conv(torch.cat([red, grn], 1), tb_taps))
+    tg_taps (9, 2rr, 2rr), tb_taps (9, 4rr, 2rr). Returns (N, 3*rr, H, W).
+
+    The working dtype is the taps'. In bfloat16 it rounds where npe_tpu's
+    kernel rounds (`_beta_tail_kernel`): the sigmoids of R and G go to bf16
+    just before the tap products and stay float32 everywhere else, the sums
+    are float32, and the Beta means are rounded to bf16 at the end. The trunk
+    is bf16 (the hybrid head's library conv wrote it) or float32 (the fused
+    head's, which npe_tpu never rounds). In float32 every cast is the
+    identity."""
+    mx, acc = tg_taps.dtype, sum_dtype(tg_taps.dtype)
+    pre = trunk.to(acc)
+    pair = pre.shape[1] // 3  # the (alpha, beta) planes of one colour
+    red = torch.sigmoid(pre[:, :pair])
+    grn = torch.sigmoid(pre[:, pair : 2 * pair] + tap_conv(red.to(mx).to(acc), tg_taps.to(acc)))
+    rg = torch.cat([red, grn], 1).to(mx).to(acc)
+    blu = torch.sigmoid(pre[:, 2 * pair :] + tap_conv(rg, tb_taps.to(acc)))
     rr = pair // 2
-    return torch.cat([beta_mean(c[:, :rr], c[:, rr:]) for c in (red, grn, blu)], 1)
+    return torch.cat([beta_mean(c[:, :rr], c[:, rr:]) for c in (red, grn, blu)], 1).to(mx)
 
 
-def check_tensors(fn, tensors, shapes):
-    """The checks every kernel wrapper here makes: float32, one device,
-    contiguous, 16-byte aligned, and the expected shape. Raises; never copies."""
+def check_tensors(fn, tensors, shapes, float32=()):
+    """The checks every kernel wrapper here makes, and its working dtype:
+    the tensors named in `float32` (the affines) are float32, all the others
+    share one dtype, float32 or bfloat16, which picks the kernel's form; one
+    device, contiguous, 16-byte aligned, and the expected shape. Raises;
+    never copies or casts."""
     first = next(iter(tensors.values()))
+    working = next(t.dtype for name, t in tensors.items() if name not in float32)
+    if working not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{fn} wants float32 or bfloat16 tensors, got {working}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn} wants float32, got {name} {t.dtype}")
+        want = torch.float32 if name in float32 else working
+        if t.dtype != want:
+            rule = "one dtype for all, float32 or bfloat16" + "".join(f"; {n} float32" for n in float32)
+            raise TypeError(f"{fn}: {name} is {t.dtype}, wants {want} ({rule})")
         if t.device != first.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, not on {first.device}")
         if tuple(t.shape) != tuple(shapes[name]):
@@ -91,6 +120,16 @@ def check_tensors(fn, tensors, shapes):
             raise ValueError(f"{fn} wants 16-byte aligned tensors; {name} is not")
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{fn} runs on cpu or cuda tensors, got {first.device}")
+    return working
+
+
+def count_launch(fn, dtype):
+    """One more launch of `fn`'s kernel in the form for `dtype`: float32
+    launches count in `fn.launches`, bfloat16 ones in `fn.launches_bf16`."""
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def tail_smem_bytes(w, rows=1):
@@ -124,28 +163,38 @@ def vjp_of_plain(plain, needs_grad, inputs, g):
 
 
 @functools.cache
-def _entry():
-    fn = build.load("rgb_beta_tail").npe_rgb_beta_tail
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _entry(bf16):
+    lib = build.load("rgb_beta_tail")
+    fn = lib.npe_rgb_beta_tail_bf16 if bf16 else lib.npe_rgb_beta_tail
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (5 if bf16 else 4) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(trunk, tg_taps, tb_taps):
+    """One launch of the kernel in the taps' form (float32, or bfloat16 over a
+    bf16 or a float32 trunk); returns the (N, 48, H, W) output in the taps'
+    dtype. Checked by the caller."""
+    n, _, h, w = trunk.shape
+    bf16 = tg_taps.dtype == torch.bfloat16
+    out = torch.empty((n, 3 * RR, h, w), dtype=tg_taps.dtype, device=trunk.device)
+    rows = tail_rows(n, h, w, torch.cuda.get_device_properties(trunk.device).multi_processor_count)
+    args = [trunk.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), out.data_ptr(), n, h, w, rows]
+    if bf16:
+        args.append(int(trunk.dtype == torch.float32))
+    with torch.cuda.device(trunk.device):
+        rc = _entry(bf16)(*args, torch.cuda.current_stream(trunk.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rgb_beta_tail kernel launch failed with CUDA error {rc}")
+    return out
 
 
 class _Tail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, trunk, tg_taps, tb_taps):
         ctx.save_for_backward(trunk, tg_taps, tb_taps)
-        n, _, h, w = trunk.shape
-        out = torch.empty((n, 3 * RR, h, w), dtype=trunk.dtype, device=trunk.device)
-        rows = tail_rows(n, h, w, torch.cuda.get_device_properties(trunk.device).multi_processor_count)
-        with torch.cuda.device(trunk.device):
-            rc = _entry()(
-                trunk.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), out.data_ptr(),
-                n, h, w, rows, torch.cuda.current_stream(trunk.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"rgb_beta_tail kernel launch failed with CUDA error {rc}")
-        rgb_beta_tail.launches += 1
+        out = _launch(trunk, tg_taps, tb_taps)
+        count_launch(rgb_beta_tail, tg_taps.dtype)
         return out
 
     @staticmethod
@@ -153,26 +202,47 @@ class _Tail(torch.autograd.Function):
         return vjp_of_plain(rgb_beta_tail_reference, ctx.needs_input_grad, ctx.saved_tensors, g)
 
 
-def rgb_beta_tail(trunk, tg_taps, tb_taps):
-    """Fused autoregressive RGB-Beta tail. trunk: (N, 96, H, W) float32
-    component-major trunk pre-activations (see the module docstring), H even;
-    tg_taps (9, 32, 32), tb_taps (9, 64, 32) from `pack_head_taps`. Returns
-    the (N, 48, H, W) component-major Beta means."""
+def _check(fn, trunk, tg_taps, tb_taps, float32=()):
     if trunk.ndim != 4 or trunk.shape[0] < 1 or trunk.shape[2] % 2:
-        raise ValueError(
-            f"rgb_beta_tail wants a (N, {6 * RR}, H, W) trunk with H even, got {tuple(trunk.shape)}"
-        )
+        raise ValueError(f"{fn} wants a (N, {6 * RR}, H, W) trunk with H even, got {tuple(trunk.shape)}")
     n, _, h, w = trunk.shape
-    check_tensors(
-        "rgb_beta_tail",
-        {"trunk": trunk, "tg_taps": tg_taps, "tb_taps": tb_taps},
+    dtype = check_tensors(
+        fn,
+        {"tg_taps": tg_taps, "tb_taps": tb_taps, "trunk": trunk},
         {"trunk": (n, 6 * RR, h, w), "tg_taps": (9, 2 * RR, 2 * RR), "tb_taps": (9, 4 * RR, 2 * RR)},
+        float32,
     )
     if tail_smem_bytes(w) > SMEM_LIMIT:
-        raise ValueError(f"rgb_beta_tail: a map {w} cells wide needs {tail_smem_bytes(w)} B of shared memory a block")
+        raise ValueError(f"{fn}: a map {w} cells wide needs {tail_smem_bytes(w)} B of shared memory a block")
+    return dtype
+
+
+def rgb_beta_tail(trunk, tg_taps, tb_taps):
+    """Fused autoregressive RGB-Beta tail. trunk: (N, 96, H, W) component-major
+    trunk pre-activations (see the module docstring), H even; tg_taps (9, 32,
+    32), tb_taps (9, 64, 32) from `pack_head_taps`; all float32 (the float32
+    form) or all bfloat16 (the bf16 form, which rounds where npe_tpu's kernel
+    does: `rgb_beta_tail_reference`). Returns the (N, 48, H, W)
+    component-major Beta means in that dtype."""
+    _check("rgb_beta_tail", trunk, tg_taps, tb_taps)
     if trunk.device.type == "cpu":
         return rgb_beta_tail_reference(trunk, tg_taps, tb_taps)
     return _Tail.apply(trunk, tg_taps, tb_taps)
 
 
+def tail_only(trunk, tg_taps, tb_taps):
+    """The kernel's bf16 form over a float32 trunk, as the fused head's last
+    launch runs it under bfloat16 (npe_tpu never rounds that trunk): bf16
+    taps, bf16 output. For checking and timing it on the card; not a path of
+    the models, not counted in the launches. Its plain version is
+    `rgb_beta_tail_reference` on the same tensors."""
+    if tg_taps.dtype != torch.bfloat16:
+        raise TypeError(f"tail_only runs the bf16 form over a float32 trunk; the taps are {tg_taps.dtype}")
+    _check("tail_only", trunk, tg_taps, tb_taps, float32=("trunk",))
+    if trunk.device.type != "cuda":
+        raise ValueError("tail_only launches the kernel: it wants CUDA tensors")
+    return _launch(trunk, tg_taps, tb_taps)
+
+
 rgb_beta_tail.launches = 0
+rgb_beta_tail.launches_bf16 = 0

@@ -45,6 +45,12 @@ at most one 1/255-of-range step per direction. The default is "float32".
 
 Every model call of the dispatcher runs under `torch.inference_mode()`: grad
 mode is thread-local, so a caller's `no_grad` never reaches that thread.
+
+bfloat16 (`dtype=torch.bfloat16`, `--bf16`): the model runs in bf16, as
+npe_tpu serves it: the weights are cast once, inputs are cast on the device at
+the model's boundary (under wire="uint8" after the `staging` kernel, whose
+output is float32), and outputs are widened to float32 there, so both wires
+carry what they carry in float32.
 """
 
 import queue
@@ -60,25 +66,11 @@ from npe_tpu_torch.api import decode_options
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.ops.kernels.staging import stage_uint8_to_tanh
 from npe_tpu_torch.utils import checkpoints
+from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
 from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
 
 WIRES = ("float32", "uint8")
-
-
-def check_dtype(dtype):
-    """The port serves in float32 only: any other dtype raises."""
-    if dtype is None or dtype is torch.float32:
-        return
-    try:
-        if np.dtype(dtype) == np.float32:
-            return
-    except TypeError:
-        pass
-    raise NotImplementedError(
-        f"dtype={dtype!r}: bfloat16 serving is not ported yet (ROADMAP.md, queue 1 item 5); "
-        "the port serves in float32"
-    )
 
 
 class InferenceServer:
@@ -99,8 +91,10 @@ class InferenceServer:
         """variables: port variables on `device`; drawn from
         torch.Generator(seed) when None. head_mode / mdblock_mode: the forms
         every decode takes, as `api.IAN` passes them (None leaves the
-        model's default)."""
-        check_dtype(dtype)
+        model's default). dtype: torch.bfloat16 (or "bfloat16") serves in
+        bf16, the weights drawn or loaded in float32 and cast once; None or
+        float32 serves in float32; any other dtype raises ValueError."""
+        self.dtype = resolve_dtype(dtype)
         if wire not in WIRES:
             raise ValueError(f"wire must be 'float32' or 'uint8', got {wire!r}")
         self.device = resolve_device(device)
@@ -110,6 +104,8 @@ class InferenceServer:
             variables = self.module.init(torch.Generator().manual_seed(seed), self.device)
         if weights_path is not None:
             checkpoints.load_weights(weights_path, variables)
+        if dtype is not None:
+            variables = cast_floating(variables, self.dtype)
         self.variables = variables
         self.max_batch = max_batch
         self.linger = linger_ms / 1000.0
@@ -166,11 +162,11 @@ class InferenceServer:
         x = torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2))).to(self.device)
         if self.wire == "uint8":
             x = stage_uint8_to_tanh(x)  # uint8 bytes uploaded; the range changes on the device
-        return self.module.encode(self.variables, x).cpu().numpy()
+        return self.module.encode(self.variables, x.to(self.dtype)).float().cpu().numpy()
 
     def _decode(self, z):
-        y = self.module.decode(self.variables, torch.from_numpy(z).to(self.device), **self.decode_options)
-        y = y.permute(0, 2, 3, 1)
+        z = torch.from_numpy(z).to(self.device).to(self.dtype)
+        y = self.module.decode(self.variables, z, **self.decode_options).float().permute(0, 2, 3, 1)
         if self.wire == "uint8":
             y = torch.clamp(torch.round(from_tanh(y)), 0.0, 255.0).to(torch.uint8)
             return to_tanh(np.float32(y.contiguous().cpu().numpy()))
@@ -455,7 +451,8 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8900)
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--linger-ms", type=float, default=2.0)
-    p.add_argument("--bf16", action="store_true", help="not ported yet: raises")
+    p.add_argument("--bf16", action="store_true",
+                   help="serve in bfloat16 (weights cast once; float32 on both wires)")
     p.add_argument(
         "--wire",
         default="float32",

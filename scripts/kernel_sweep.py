@@ -69,10 +69,10 @@ def mdblock_cases(dev, sms):
                           and (100 <= d * tiles * batch <= 12 * sms or d == pick)]
 
             def run(splits, x=x, t1=t1, t2=t2, aff=aff, br=br):
-                """The kernel's C entry point with a slice count of the caller's choice."""
+                """The kernel's float32 C entry point with a slice count of the caller's choice."""
                 h1, out = torch.empty_like(x), torch.empty_like(x)
                 partial = x.new_empty((x.shape[0], splits) + x.shape[1:]) if splits > 1 else None
-                rc = mk._entry()(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),
+                rc = mk._entry(False)(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),
                                  None if partial is None else partial.data_ptr(), out.data_ptr(), *x.shape,
                                  len(br), (ctypes.c_int * len(br))(*br), splits,
                                  torch.cuda.current_stream().cuda_stream)
@@ -96,7 +96,7 @@ def rgb_beta_tail_cases(dev, sms, h=16, w=16):
         def run(rows, trunk=trunk, tg=tg, tb=tb):
             """The kernel's C entry point with a row count of the caller's choice."""
             out = torch.empty((trunk.shape[0], 3 * rt.RR, h, w), device=trunk.device)
-            rc = rt._entry()(trunk.data_ptr(), tg.data_ptr(), tb.data_ptr(), out.data_ptr(), trunk.shape[0], h, w,
+            rc = rt._entry(False)(trunk.data_ptr(), tg.data_ptr(), tb.data_ptr(), out.data_ptr(), trunk.shape[0], h, w,
                              rows, torch.cuda.current_stream().cuda_stream)
             assert rc == 0, rc
             return out

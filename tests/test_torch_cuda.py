@@ -484,3 +484,117 @@ def test_uint8_wire_encode_on_the_card_launches_the_staging_kernel(cuda):
         finally:
             server.close()
     np.testing.assert_allclose(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+# --- bfloat16 -----------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _within_bf16_steps(got, want, points=3):
+    """bf16 `got` within `points` of bf16's 2^-8 relative steps of |want| +
+    std(want): a kernel and its plain version round at the same three points
+    and add in other orders (chip_smoke.py's BF16_POINTS)."""
+    assert got.dtype == want.dtype == BF16 and got.shape == want.shape
+    g, w = got.double(), want.double()
+    assert float(w.std()) > 0.05
+    assert bool(((g - w).abs() <= points * 2.0 ** -8 * (w.abs() + w.std())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,batch", [
+    ("tail", 1), ("tail", 16), ("tail", 128), ("tail over a float32 trunk", 1), ("head", 1), ("head", 3),
+    ("mdblock 8x8x512", 1), ("mdblock 16x16x256", 8), ("mdblock 32x32x128", 2), ("mdblock 16x16x32", 3),
+])
+def test_bf16_kernel_forms_match_their_bf16_plain_versions(cuda, kernel, batch):
+    """Each bf16 form against its plain version on the same bf16 inputs,
+    counted in `launches_bf16` (the float32 count untouched); tail_only is
+    the fused head's second launch and counts nothing."""
+    if kernel.startswith("mdblock"):
+        size, channels = {"8x8x512": (8, 512), "16x16x256": (16, 256), "32x32x128": (32, 128),
+                          "16x16x32": (16, 32)}[kernel.split()[1]]
+        scales = (0, 2) if size == 8 else (0, 2, 3)
+        x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda)
+        args, fn, plain = (x.to(BF16), t1.to(BF16), t2.to(BF16), aff), mk.mdblock_fused, mk.mdblock_taps_reference
+        call, ref = (lambda *a: fn(*a, scales)), (lambda *a: plain(*a, scales))
+    else:
+        x, tr, trunk, tg, tb = _head_inputs(batch, 64, cuda)
+        if kernel == "head":
+            fn, args = rh.rgb_beta_head, [t.to(BF16) for t in (x, tr, tg, tb)]
+            call, ref = (lambda *a: fn(*a, HEAD_SCALES)), (lambda *a: rh.rgb_beta_head_reference(*a, HEAD_SCALES))
+        else:
+            fn, ref = rt.rgb_beta_tail, rt.rgb_beta_tail_reference
+            args = [trunk if "float32" in kernel else trunk.to(BF16), tg.to(BF16), tb.to(BF16)]
+            call = rt.tail_only if "float32" in kernel else fn
+    before = (fn.launches, fn.launches_bf16)
+    got = call(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (before[0], before[1] + (call is not rt.tail_only))
+    _within_bf16_steps(got, ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,form", [(TINY, {}), (TINY_V1, {"head_mode": "hybrid"}),
+                                         (TINY_V1, {"head_mode": "fused"}), (TINY_FULL, {"mdblock_mode": "fused"})])
+def test_bf16_session_on_the_card_runs_the_bf16_forms(cuda, config, form):
+    """A bf16 session against a float32 one on the card from the same
+    unit-gain weights (npe_tpu's bf16 bounds, mean abs: 0.2 on Z, 0.05 on
+    the image): every decode launches its head's and MDBLOCKs' bf16 forms,
+    none of their float32 forms, and edit_tail stays float32."""
+    seeded = get_config(config).init(torch.Generator().manual_seed(0), "cpu")
+    variables = from_reference(unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1), cuda)
+    image = np.random.RandomState(3).uniform(-0.5, 0.5, (3, 64, 64)).astype(np.float32)
+    counters = [(k, attr) for k in (rt.rgb_beta_tail, rh.rgb_beta_head, mk.mdblock_fused, et.edit_tail)
+                for attr in ("launches", "launches_bf16") if hasattr(k, attr)]
+    states = []
+    for dtype in (None, BF16):
+        session = EditSession(config, variables=variables, dim=(4, 4), device=cuda, dtype=dtype, **form)
+        before = [getattr(k, attr) for k, attr in counters]
+        session.infer(image)
+        session.paint_stroke(10, 10, 20, 20, (255, 0, 0))
+        session.paint_stroke(30, 5, 50, 25, (0, 255, 0), 0.5)
+        torch.cuda.synchronize()
+        launched = {(k.__name__, attr): getattr(k, attr) - b for (k, attr), b in zip(counters, before)}
+        states.append((session.Z.cpu().numpy(), session.IM))
+    decodes = 5  # infer once, each stroke twice
+    want = {("edit_tail", "launches"): 2}
+    if form.get("head_mode") == "fused":
+        want[("rgb_beta_head", "launches_bf16")] = decodes
+    elif config != TINY:
+        want[("rgb_beta_tail", "launches_bf16")] = decodes
+    if form.get("mdblock_mode") == "fused":
+        want[("mdblock_fused", "launches_bf16")] = 3 * decodes
+    assert {k: n for k, n in launched.items() if n} == want
+    assert states[1][0].dtype == states[1][1].dtype == np.float32 and np.isfinite(states[1][1]).all()
+    assert np.abs(states[1][0] - states[0][0]).mean() < 0.2
+    assert np.abs(states[1][1] - states[0][1]).mean() < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "uint8"])
+def test_bf16_served_decodes_on_the_card(cuda, wire):
+    """A bf16 server on either wire answers in float32, near the float32
+    server; under the uint8 wire the staging kernel (float32) stages the
+    encodes before the cast."""
+    from npe_tpu_torch.ops.kernels import staging
+    from npe_tpu_torch.serving import InferenceServer
+
+    variables = {k: v.to(cuda) for k, v in _unit_gain_variables(TINY_V1).items()}
+    z = np.random.RandomState(4).randn(3, 16).astype(np.float32)
+    x = np.random.RandomState(5).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    outs = []
+    for dtype in (None, BF16):
+        server = InferenceServer(TINY_V1, variables=variables, device=cuda, dtype=dtype, wire=wire,
+                                 head_mode="fused")
+        try:
+            before = (staging.stage_chunk.launches, rh.rgb_beta_head.launches, rh.rgb_beta_head.launches_bf16)
+            y, zz = server.decode(z).result(timeout=60), server.encode(x).result(timeout=60)
+            assert staging.stage_chunk.launches - before[0] == (wire == "uint8")
+            head = (rh.rgb_beta_head.launches - before[1], rh.rgb_beta_head.launches_bf16 - before[2])
+            assert head[dtype is not None] >= 1 and head[dtype is None] == 0  # the form of the server's dtype
+            outs.append((y, zz))
+        finally:
+            server.close()
+    (y32, z32), (y16, z16) = outs
+    assert y16.dtype == z16.dtype == np.float32
+    assert np.abs(y16 - y32).mean() < 0.05 and np.abs(z16 - z32).mean() < 0.2

@@ -341,10 +341,37 @@ def test_decode_forms_reach_every_served_decode(make_server, unit_gain_vars, con
             f.result(timeout=WAIT)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, "bfloat16", np.float64])
+@pytest.mark.parametrize("dtype", [torch.float16, np.float64])
 def test_other_dtypes_are_refused(dtype):
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
         InferenceServer(config=tp.TINY_TORCH, device="cpu", dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, "bfloat16"])
+def test_bf16_server_decodes_close_to_npe_tpus_bf16_server(make_server, jax_vars, port_vars, dtype):
+    """A bf16 server (weights cast once, float32 out) against npe_tpu's
+    `InferenceServer(dtype=jnp.bfloat16)` on the same weights: within twice
+    the gap bf16 opens against the port's float32 server, and that gap within
+    npe_tpu's own bound of 0.05 mean abs (tests/test_api_bf16.py)."""
+    import jax.numpy as jnp
+
+    from npe_tpu.serving import InferenceServer as JaxServer
+
+    z = np.random.RandomState(9).randn(3, ZDIM).astype(np.float32)
+    s16 = make_server(dtype=dtype)
+    assert s16.dtype is torch.bfloat16 and all(t.dtype == torch.bfloat16 for t in s16.variables.values())
+    assert port_vars["dec_out.W"].dtype == torch.float32  # the caller's variables are not cast in place
+    got = s16.decode(z).result(timeout=WAIT)
+    ref32 = make_server().decode(z).result(timeout=WAIT)
+    js = JaxServer(config=tp.TINY_JAX, variables=jax_vars, max_batch=8, dtype=jnp.bfloat16)
+    try:
+        want = js.decode(z).result(timeout=WAIT)
+    finally:
+        js.close()
+    assert got.dtype == np.float32 and got.shape == want.shape == (3, 64, 64, 3)
+    own = np.abs(got - ref32).mean()
+    assert 0 < own < 0.05
+    assert np.abs(got - want).mean() <= 2 * own
 
 
 @pytest.mark.parametrize("dtype", [None, torch.float32, np.float32, "float32"])
@@ -353,9 +380,37 @@ def test_float32_is_served(make_server, dtype):
     assert s.decode(np.zeros((1, ZDIM), np.float32)).result(timeout=WAIT).dtype == np.float32
 
 
-def test_bf16_flag_and_unknown_wire_are_refused():
-    with pytest.raises(NotImplementedError):
-        main(["--bf16", "--device", "cpu", "--config", tp.TINY_TORCH, "--port", "0"])
+def test_bf16_flag_builds_a_bf16_server(monkeypatch):
+    """`--bf16` serves in bf16, as npe_tpu's `--bf16` does: main's server
+    holds bf16 weights and answers in float32 (its HTTP loop replaced by one
+    decode)."""
+    import npe_tpu_torch.serving as serving
+
+    seen = {}
+
+    class OneDecode:
+        server_address = ("127.0.0.1", 0)
+
+        def __init__(self, target):
+            self.target = target
+
+        def serve_forever(self):
+            seen["server"] = self.target
+            seen["y"] = self.target.decode(np.zeros((1, ZDIM), np.float32)).result(timeout=WAIT)
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serving, "serve_http", lambda target, port: OneDecode(target))
+    main(["--bf16", "--device", "cpu", "--config", tp.TINY_TORCH, "--port", "0"])
+    assert seen["server"].dtype is torch.bfloat16
+    assert all(t.dtype == torch.bfloat16 for t in seen["server"].variables.values())
+    assert seen["y"].dtype == np.float32 and seen["y"].shape == (1, 64, 64, 3) and np.isfinite(seen["y"]).all()
+    main(["--device", "cpu", "--config", tp.TINY_TORCH, "--port", "0"])
+    assert seen["server"].dtype is torch.float32
+
+
+def test_unknown_wire_is_refused():
     with pytest.raises(ValueError, match="wire"):
         InferenceServer(config=tp.TINY_TORCH, device="cpu", wire="float16")
 
