@@ -20,8 +20,14 @@ serving times (bench_torch_serving.py's functions). Then the trainer:
 `training.train.train` on IAN_simple at full width (batch 128, the procedural
 dataset, two epochs and a resumed third, with the dataset resident on the card
 and with per-chunk uploads, each chunk staged by the `staging` kernel), one G
-and one D step held against the CPU, the same steps on IANv1 and full IAN,
-and the training times. Then bfloat16: the bf16 forms of `rgb_beta_tail`,
+and one D step held against the CPU, the same steps on IANv1 and full IAN;
+then (phase 6b) bf16 training: one bf16 G and D step of each model beside
+float32 on the same weights and batch (IAN_simple at batch 128 within
+npe_tpu's bf16 trajectory bounds; IANv1 and full IAN through the tail's bf16
+form alone), `train()` on IAN_simple from a `native:` raw file in bf16 with
+encoder-FID validation, a profiler trace and a resumed epoch that reads the
+FID basis back, and the sample CLI; and the training times, float32 and bf16
+in turns, with the trainer's three data paths. Then bfloat16: the bf16 forms of `rgb_beta_tail`,
 `rgb_beta_head` and `mdblock_fused` held against their bf16 plain versions,
 `api.IAN`, `EditSession` and `InferenceServer` (both wires) with
 `dtype=torch.bfloat16` on the same weights for every model and form, held
@@ -95,8 +101,16 @@ STAGING_TOL = 1e-6
 # term would be tens of percent); the float64 step to GRAD64_TOL.
 GRAD32_TOL = 1e-1
 GRAD64_TOL = 1e-6
+# words in the names of cuDNN's convolution kernels (fprop, dgrad, wgrad)
+CONV_KERNEL_WORDS = ("conv", "dgrad", "wgrad", "fprop", "implicit_gemm", "xmma", "cudnn")
+# a bf16 G + D step against float32 on the same weights and batch: npe_tpu's
+# bf16 trajectory bounds (tests/test_training.py:99-140) on (G pixel loss,
+# G kl, D discrim loss)
+BF16_TRAIN_RTOL, BF16_TRAIN_ATOL = 0.12, 0.02
 TRAIN_BATCH, TRAIN_BATCHES_PER_CHUNK = 128, 8
 TRAIN_EXAMPLES = 2 * TRAIN_BATCHES_PER_CHUNK * TRAIN_BATCH + TRAIN_BATCH // 2  # two chunks at either offset
+# validation images of phase 6b's train(): npe_tpu's FID batch of 256, two batches of 128
+FID_EXAMPLES = 256
 HEAD_SCALES = [2, 3, 4]
 # serving: requests a phase case sends per op, the max_batch that a 20-image
 # request overflows, sequential requests a timed op, concurrent encodes of the
@@ -606,13 +620,197 @@ def kernel_steps(label, module, variables, counters, batch_size=16):
     return launches["rgb_beta_tail"]
 
 
-def time_training(label, module, variables, batch_size, batches_per_chunk, smi):
-    """ms per G step, per D step and imgs/s over one chunk of alternating
-    steps (CUDA events, steady state after one warm chunk), with peak
-    device memory."""
+def bf16_steps(label, module, variables, counters, batch_size, expect_tail):
+    """One G and one D step from `variables` in float32 and in bf16
+    (cfg['compute_dtype']), on the same batch and noise: each run with the
+    counts set to 0 just before it. Under bf16 each decode (two a step)
+    launches the tail's bf16 form when the model has the RGB-Beta head
+    (`expect_tail`), and nothing else launches. Masters, moments and BN
+    statistics stay float32; frozen weights and masks bit-equal. Returns
+    ({dtype: (G pixel_loss, G kl, D discrim_d_loss)}, the bf16 launches)."""
     from npe_tpu_torch.training import train_step as ts
 
-    cfg = dict(module.cfg, batch_size=batch_size, batches_per_chunk=batches_per_chunk)
+    cfg32 = dict(module.cfg, batch_size=batch_size)
+    batch = step_batch(cfg32, batch_size, 36, "cuda")
+    rows, launches = {}, {}
+    for name, cfg in (("float32", cfg32), ("bfloat16", dict(cfg32, compute_dtype="bfloat16"))):
+        state0 = ts.init_train_state(module, variables, cfg)
+        gen_step, discrim_step = ts.make_train_steps(module, cfg)
+        counters.zero()
+        state, m_g = gen_step(state0, *batch, 2e-4)
+        state, m_d = discrim_step(state, *batch, 2e-4)
+        torch.cuda.synchronize()
+        launches[name] = counters.read()
+        rows[name] = (float(m_g["pixel_loss"]), float(m_g["kl"]), float(m_d["discrim_d_loss"]))
+        assert all(np.isfinite(float(v)) for m in (m_g, m_d) for v in m.values()), (label, name)
+        for part in ("gen", "latent", "discrim", "frozen"):
+            assert all(t.dtype == torch.float32 for t in state["parts"][part].values()), (label, name, part)
+        for part in ("gen", "latent", "discrim"):
+            opt = state["opt"][part]
+            assert all(t.dtype == torch.float32 for m in ("mu", "nu") for t in opt[m].values()), (label, part)
+            assert any(not torch.equal(state["parts"][part][k], v) for k, v in state0["parts"][part].items()), part
+        for k, t in state["parts"]["state"].items():
+            assert t.dtype == torch.float32, k
+            if k.endswith(".weights_mask"):
+                assert torch.equal(t, state0["parts"]["state"][k]), k
+        for k, t in state["parts"]["frozen"].items():
+            assert torch.equal(t, state0["parts"]["frozen"][k]), k
+    tail = 4 if expect_tail else 0
+    want = {name: 0 for name in counters.forms}
+    assert launches["bfloat16"] == dict(want, rgb_beta_tail_bf16=tail), (label, launches)
+    assert launches["float32"] == dict(want, rgb_beta_tail=tail), (label, launches)
+    log(f"[train] {label} batch {batch_size}, one G and one D step in bf16 and in float32 on the same weights and "
+        f"batch: (G pixel_loss, G kl, D discrim_d_loss) bf16 {np.round(rows['bfloat16'], 5).tolist()}, float32 "
+        f"{np.round(rows['float32'], 5).tolist()}; bf16 launches {launches['bfloat16']}; masters, moments and BN "
+        f"statistics float32, frozen weights and masks unchanged")
+    return rows, launches["bfloat16"]
+
+
+def drive_training_bf16(counters, smi):
+    """`train()` on IAN_simple at batch 128 through every hook at once: a
+    `native:` raw file written by `export_raw`, `compute_dtype` bfloat16, a
+    validation set with encoder-FID, a profiler trace of the first chunk and
+    the checkpoint grid; then a resumed epoch, which reads the FID basis back.
+    Then the sample CLI writes its grid from the weights. Returns the staging
+    kernel's launches in the two runs (counts set to 0 just before each)."""
+    from npe_tpu_torch.data import SyntheticFaces, data_loader
+    from npe_tpu_torch.data.native_loader import export_raw
+    from npe_tpu_torch.models import ian_simple
+    from npe_tpu_torch.training import sample
+    from npe_tpu_torch.training import train as tt
+    from npe_tpu_torch.training.quality import encoder_fid
+    from npe_tpu_torch.utils import checkpoints as ck
+    from npe_tpu_torch.utils.png import decode_rgb
+
+    chunk = TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK
+    staged = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "train.raw")
+        t0 = time.perf_counter()
+        assert export_raw(SyntheticFaces(num_examples=TRAIN_EXAMPLES), raw) == (TRAIN_EXAMPLES, (3, 64, 64))
+        log(f"[train] export_raw of {TRAIN_EXAMPLES} procedural faces: {time.perf_counter() - t0:.2f} s")
+        trace_dir = os.path.join(tmp, "trace")
+        kw = dict(config="IAN_simple", dataset_spec=f"native:{raw}", out_dir=tmp, pics_dir=os.path.join(tmp, "pics"),
+                  valid_dataset_spec="synthetic", num_valid_examples=FID_EXAMPLES,
+                  cfg_overrides={"batches_per_chunk": TRAIN_BATCHES_PER_CHUNK, "compute_dtype": "bfloat16"})
+        files = {n: os.path.join(tmp, "IAN_simple" + n) for n in (".npz", "METRICS.jsonl", "_fid_basis.npz")}
+        for epochs, extra in ((1, {"profile_dir": trace_dir}), (2, {"resume": True})):
+            counters.zero()
+            t0 = time.perf_counter()
+            tt.train(max_epochs=epochs, **extra, **kw)
+            torch.cuda.synchronize()
+            launches = counters.read()
+            chunks = (TRAIN_EXAMPLES - (epochs - 1) * TRAIN_BATCH // 2) // chunk  # the resumed epoch: half-batch offset
+            log(f"[train] IAN_simple train() epoch {epochs - 1}{' (resumed)' if epochs > 1 else ''}, native: file, "
+                f"bf16, validation with encoder-FID{', profiler trace' if epochs == 1 else ''}: "
+                f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+            assert launches == dict({name: 0 for name in counters.forms}, staging=chunks), launches
+            staged += launches["staging"]
+            if epochs == 1:
+                traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+                assert len(traces) == 1, traces
+                with open(os.path.join(trace_dir, traces[0])) as fh:
+                    events = json.load(fh)["traceEvents"]
+                n_kernels = sum(e.get("cat") == "kernel" for e in events)
+                log(f"[train] trace {traces[0]}: {len(events)} events, {n_kernels} of them the card's kernels")
+                assert n_kernels > 0
+                with open(files["_fid_basis.npz"], "rb") as fh:
+                    basis_bytes = fh.read()
+        recs = read_metrics(files["METRICS.jsonl"])
+        steps = [r for r in recs if "metrics" in r]
+        valid = [r for r in recs if "validation" in r]
+        assert len(steps) == 4 and all(np.isfinite(v) for r in steps for v in r["metrics"].values()), steps
+        assert [r["epoch"] for r in valid] == [0, 1], valid
+        fids = [r["validation"]["encoder_fid"] for r in valid]
+        assert all(np.isfinite(f) and f > 0 for f in fids), fids
+        assert os.path.isfile(os.path.join(tmp, "pics", "IAN_simple_1.png"))
+        with open(files["_fid_basis.npz"], "rb") as fh:
+            assert fh.read() == basis_bytes  # read back on resume, not taken anew
+        # epoch 1's FID against epoch 0's basis, recomputed from the two files
+        final, basis = (ian_simple.init(torch.Generator().manual_seed(0), "cuda") for _ in range(2))
+        ck.load_weights(files[".npz"], final)
+        ck.load_weights(files["_fid_basis.npz"], basis)
+        real = next(iter(data_loader(dict(ian_simple.cfg, batch_size=TRAIN_BATCH,
+                                          batches_per_chunk=FID_EXAMPLES // TRAIN_BATCH),
+                                     SyntheticFaces(num_examples=FID_EXAMPLES), offset=0)))
+        want = encoder_fid(ian_simple, final, real, num=FID_EXAMPLES, seed=1, feature_variables=basis)
+        other = encoder_fid(ian_simple, final, real, num=FID_EXAMPLES, seed=1)
+        log(f"[train] encoder_fid {fids} (epochs 0 and 1); epoch 1 recomputed against the saved basis {want:.4f}, "
+            f"against the final weights' own features {other:.4f}")
+        np.testing.assert_allclose(fids[1], want, rtol=1e-3)
+
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            out = sample.main(["IAN_simple", "--epoch", "1", "--weights", files[".npz"]])
+            with open(out, "rb") as fh:
+                grid = decode_rgb(fh.read())
+        finally:
+            os.chdir(cwd)
+        log(f"[train] sample CLI wrote {out}: {grid.shape}, std {grid.std():.1f}")
+        assert grid.shape == (6 * 66 - 2, 9 * 66 - 2, 3) and grid.std() > 1
+    return staged
+
+
+def time_data_paths(smi, epochs=2):
+    """ms to put one IAN_simple chunk (8 batches of 128) on the card as the
+    trainer's float32 input, by each of its three data paths, host work
+    included: gathered from the uint8 dataset resident on the card; the
+    procedural dataset's bytes made on the host and sent up from pinned
+    memory; the native loader's chunks of a raw file sent up the same way.
+    Each ends in one `stage_chunk` launch and a synchronize."""
+    from npe_tpu_torch.data import SyntheticFaces, data_loader, index_loader
+    from npe_tpu_torch.data import native_loader as nl
+    from npe_tpu_torch.ops.kernels.staging import stage_chunk
+
+    cfg = {"batch_size": TRAIN_BATCH, "batches_per_chunk": TRAIN_BATCHES_PER_CHUNK}
+    dataset = SyntheticFaces(num_examples=TRAIN_EXAMPLES)
+    cache = torch.from_numpy(dataset.get_data(np.arange(TRAIN_EXAMPLES))).cuda()
+
+    def upload(u8):
+        return stage_chunk(torch.from_numpy(u8).pin_memory().cuda(non_blocking=True),
+                           np.random.permutation(len(u8)))
+
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "train.raw")
+        nl.export_raw(dataset, raw)
+        native = nl.NativeChunkLoader(raw, TRAIN_EXAMPLES, (3, 64, 64), TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK)
+        paths = {
+            "resident": (lambda e: index_loader(cfg, TRAIN_EXAMPLES, shuffle=True, seed=e),
+                         lambda idx: stage_chunk(cache, np.random.permutation(idx))),
+            "pinned upload": (lambda e: data_loader(cfg, dataset, shuffle=True, seed=e, raw=True), upload),
+            "native": (lambda e: nl.native_chunk_loader(cfg, None, None, shuffle=True, seed=e, loader=native,
+                                                        raw=True), upload),
+        }
+        for name, (loader_of, stage) in paths.items():
+            samples = []
+            for e in range(epochs):
+                it = iter(loader_of(e))
+                while True:
+                    t0 = time.perf_counter()
+                    item = next(it, None)
+                    if item is None:
+                        break
+                    x = stage(item)
+                    torch.cuda.synchronize()
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                    assert x.shape == (TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK, 3, 64, 64) and x.dtype == torch.float32
+            times[name] = float(np.mean(samples))
+            log(f"[time] IAN_simple data path '{name}': {times[name]:.3f} ms a chunk of "
+                f"{TRAIN_BATCH * TRAIN_BATCHES_PER_CHUNK} images on the card (mean of {len(samples)}, host work "
+                f"included) ({smi})")
+        native.close()
+    return times
+
+
+def time_training(label, module, variables, batch_size, batches_per_chunk, smi, **cfg_extra):
+    """ms per G step, per D step and imgs/s over one chunk of alternating
+    steps (CUDA events, steady state after one warm chunk), with peak
+    device memory. `cfg_extra`: e.g. compute_dtype="bfloat16"."""
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg, batch_size=batch_size, batches_per_chunk=batches_per_chunk, **cfg_extra)
     state = ts.init_train_state(module, variables, cfg)
     n = batch_size * batches_per_chunk
     rng = np.random.RandomState(5)
@@ -646,12 +844,13 @@ def time_training(label, module, variables, batch_size, batches_per_chunk, smi):
     return {"g_step_ms": per_step["G"], "d_step_ms": per_step["D"], "imgs_per_s": rate, "peak_mib": peak}, state
 
 
-def profile_training(label, module, state, batch_size, top):
+def profile_training(label, module, state, batch_size, top, **cfg_extra):
     """torch.profiler over 8 alternating steps: device kernel time, the
-    device's idle share and the top kernels by name."""
+    device's idle share, the top kernels by name and the share of the
+    device time in convolution kernels (cuDNN's, by name)."""
     from npe_tpu_torch.training import train_step as ts
 
-    cfg = dict(module.cfg, batch_size=batch_size)
+    cfg = dict(module.cfg, batch_size=batch_size, **cfg_extra)
     steps = ts.make_train_steps(module, cfg)
     batch = step_batch(cfg, batch_size, 35, "cuda")
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -666,12 +865,14 @@ def profile_training(label, module, state, batch_size, top):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy <= 0:
         log(f"[time] {label} training profiler: no device time recorded (idle share not measured)")
-        return None, None
+        return None, None, None
+    conv = sum(e.self_device_time_total for e in kernels if any(w in e.key.lower() for w in CONV_KERNEL_WORDS)) / 1e3
     log(f"[time] {label} training profiler, 8 steps under the profiler: wall {wall:.2f} ms, device kernels {busy:.2f} ms "
-        f"(idle share {1 - busy / wall:.3f}); kernels by device time:")
+        f"(idle share {1 - busy / wall:.3f}; convolution kernels by name {conv / busy:.3f} of the device time); "
+        "kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[time]   {e.self_device_time_total / 8e3:9.3f} ms/step  {e.count / 8:6.1f}x  {e.key[:90]}")
-    return busy / 8, 1 - busy / wall
+    return busy / 8, 1 - busy / wall, conv / busy
 
 
 # --- serving: InferenceServer, ModelHost over HTTP, the web editor -----------
@@ -1398,6 +1599,27 @@ def main():
                           for label, module, variables in (("IANv1", ian_v1, card_v1.variables),
                                                            ("IAN", ian, card_ian.variables))}
 
+    log(f"[phase] 6b starts at {time.perf_counter() - started:.1f} s")
+    # 6b. bf16 training (cfg['compute_dtype']) and the rest of the trainer:
+    # one G and one D step of each model in bf16 beside float32 on the same
+    # weights and batch (IAN_simple at its batch of 128, held to npe_tpu's bf16
+    # trajectory bounds; IANv1 and full IAN at 16, through the tail's bf16
+    # form), then train() through the native loader, bf16, encode-FID and the
+    # profiler, and the sample CLI; each path with the counts set to 0 just
+    # before it and read just after
+    t0 = time.perf_counter()
+    bf16_rows, bf16_simple = bf16_steps("IAN_simple", ian_simple, card.variables, counters, TRAIN_BATCH, False)
+    np.testing.assert_allclose(bf16_rows["bfloat16"], bf16_rows["float32"], rtol=BF16_TRAIN_RTOL,
+                               atol=BF16_TRAIN_ATOL, err_msg="IAN_simple bf16 step vs float32")
+    training_launches = {name: 0 for name in counters.forms}
+    for label, module, variables in (("IANv1", ian_v1, card_v1.variables), ("IAN", ian, card_ian.variables)):
+        _, launches = bf16_steps(label, module, variables, counters, 16, True)
+        training_launches = {name: n + launches[name] for name, n in training_launches.items()}
+    training_launches["staging"] = drive_training_bf16(counters, smi)
+    assert training_launches["rgb_beta_tail_bf16"] == 8 and training_launches["staging"] == 4, training_launches
+    log(f"[train] launches on the bf16 training paths {training_launches}; phase 6b took "
+        f"{time.perf_counter() - t0:.1f} s")
+
     log(f"[phase] 7 starts at {time.perf_counter() - started:.1f} s")
     # 7. Times
     p50, p95 = time_strokes("IAN_simple", card, image, smi)
@@ -1650,20 +1872,40 @@ def main():
     for label, module, batch_size, bpc in (("IAN_simple", ian_simple, 128, 8), ("IANv1", ian_v1, 16, 16),
                                            ("IAN", ian, 16, 16)):
         fresh = module.init(torch.Generator().manual_seed(0), "cuda")
-        training[label], trained = time_training(label, module, fresh, batch_size, bpc, smi)
-        busy, idle = profile_training(label, module, trained, batch_size, top=14 if label == "IAN_simple" else 8)
-        training[label].update(device_ms_per_step=busy, idle_share=idle)
+        # float32 (TF32 off), then bf16 compute over float32 masters, in turns on the same weights
+        for name, extra in ((label, {}), (f"{label} bf16", {"compute_dtype": "bfloat16"})):
+            training[name], trained = time_training(name, module, fresh, batch_size, bpc, smi, **extra)
+            busy, idle, conv = profile_training(name, module, trained, batch_size,
+                                                top=14 if label == "IAN_simple" else 8, **extra)
+            training[name].update(device_ms_per_step=busy, idle_share=idle, conv_share=conv)
+            del trained
         if label == "IAN_simple":
             # PyTorch's own default lets cuDNN run float32 convolutions in TF32
             torch.backends.cudnn.allow_tf32 = True
             training["IAN_simple, cuDNN TF32 on"], _ = time_training("IAN_simple, cuDNN TF32 on", module, fresh,
                                                                      batch_size, bpc, smi)
             torch.backends.cudnn.allow_tf32 = False
-        del fresh, trained
+            training["data_paths_ms_per_chunk"] = time_data_paths(smi)
+        del fresh
+    # the bf16 tail as a bf16 step of IANv1 and full IAN runs it (batch 16, a
+    # bf16 trunk): the kernel forward, and its backward, the plain version's
+    # VJP in bf16 (which recomputes the plain forward), as device time
+    _, _, trunk, tg, tb = (t.to(torch.bfloat16) for t in head_inputs(16, 64, 97, dev))
+    g_out = torch.randn((16, 48) + tuple(trunk.shape[2:]), device=dev).to(torch.bfloat16)
+    tail_fwd = graph_ms(lambda: rt.rgb_beta_tail(trunk, tg, tb), iters=20)
+    tail_bwd = graph_ms(lambda: rt.vjp_of_plain(rt.rgb_beta_tail_reference, (True, True, True), (trunk, tg, tb),
+                                                g_out), iters=20)
+    tail_bwd_eager = cuda_ms(lambda: rt.vjp_of_plain(rt.rgb_beta_tail_reference, (True, True, True),
+                                                     (trunk, tg, tb), g_out), 50)
+    training["rgb_beta_tail_bf16_batch16"] = {"kernel_ms": tail_fwd, "plain_vjp_backward_ms": tail_bwd,
+                                              "plain_vjp_backward_eager_ms": tail_bwd_eager}
+    log(f"[time] rgb_beta_tail_bf16 at a bf16 training step's batch of 16: kernel {tail_fwd:.5f} ms, its backward "
+        f"(the plain VJP in bf16) {tail_bwd:.5f} ms device time (CUDA graph), {tail_bwd_eager:.5f} ms eager ({smi})")
 
     for entry in entries:
         entry.update(route="cuda", launches=main_launches[entry["name"]],
                      serving_launches=serving_launches[entry["name"]],
+                     training_bf16_launches=training_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"paint_stroke_p50_ms": p50, "paint_stroke_p95_ms": p95,

@@ -3,6 +3,8 @@
 
 The noise is explicit: a tensor of mu's shape, or a `torch.Generator` on
 mu's device from which it is drawn. None returns mu (deterministic=True).
+Either way eps takes mu's dtype, as npe_tpu draws it in mu's dtype: a bf16
+training forward samples in bf16.
 """
 
 import torch
@@ -17,6 +19,8 @@ def gaussian_sample(mu, logsigma, noise=None):
         noise = torch.randn(mu.shape, generator=noise, dtype=mu.dtype, device=mu.device)
     elif noise.shape != mu.shape:
         raise ValueError(f"noise has shape {tuple(noise.shape)}, mu {tuple(mu.shape)}")
+    else:
+        noise = noise.to(mu.dtype)
     return mu + torch.exp(logsigma) * noise
 
 

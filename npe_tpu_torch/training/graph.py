@@ -13,29 +13,61 @@ from the real-X pass and the reconstruction decode, and leave here detached
 from the autograd graph. The reparameterization noise is an argument (`noise`:
 the eps tensor, or a torch.Generator to draw it from), never global state.
 
-Mixed precision (npe_tpu's cfg['compute_dtype']) is not ported yet: a cfg
-that sets it raises NotImplementedError.
+Mixed precision (cfg['compute_dtype'], npe_tpu `graph.py:to_compute`): the
+loss functions cast the trainable variables and the batch to the compute
+dtype after the leaves that autograd differentiates, so the gradients come
+back through the casts in float32, to float32 masters; the BN running
+statistics and the masks stay float32, and the forward's outputs and BN
+updates are widened to float32 before any loss. No autocast: every op
+rounds where npe_tpu's explicit cast rounds.
 """
 
 import torch
 
+from npe_tpu_torch.models.common import is_trainable
 from npe_tpu_torch.training import losses as L
+from npe_tpu_torch.utils.cast import resolve_dtype
 
 
-def check_cfg(cfg):
-    if cfg.get("compute_dtype"):
-        raise NotImplementedError(
-            "cfg['compute_dtype'] (mixed-precision training) is not ported yet; "
-            "the port trains in float32"
-        )
+def compute_dtype(cfg):
+    """The dtype the step computes in: cfg['compute_dtype'] through
+    `utils.cast.resolve_dtype` (None / "float32" or "bfloat16"; anything else
+    raises ValueError)."""
+    try:
+        return resolve_dtype(cfg.get("compute_dtype"))
+    except ValueError:
+        raise ValueError(f"cfg['compute_dtype'] {cfg['compute_dtype']!r}: the port trains in "
+                         "float32 or bfloat16 only") from None
+
+
+def to_compute(variables, x, z_rand, cfg):
+    """(variables, x, z_rand) in the compute dtype: every trainable floating
+    variable and the batch cast, the rest (BN running statistics, masks) as
+    it is. In float32 (no compute_dtype) the same tensors come back."""
+    dt = compute_dtype(cfg)
+    if dt == torch.float32:
+        return variables, x, z_rand
+    cast = {k: v.to(dt) for k, v in variables.items() if is_trainable(k) and v.is_floating_point()}
+    return {**variables, **cast}, x.to(dt), z_rand.to(dt)
+
+
+def _f32_tree(tree):
+    """Every floating tensor of a dict / tuple / list tree widened to float32
+    (float64 stays float64, for the float64 parity runs)."""
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_f32_tree(v) for v in tree)
+    return tree.float() if tree.dtype in (torch.bfloat16, torch.float16) else tree
 
 
 def forward_all(module, variables, x, z_rand, noise, upd=None, cut_x_hat=False):
     """Full three-pass training forward. x: (B, 3, 64, 64) in [-1, 1].
 
     `cut_x_hat`: pass 2 reads a detached copy of x_hat that is a leaf of its
-    own, returned as out['x_hat_in'], so that a caller can take pass 2's
-    gradient up to the reconstruction and carry it on (or not) by hand."""
+    own, returned with x_hat as out['cut'] = (x_hat_in, x_hat), both in the
+    forward's dtype, so that a caller can take pass 2's gradient up to the
+    reconstruction and carry it on (or not) by hand."""
     mu, ls, g_x = module.encode_stats(variables, x, train=True, upd=upd)
     p_x = module.discrim_logits(variables, g_x[-1])
     z0 = module.sample_latent(mu, ls, noise)
@@ -65,7 +97,21 @@ def forward_all(module, variables, x, z_rand, noise, upd=None, cut_x_hat=False):
         "g_xh": g_xh,
     }
     if cut_x_hat:
-        out["x_hat_in"] = x_hat_in
+        out["cut"] = (x_hat_in, x_hat)
+    return out
+
+
+def _forward_f32(module, variables, x, z_rand, noise, cfg, upd=None, cut_x_hat=False):
+    """forward_all in the compute dtype, its outputs widened to float32 for
+    the losses (npe_tpu `_f32_tree(forward_all(...))`); the cut's pair stays
+    in the compute dtype, so that the gradient carried across it keeps its
+    dtype."""
+    variables, xc, zc = to_compute(variables, x, z_rand, cfg)
+    raw = forward_all(module, variables, xc, zc, noise, upd=upd, cut_x_hat=cut_x_hat)
+    cut = raw.pop("cut", None)
+    out = _f32_tree(raw)
+    if cut is not None:
+        out["cut"] = cut
     return out
 
 
@@ -83,7 +129,7 @@ def compute_metrics(cfg, out, x, n_classes):
 
 
 def _detached(upd):
-    return {k: v.detach() for k, v in upd.items()}
+    return {k: v.detach() for k, v in _f32_tree(upd).items()}
 
 
 def _only(params, partition):
@@ -116,11 +162,13 @@ def gen_loss_fn(gen_latent_params, other, module, cfg, x, z_rand, noise):
       wrt latent heads:   adv_gen + recon*pixel + feature*fw + kl + l2_Z
     The extra terms are disjoint across the two partitions (kl/l2 touch only
     latent heads; ortho_gen touches only 4-D decoder weights), so one scalar
-    serves both. Returns (total, (out, upd))."""
-    check_cfg(cfg)
+    serves both. Returns (total, (out, upd)).
+
+    Under cfg['compute_dtype'] the forward runs in that dtype and the losses
+    in float32 on the float32 batch and masters (`_forward_f32`)."""
     variables = {**other, **gen_latent_params}
     upd = {}
-    out = forward_all(module, variables, x, z_rand, noise, upd=upd)
+    out = _forward_f32(module, variables, x, z_rand, noise, cfg, upd=upd)
     adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], module.N_DISCRIM_CLASSES)
     total = _latent_objective(cfg, out, x, adv, _only(gen_latent_params, "latent"))
     if cfg.get("ortho"):
@@ -132,10 +180,9 @@ def discrim_loss_fn(discrim_params, other, module, cfg, x, z_rand, noise):
     """Discriminator objective with consider_constant=[X_hat]
     (`train_IAN.py:253`): gradients do not flow into the generator, nor
     through the reconstruction back into the tower."""
-    check_cfg(cfg)
     variables = {**other, **discrim_params}
     upd = {}
-    out = forward_all(module, variables, x, z_rand, noise, upd=upd, cut_x_hat=True)
+    out = _forward_f32(module, variables, x, z_rand, noise, cfg, upd=upd, cut_x_hat=True)
     adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], module.N_DISCRIM_CLASSES)
     return _discrim_objective(cfg, adv, discrim_params), (out, _detached(upd))
 
@@ -143,9 +190,8 @@ def discrim_loss_fn(discrim_params, other, module, cfg, x, z_rand, noise):
 def latent_loss_fn(latent_params, other, module, cfg, x, z_rand, noise):
     """Z_gen_updates objective alone (`train_IAN.py:266-273`), used on
     discriminator steps where the latent heads still train."""
-    check_cfg(cfg)
     variables = {**other, **latent_params}
-    out = forward_all(module, variables, x, z_rand, noise)
+    out = _forward_f32(module, variables, x, z_rand, noise, cfg)
     adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], module.N_DISCRIM_CLASSES)
     return _latent_objective(cfg, out, x, adv, latent_params), (out, {})
 
@@ -170,11 +216,12 @@ def discrim_and_latent_losses(discrim_params, latent_params, other, module, cfg,
         rule: grad([zloss, x_hat], latent, grad_outputs=[1, that]), which is
         `latent_loss_fn`'s gradient w.r.t. the latent partition.
 
-    Returns (dloss, zloss, (out, upd)); out has 'x_hat' and 'x_hat_in'."""
-    check_cfg(cfg)
+    Returns (dloss, zloss, (out, upd)); out['cut'] is (x_hat_in, x_hat) in
+    the compute dtype (a bf16 leaf under bf16), and the gradient carried
+    across it stays in that dtype."""
     variables = {**other, **discrim_params, **latent_params}
     upd = {}
-    out = forward_all(module, variables, x, z_rand, noise, upd=upd, cut_x_hat=True)
+    out = _forward_f32(module, variables, x, z_rand, noise, cfg, upd=upd, cut_x_hat=True)
     adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], module.N_DISCRIM_CLASSES)
     dloss = _discrim_objective(cfg, adv, discrim_params)
     zloss = _latent_objective(cfg, out, x, adv, latent_params)

@@ -11,18 +11,23 @@ reference restarted Adam's moments from zero).
 On the card: each chunk is staged by ONE kernel launch
 (`ops.kernels.staging.stage_chunk`: gather + uint8 -> float32 + range
 change), either out of the whole uint8 dataset resident in device memory or
-out of the chunk's bytes sent up from pinned host memory; the steps run
-eagerly (`training.train_step`), and the chunk's metrics come to the host in
-one copy.
+out of the chunk's bytes sent up from pinned host memory, the bytes of the
+in-process dataset or of the native C++ loader's chunks (`native:<raw>`);
+the steps run eagerly (`training.train_step`), in float32 or, with
+cfg['compute_dtype'] = 'bfloat16' (`--compute-dtype`), in bf16 over float32
+masters; and the chunk's metrics come to the host in one copy. With a
+validation set each checkpoint also reports the encoder-FID
+(`training/quality.py`) in a frozen feature space; `profile_dir` traces the
+first chunk (`utils/profiling.py`).
 
-Not ported yet, and refused rather than ignored: the `native:<raw>` dataset
-spec, data-parallel training, mixed precision (`compute_dtype`), the profiler
-trace and the encoder-FID validation metric.
+Not ported yet, and refused rather than ignored: data-parallel training
+(`--data-parallel`, ROADMAP queue 1 item 6).
 
 CLI: python -m npe_tpu_torch.training.train IAN_simple --resume=True ...
 """
 
 import argparse
+import contextlib
 import logging
 import os
 import time
@@ -32,11 +37,14 @@ import numpy as np
 import torch
 
 from npe_tpu_torch.data import data_loader, get_dataset, index_loader
+from npe_tpu_torch.data import native_loader
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.ops.kernels.staging import stage_chunk
 from npe_tpu_torch.training import train_step as TS
 from npe_tpu_torch.training.eval_grids import sample_and_interp_grid
-from npe_tpu_torch.utils import checkpoints
+from npe_tpu_torch.training.evaluate import validation_pixel_accuracy
+from npe_tpu_torch.training.quality import encoder_fid
+from npe_tpu_torch.utils import checkpoints, profiling
 from npe_tpu_torch.utils.device import resolve_device
 from npe_tpu_torch.utils.metrics_logging import MetricsLogger
 
@@ -129,8 +137,10 @@ def train(
     seed=0,
     checkpoint_grids=True,
     cfg_overrides=None,
+    profile_dir=None,
     valid_dataset_spec=None,
     num_valid_examples=1024,
+    fid_feature_weights=None,
     state_every=1,
     async_checkpoint=False,
     device="cuda",
@@ -142,7 +152,14 @@ def train(
     `device_cache_bytes`: when the whole uint8 dataset fits this budget it
     goes to device memory ONCE and each chunk is gathered there from a
     per-chunk index vector; else each chunk's bytes go up from pinned host
-    memory. Either way one `stage_chunk` launch stages the chunk."""
+    memory. Either way one `stage_chunk` launch stages the chunk.
+    `dataset_spec` 'native:<raw>': chunks come from the native loader over a
+    raw uint8 record file (`data.native_loader.export_raw`), always up from
+    pinned memory; the grids draw on `SyntheticFaces`.
+    `profile_dir`: a `torch.profiler` trace of the first chunk.
+    `fid_feature_weights`: a weights file that fixes the encoder-FID feature
+    space; without it the first validation checkpoint does, saved to
+    `<name>_fid_basis.npz` and read back on resume."""
     device = resolve_device(device)
     module = get_config(config)
     cfg = dict(module.cfg)
@@ -150,8 +167,6 @@ def train(
         cfg["max_epochs"] = max_epochs
     if cfg_overrides:
         cfg.update(cfg_overrides)
-    if str(dataset_spec).startswith("native:"):
-        raise NotImplementedError("the 'native:<raw>' dataset spec (the C++ prefetching loader) is not ported yet")
 
     name = cfg["model"]
     os.makedirs(out_dir, exist_ok=True)
@@ -184,10 +199,17 @@ def train(
         lr = float(meta.get("learning_rate", lr))
         logging.info("resumed: epoch=%d itr=%d lr=%g", min_epoch, itr, lr)
 
-    dataset = get_dataset(dataset_spec, num_examples=num_examples)
+    native = None
+    if str(dataset_spec).startswith("native:"):
+        raw_path = str(dataset_spec)[len("native:"):]
+        native = native_loader.NativeChunkLoader(raw_path, native_loader.num_records(raw_path), (3, 64, 64),
+                                                 cfg["batch_size"] * cfg["batches_per_chunk"])
+        dataset = get_dataset("synthetic", num_examples=num_examples)  # for the grids
+    else:
+        dataset = get_dataset(dataset_spec, num_examples=num_examples)
     device_cache = None
     n_ex = dataset.num_examples
-    if n_ex * 3 * 64 * 64 <= device_cache_bytes:
+    if native is None and n_ex * 3 * 64 * 64 <= device_cache_bytes:
         device_cache = torch.from_numpy(np.uint8(dataset.get_data(np.arange(n_ex)))).to(device)
     valid_dataset = (
         get_dataset(valid_dataset_spec, num_examples=num_valid_examples) if valid_dataset_spec else None
@@ -200,6 +222,18 @@ def train(
     checkpoint_count = 0
     gen = torch.Generator(device).manual_seed(seed + 1)  # z_rand and the reparameterization noise
     offset = True
+    # Frozen feature space for encoder-FID: a passed checkpoint, else the
+    # first validation checkpoint of this run, persisted to
+    # <name>_fid_basis.npz so that a resume keeps the same feature space
+    # (otherwise every resume would rebase the FID curve on whatever the
+    # encoder looks like at its first checkpoint).
+    fid_basis_fname = os.path.join(out_dir, name + "_fid_basis.npz")
+    fid_feature_vars = None
+    fid_basis = fid_feature_weights or (fid_basis_fname if os.path.isfile(fid_basis_fname) else None)
+    if fid_basis:
+        fid_feature_vars = module.init(torch.Generator().manual_seed(seed), device)
+        meta = checkpoints.load_weights(fid_basis, fid_feature_vars)
+        logging.info("encoder-FID feature basis from %s (epoch %s)", fid_basis, meta.get("epoch"))
 
     ckptr = checkpoints.AsyncCheckpointer() if async_checkpoint else None
     # Consecutive checkpoint-WRITE failures (disk full, permissions...):
@@ -212,7 +246,9 @@ def train(
         offset = not offset
         lr = current_lr(cfg, epoch, lr)
         loader_args = dict(offset=offset * cfg["batch_size"] // 2, shuffle=cfg["shuffle"], seed=epoch)
-        if device_cache is not None:
+        if native is not None:
+            loader = native_loader.native_chunk_loader(cfg, None, None, loader=native, raw=True, **loader_args)
+        elif device_cache is not None:
             loader = index_loader(cfg, dataset.num_examples, **loader_args)
         else:
             loader = data_loader(cfg, dataset, raw=True, **loader_args)
@@ -233,12 +269,16 @@ def train(
                 x_dev = stage_chunk(u8, perm)
 
             assert num_batches == cfg["batches_per_chunk"], (num_batches, cfg["batches_per_chunk"])
-            if guard_ema is None:
-                state, gen_m, dis_m, n_gen = chunk_step(state, x_dev, itr, gen, lr)
-            else:
-                state, gen_m, dis_m, n_gen, guard_ema = chunk_step(state, x_dev, itr, gen, lr, guard_ema)
-            # one copy for the chunk's ~20 scalar metrics
-            gen_m, dis_m = fetch_scalars(gen_m, dis_m)
+            traced = profile_dir and epoch == min_epoch and iter_counter == 1
+            with profiling.device_trace(profile_dir) if traced else contextlib.nullcontext():
+                if guard_ema is None:
+                    state, gen_m, dis_m, n_gen = chunk_step(state, x_dev, itr, gen, lr)
+                else:
+                    state, gen_m, dis_m, n_gen, guard_ema = chunk_step(state, x_dev, itr, gen, lr, guard_ema)
+                # one copy for the chunk's ~20 scalar metrics
+                gen_m, dis_m = fetch_scalars(gen_m, dis_m)
+            if traced:
+                logging.info("profiler trace of the first chunk written to %s", profile_dir)
             n_dis = num_batches - n_gen
             metrics = OrderedDict()
             for k in list(dict.fromkeys(GEN_KEYS + DISCRIM_KEYS)):
@@ -313,14 +353,33 @@ def train(
             else:
                 _do_save(state)
             if valid_dataset is not None:
-                from npe_tpu_torch.training.evaluate import validation_pixel_accuracy
-
                 ev = validation_pixel_accuracy(module, variables, valid_dataset, cfg, max_chunks=1)
-                logging.info("validation: pixel_acc=%.4f mse=%.4f", ev["test_error"], ev["mse"])
+                # the FID batch clamped to the validation set, so that a small
+                # set still yields one chunk (evaluate.py clamps the same way)
+                n_fid = min(256, valid_dataset.num_examples)
+                fid_bs = min(cfg["batch_size"], n_fid)
+                fid_cfg = {**cfg, "batch_size": fid_bs, "batches_per_chunk": max(1, n_fid // fid_bs)}
+                real = next(iter(data_loader(fid_cfg, valid_dataset, offset=0)), None)
+                if real is None:
+                    ev["encoder_fid"] = float("nan")
+                else:
+                    # The FIRST validation checkpoint freezes the feature space
+                    # (quality.py: FIDs from a drifting encoder conflate encoder
+                    # movement with sample quality). No step writes into the
+                    # tensors of a state it was given, so these stay as they are.
+                    if fid_feature_vars is None:
+                        fid_feature_vars = variables
+                        checkpoints.save_weights(fid_basis_fname, fid_feature_vars, {"epoch": epoch})
+                    ev["encoder_fid"] = encoder_fid(module, variables, real, num=min(n_fid, len(real)), seed=epoch,
+                                                    feature_variables=fid_feature_vars)
+                logging.info("validation: pixel_acc=%.4f mse=%.4f encoder_fid=%.3f", ev["test_error"], ev["mse"],
+                             ev["encoder_fid"])
                 mlog.log(epoch=epoch, itr=itr, validation=ev)
 
     if ckptr is not None:
         ckptr.close()
+    if native is not None:
+        native.close()
     logging.info("training done")
     return state
 
@@ -338,7 +397,7 @@ def main(argv=None):
     p.add_argument(
         "--dataset",
         default="synthetic",
-        help="'synthetic', 'real', 'real:<dir>', 'composite', or a path to .npz/.hdf5",
+        help="'synthetic', 'real', 'real:<dir>', 'composite', a path to .npz/.hdf5, or 'native:<raw>'",
     )
     p.add_argument("--valid-dataset", default=None, help="validation dataset spec")
     p.add_argument("--out-dir", default=".", help="where checkpoints/metrics are written")
@@ -348,6 +407,13 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--batches-per-chunk", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--data-parallel", action="store_true", help="not ported yet (ROADMAP queue 1 item 6)")
+    p.add_argument(
+        "--compute-dtype",
+        default=None,
+        help="mixed-precision compute dtype for the train step (bfloat16); master weights, optimizer "
+        "and BN statistics stay float32",
+    )
     p.add_argument(
         "--moments-dtype",
         default=None,
@@ -377,14 +443,23 @@ def main(argv=None):
         help="save the full optimizer state every Nth checkpoint (weights "
         "still save every checkpoint); resume restores from the last state save",
     )
+    p.add_argument("--profile-dir", default=None, help="write a torch.profiler trace of the first chunk")
     p.add_argument(
         "--async-checkpoint",
         action="store_true",
         help="copy out and write checkpoints on a background thread so "
         "training continues meanwhile (saves stay ordered and atomic)",
     )
+    p.add_argument(
+        "--fid-feature-weights",
+        default=None,
+        help="checkpoint defining the frozen encoder-FID feature space "
+        "(default: this run's first validation checkpoint)",
+    )
     p.add_argument("--device", default="cuda", help="'cuda' (the default; raises without one) or 'cpu'")
     a = p.parse_args(argv)
+    if a.data_parallel:
+        p.error("--data-parallel is not ported yet: the port trains on one device (ROADMAP queue 1 item 6)")
     overrides = {}
     if a.batch_size:
         overrides["batch_size"] = a.batch_size
@@ -392,6 +467,8 @@ def main(argv=None):
         overrides["batches_per_chunk"] = a.batches_per_chunk
     if a.checkpoint_every:
         overrides["checkpoint_every_nth"] = a.checkpoint_every
+    if a.compute_dtype:
+        overrides["compute_dtype"] = a.compute_dtype
     if a.moments_dtype:
         overrides["moments_dtype"] = a.moments_dtype
     if a.skip_nonfinite_updates:
@@ -407,7 +484,9 @@ def main(argv=None):
         out_dir=a.out_dir,
         pics_dir=a.pics_dir,
         cfg_overrides=overrides,
+        profile_dir=a.profile_dir,
         valid_dataset_spec=a.valid_dataset,
+        fid_feature_weights=a.fid_feature_weights,
         state_every=a.state_every,
         async_checkpoint=a.async_checkpoint,
         device=a.device,

@@ -31,7 +31,7 @@ import torch
 
 from npe_tpu_torch.training import losses as L
 from npe_tpu_torch.training.graph import (
-    check_cfg, compute_metrics, discrim_and_latent_losses, gen_loss_fn,
+    compute_dtype, compute_metrics, discrim_and_latent_losses, gen_loss_fn,
 )
 
 ADAM_B2 = 0.999
@@ -63,8 +63,10 @@ def _device_of(tensors):
 def init_train_state(module, variables, cfg):
     """`variables` (name -> tensor, all on one device) partitioned, with
     zeroed Adam states on the same device. The caller picks the device when
-    it calls `module.init(gen, device)`, whose default is the card."""
-    check_cfg(cfg)
+    it calls `module.init(gen, device)`, whose default is the card.
+    Masters, moments (unless cfg['moments_dtype']), counts and BN statistics
+    are float32 whatever cfg['compute_dtype'] says."""
+    compute_dtype(cfg)  # an unknown compute dtype raises here, before any step
     parts = L.partition_variables(variables)
     md = _moments_dtype(cfg)
     return {
@@ -154,8 +156,9 @@ def discrim_grads(module, cfg, parts, x, z_rand, noise):
     other = {**parts["gen"], **parts["frozen"], **parts["state"]}
     dloss, zloss, (out, upd) = discrim_and_latent_losses(d, lat, other, module, cfg, x, z_rand, noise)
     g_d = _grad(dloss, d, retain_graph=True)
-    (g_cut,) = torch.autograd.grad(zloss, [out["x_hat_in"]], retain_graph=True)
-    g_z = _grad([zloss, out["x_hat"]], lat, grad_outputs=[torch.ones_like(zloss), g_cut])
+    x_hat_in, x_hat = out["cut"]  # in the compute dtype, and so is g_cut
+    (g_cut,) = torch.autograd.grad(zloss, [x_hat_in], retain_graph=True)
+    g_z = _grad([zloss, x_hat], lat, grad_outputs=[torch.ones_like(zloss), g_cut])
     return g_d, g_z, out, upd
 
 
@@ -167,8 +170,12 @@ def make_train_steps(module, cfg):
     semantics): if any gradient of the step is inf/NaN, the whole update
     (params, Adam moments and counts, BN running stats) is dropped by a
     `torch.where` on a device flag, and the step reports update_skipped = 1
-    as a device scalar."""
-    check_cfg(cfg)
+    as a device scalar.
+
+    cfg['compute_dtype'] ('bfloat16'): the forward and backward run in bf16
+    (`graph.to_compute`), the gradients reach the float32 masters in
+    float32, and Adam, the guard and the BN statistics run on float32."""
+    compute_dtype(cfg)
     b1 = cfg["beta1"]
     md = _moments_dtype(cfg)
     n_classes = module.N_DISCRIM_CLASSES

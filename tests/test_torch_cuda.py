@@ -427,6 +427,67 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, config):
                                                atol=1e-6 * float(want.abs().max()) + 1e-10, err_msg=k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [TINY_V1, TINY_FULL])
+def test_bf16_train_steps_on_the_card_launch_only_the_bf16_tail(cuda, config):
+    """cfg['compute_dtype'] = 'bfloat16': each decode of a step (two a step)
+    launches the tail's bf16 form, whose backward is its plain version's VJP
+    in bf16; no float32 tail, no head or MDBLOCK kernel. Masters stay
+    float32, and the metrics track the CPU's bf16 step within npe_tpu's bf16
+    trajectory bounds (rtol 0.12 / atol 0.02)."""
+    from npe_tpu_torch.training import train_step as ts
+
+    module = get_config(config)
+    cfg = dict(module.cfg, compute_dtype="bfloat16")
+    variables = _unit_gain_variables(config)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.uniform(-0.8, 0.8, (4, 3, 64, 64)).astype(np.float32))
+    z, eps = (torch.from_numpy(rng.randn(4, cfg["num_latents"]).astype(np.float32)) for _ in range(2))
+    counts = [(rt.rgb_beta_tail, "launches"), (rt.rgb_beta_tail, "launches_bf16"), (rh.rgb_beta_head, "launches"),
+              (rh.rgb_beta_head, "launches_bf16"), (mk.mdblock_fused, "launches"),
+              (mk.mdblock_fused, "launches_bf16")]
+    metrics = []
+    for device in (cuda, "cpu"):
+        state = ts.init_train_state(module, {k: v.to(device) for k, v in variables.items()}, cfg)
+        gen_step, discrim_step = ts.make_train_steps(module, cfg)
+        before = [getattr(fn, attr) for fn, attr in counts]
+        batch = [t.to(device) for t in (x, z, eps)]
+        state, m_g = gen_step(state, *batch, 2e-4)
+        state, m_d = discrim_step(state, *batch, 2e-4)
+        launched = [getattr(fn, attr) - b for (fn, attr), b in zip(counts, before)]
+        assert launched == ([0, 4, 0, 0, 0, 0] if device is cuda else [0] * 6), launched
+        assert all(t.dtype == torch.float32 for p in ("gen", "latent", "discrim") for t in state["parts"][p].values())
+        metrics.append({k: float(v) for m in (m_g, m_d) for k, v in m.items()})
+    for k, want in metrics[1].items():
+        assert np.isfinite(metrics[0][k])
+        np.testing.assert_allclose(metrics[0][k], want, rtol=0.12, atol=0.02, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_tiny_train_on_the_card_from_a_native_file_in_bf16_with_fid_and_a_trace(cuda, tmp_path):
+    import json
+
+    from npe_tpu_torch.data import SyntheticFaces
+    from npe_tpu_torch.data.native_loader import export_raw
+    from npe_tpu_torch.ops.kernels import staging
+    from npe_tpu_torch.training.train import train
+
+    raw = tmp_path / "train.raw"
+    export_raw(SyntheticFaces(num_examples=24), str(raw))
+    before = staging.stage_chunk.launches, rt.rgb_beta_tail.launches_bf16
+    train(TINY_V1, f"native:{raw}", max_epochs=1, out_dir=str(tmp_path), checkpoint_grids=False,
+          valid_dataset_spec="synthetic", num_valid_examples=8, profile_dir=str(tmp_path / "trace"),
+          cfg_overrides={"batch_size": 4, "batches_per_chunk": 2, "compute_dtype": "bfloat16"})
+    assert staging.stage_chunk.launches == before[0] + 3  # one per chunk
+    assert rt.rgb_beta_tail.launches_bf16 == before[1] + 3 * 2 * 2  # 2 steps a chunk, 2 decodes a step
+    recs = [json.loads(line) for line in open(tmp_path / "tiny_ianv1METRICS.jsonl")]
+    (valid,) = [r["validation"] for r in recs if "validation" in r]
+    assert np.isfinite(valid["encoder_fid"]) and (tmp_path / "tiny_ianv1_fid_basis.npz").is_file()
+    (trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)  # the card's kernels are in it
+
+
 # --- serving ------------------------------------------------------------------
 
 

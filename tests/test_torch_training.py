@@ -17,6 +17,7 @@ Tolerances, and why (`tests/torch_parity.py`, "training parity"):
 import contextlib
 import functools
 import json
+import os
 import threading
 
 import jax
@@ -239,6 +240,9 @@ def test_forward_all_losses_and_metrics_match_jax(model):
 
 
 def test_loss_functions_detach_the_bn_updates_and_refuse_compute_dtype():
+    """The BN updates leave the loss functions detached; cfg['compute_dtype']
+    takes float32 and bfloat16 (float32 losses and BN updates either way) and
+    refuses any other dtype with a ValueError."""
     tm = get_config(tp.TINY_TORCH)
     cfg = dict(tm.cfg)
     parts = TL.partition_variables(tp.port_variables(tp.TINY_JAX))
@@ -247,12 +251,17 @@ def test_loss_functions_detach_the_bn_updates_and_refuse_compute_dtype():
     _, (_, upd) = TG.gen_loss_fn(TTS._leaves(params), other, tm, cfg, *_torch_batch(x, z, eps))
     assert upd and not any(t.requires_grad for t in upd.values())
     for fn in (TG.gen_loss_fn, TG.discrim_loss_fn, TG.latent_loss_fn):
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            fn(params, other, tm, dict(cfg, compute_dtype="bfloat16"), *_torch_batch(x, z, eps))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        TTS.init_train_state(tm, TL.merge_partitions(parts), dict(cfg, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        TTS.make_train_steps(tm, dict(cfg, compute_dtype="bfloat16"))
+        for accepted in ("float32", "bfloat16", torch.bfloat16, None):
+            loss, (_, upd) = fn(params, other, tm, dict(cfg, compute_dtype=accepted), *_torch_batch(x, z, eps))
+            assert loss.dtype == torch.float32 and all(t.dtype == torch.float32 for t in upd.values())
+            assert not any(t.requires_grad for t in upd.values())
+        with pytest.raises(ValueError, match="compute_dtype"):
+            fn(params, other, tm, dict(cfg, compute_dtype="float16"), *_torch_batch(x, z, eps))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TTS.init_train_state(tm, TL.merge_partitions(parts), dict(cfg, compute_dtype="float16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TTS.make_train_steps(tm, dict(cfg, compute_dtype="int8"))
+    TTS.make_train_steps(tm, dict(cfg, compute_dtype="bfloat16"))
 
 
 # --- gradients, float64 --------------------------------------------------------
@@ -596,7 +605,7 @@ def _records(path):
     return [json.loads(line) for line in open(path) if line.strip()]
 
 
-def test_train_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
+def test_train_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path, capsys, monkeypatch):
     import inspect
 
     assert inspect.signature(TT.train).parameters["device"].default == "cuda"
@@ -605,13 +614,20 @@ def test_train_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             TT.train(tp.TINY_TORCH, out_dir=str(tmp_path))
         assert not list(tmp_path.iterdir())  # it raised before it wrote anything
-    with pytest.raises(NotImplementedError, match="native"):
-        TT.train(tp.TINY_TORCH, "native:/nowhere.raw", out_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        TT.train(tp.TINY_TORCH, out_dir=str(tmp_path), device="cpu", cfg_overrides={"compute_dtype": "bfloat16"})
-    for flag in ("--data-parallel", "--compute-dtype=bfloat16", "--profile-dir=x", "--fid-feature-weights=x"):
-        with pytest.raises(SystemExit):
-            TT.main([tp.TINY_TORCH, flag])
+    with pytest.raises(FileNotFoundError):
+        TT.train(tp.TINY_TORCH, "native:" + str(tmp_path / "nowhere.raw"), out_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TT.train(tp.TINY_TORCH, out_dir=str(tmp_path), device="cpu", cfg_overrides={"compute_dtype": "float16"})
+    with pytest.raises(SystemExit):
+        TT.main([tp.TINY_TORCH, "--data-parallel"])
+    assert "queue 1 item 6" in capsys.readouterr().err
+    # every other flag of npe_tpu's trainer reaches train()
+    seen = {}
+    monkeypatch.setattr(TT, "train", lambda **kw: seen.update(kw))
+    TT.main([tp.TINY_TORCH, "--compute-dtype=bfloat16", "--profile-dir=trace", "--fid-feature-weights=basis.npz",
+             "--dataset=native:train.raw", "--valid-dataset=synthetic"])
+    assert seen["cfg_overrides"] == {"compute_dtype": "bfloat16"} and seen["dataset_spec"] == "native:train.raw"
+    assert (seen["profile_dir"], seen["fid_feature_weights"]) == ("trace", "basis.npz")
 
 
 @pytest.mark.parametrize("device_cache_bytes", [2 << 30, 0], ids=["device-cache", "per-chunk-upload"])
@@ -680,6 +696,115 @@ def test_train_with_the_guard_validation_and_grids(tmp_path):
     assert (tmp_path / "pics" / "tiny_ian_0.png").stat().st_size > 1000
     state = tckpt.load_train_state(str(tmp_path / "tiny_ian_train_state.npz"), "cpu")
     assert all(t.dtype == torch.bfloat16 for t in state["opt"]["gen"]["mu"].values())
+
+
+def test_train_from_a_native_raw_file_in_bf16_with_fid_and_a_trace(tmp_path):
+    """Every hook of the trainer at once: a `native:` raw file written by
+    `export_raw`, bf16 compute, a validation set with encoder-FID and a
+    profiler trace; then a resumed epoch reads the FID basis back."""
+    from npe_tpu_torch.data import SyntheticFaces, data_loader
+    from npe_tpu_torch.data.native_loader import export_raw
+    from npe_tpu_torch.training.quality import encoder_fid
+
+    raw = tmp_path / "train.raw"
+    assert export_raw(SyntheticFaces(num_examples=20), str(raw)) == (20, (3, 64, 64))
+    trace_dir = tmp_path / "trace"
+    kw = dict(config=tp.TINY_TORCH, dataset_spec=f"native:{raw}", out_dir=str(tmp_path),
+              pics_dir=str(tmp_path / "pics"), checkpoint_grids=False, device="cpu", valid_dataset_spec="synthetic",
+              num_valid_examples=12, cfg_overrides={"batch_size": 4, "batches_per_chunk": 2,
+                                                    "compute_dtype": "bfloat16"})
+    state = TT.train(max_epochs=1, profile_dir=str(trace_dir), **kw)
+    recs = _records(tmp_path / "tiny_ianMETRICS.jsonl")
+    # 20 records, chunks of 8: two chunks at offset 0
+    assert [r["itr"] for r in recs if "metrics" in r] == [2, 4]
+    assert all(np.isfinite(v) for r in recs if "metrics" in r for v in r["metrics"].values())
+    (valid,) = [r["validation"] for r in recs if "validation" in r]
+    assert np.isfinite(valid["encoder_fid"]) and valid["encoder_fid"] > 0
+    assert all(t.dtype == torch.float32 for t in TTS.variables_of(state).values() if t.is_floating_point())
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and json.loads(traces[0].read_text())["traceEvents"]
+    basis = tmp_path / "tiny_ian_fid_basis.npz"
+    assert tckpt.load_weights(str(basis), {})["epoch"] == 0
+    basis_bytes = basis.read_bytes()
+
+    TT.train(max_epochs=2, resume=True, **kw)
+    assert basis.read_bytes() == basis_bytes  # read back, not taken anew
+    valid = [r for r in _records(tmp_path / "tiny_ianMETRICS.jsonl") if "validation" in r]
+    assert [r["epoch"] for r in valid] == [0, 1]
+    # epoch 1's FID is the final weights' against epoch 0's basis: recompute it
+    tm = get_config(tp.TINY_TORCH)
+    final, frozen = (tm.init(torch.Generator().manual_seed(0), "cpu") for _ in range(2))
+    tckpt.load_weights(str(tmp_path / "tiny_ian.npz"), final)
+    tckpt.load_weights(str(basis), frozen)
+    real = next(iter(data_loader(dict(tm.cfg, batch_size=4, batches_per_chunk=3), SyntheticFaces(12), offset=0)))
+    want = encoder_fid(tm, final, real, num=12, seed=1, feature_variables=frozen)
+    np.testing.assert_allclose(valid[1]["validation"]["encoder_fid"], want, rtol=1e-6)
+    assert abs(encoder_fid(tm, final, real, num=12, seed=1) - want) > 1e-6  # another basis, another value
+
+
+def test_train_fid_feature_weights_fix_the_basis(tmp_path):
+    """--fid-feature-weights: the basis is that file's, none is saved, and
+    a validation set smaller than a batch still gives one FID chunk."""
+    from npe_tpu_torch.data import SyntheticFaces
+    from npe_tpu_torch.training.quality import encoder_fid
+    from npe_tpu_torch.utils.ranges import to_tanh
+
+    tm = get_config(tp.TINY_TORCH)
+    fixed = tm.init(torch.Generator().manual_seed(5), "cpu")
+    tckpt.save_weights(str(tmp_path / "fixed.npz"), fixed)
+    TT.train(tp.TINY_TORCH, "synthetic", max_epochs=1, num_examples=16, out_dir=str(tmp_path),
+             checkpoint_grids=False, device="cpu", valid_dataset_spec="synthetic", num_valid_examples=3,
+             fid_feature_weights=str(tmp_path / "fixed.npz"), cfg_overrides={"batch_size": 4, "batches_per_chunk": 2})
+    (valid,) = [r["validation"] for r in _records(tmp_path / "tiny_ianMETRICS.jsonl") if "validation" in r]
+    assert np.isfinite(valid["encoder_fid"])
+    assert not (tmp_path / "tiny_ian_fid_basis.npz").exists()
+    final = tm.init(torch.Generator().manual_seed(0), "cpu")
+    tckpt.load_weights(str(tmp_path / "tiny_ian.npz"), final)
+    real = to_tanh(np.float32(SyntheticFaces(3).get_data(np.arange(3))))
+    want = encoder_fid(tm, final, real, num=3, seed=0, feature_variables=fixed)
+    np.testing.assert_allclose(valid["encoder_fid"], want, rtol=1e-6)
+
+
+def test_sample_cli_writes_its_grid(tmp_path, monkeypatch, capsys):
+    from npe_tpu_torch.training import sample
+    from npe_tpu_torch.utils.png import decode_rgb
+
+    config = os.path.abspath(tp.TINY_FULL_TORCH)
+    monkeypatch.chdir(tmp_path)
+    tm = get_config(config)
+    tckpt.save_weights("weights.npz", tm.init(torch.Generator().manual_seed(3), "cpu"))
+    out = sample.main([config, "--epoch", "7", "--weights", "weights.npz", "--device", "cpu"])
+    assert out == "pics/tiny_ian_full_sample7.png" and "wrote pics/tiny_ian_full_sample7.png" in capsys.readouterr().out
+    grid = decode_rgb((tmp_path / out).read_bytes())
+    assert grid.shape == (6 * 66 - 2, 9 * 66 - 2, 3) and grid.std() > 10
+
+
+@pytest.mark.parametrize("model", ["IAN_simple", "IAN"])
+def test_inference_functions_match_the_models(model):
+    from npe_tpu_torch.training.sample import make_inference_functions
+
+    tm = get_config(CONFIGS[model][1])
+    v = tm.init(torch.Generator().manual_seed(0), "cpu")
+    fns = make_inference_functions(tm)
+    z = torch.from_numpy(np.random.RandomState(1).randn(2, tm.cfg["num_latents"]).astype(np.float32))
+    x = fns["sample"](v, z)
+    assert x.shape == (2, 3, 64, 64) and not x.requires_grad
+    assert torch.equal(fns["sampleZ"](v, z), tm.decode(v, z))
+    assert torch.equal(fns["Zfn"](v, x), tm.encode_pre_iaf(v, x))
+    assert torch.equal(fns["Z_IAF_fn"](v, z), tm.iaf(v, z)[0])
+
+
+def test_export_cli_writes_disjoint_splits(tmp_path, capsys):
+    from npe_tpu_torch.data import export
+
+    export.main(["--out", str(tmp_path), "--dataset", "synthetic", "--train", "10", "--valid", "6"])
+    assert "train: (10, 3, 64, 64)" in capsys.readouterr().out
+    with np.load(tmp_path / "train.npz") as f, np.load(tmp_path / "valid.npz") as g:
+        train, valid = f["arr_0"], g["arr_0"]
+    assert train.shape == (10, 3, 64, 64) and valid.shape == (6, 3, 64, 64) and train.dtype == np.uint8
+    assert not any(np.array_equal(a, b) for a in train for b in valid)
+    ds = TT.get_dataset(str(tmp_path / "train.npz"))
+    np.testing.assert_array_equal(ds.get_data(np.arange(10)), train)
 
 
 def test_current_lr_and_restore_masks_mirror_npe_tpu():
