@@ -27,21 +27,32 @@ npe_tpu's bf16 trajectory bounds; IANv1 and full IAN through the tail's bf16
 form alone), `train()` on IAN_simple from a `native:` raw file in bf16 with
 encoder-FID validation, a profiler trace and a resumed epoch that reads the
 FID basis back, and the sample CLI; and the training times, float32 and bf16
-in turns, with the trainer's three data paths. Then bfloat16: the bf16 forms of `rgb_beta_tail`,
-`rgb_beta_head` and `mdblock_fused` held against their bf16 plain versions,
-`api.IAN`, `EditSession` and `InferenceServer` (both wires) with
-`dtype=torch.bfloat16` on the same weights for every model and form, held
-against the card's float32 results within npe_tpu's bf16 bounds, their launch
-counts by form, and the bf16 times (kernels, encode+decode at batch 256 with
-bench_torch.py's function, strokes with bench_torch_edit.py's). The last line
-is {"ok": true, "device": {...}}; any failed phase ends the run with a nonzero
-exit before it. Without a CUDA device it exits nonzero at once.
+in turns, with the trainer's three data paths. Then bfloat16: the bf16 forms
+of `rgb_beta_tail`, `rgb_beta_head` and `mdblock_fused` held against their
+bf16 plain versions, `api.IAN`, `EditSession` and `InferenceServer` (both
+wires) with `dtype=torch.bfloat16` on the same weights for every model and
+form, held against the card's float32 results within npe_tpu's bf16 bounds,
+their launch counts by form, and the bf16 times (kernels, encode+decode at
+batch 256 with bench_torch.py's function, strokes with bench_torch_edit.py's).
+Last (phase 8), multi-device training over torch.distributed, in subprocesses
+with their own time limits: `parallel.multihost`'s G + D step on one rank
+over NCCL (IAN_simple, batch 128) and on two ranks sharing the card over gloo
+(IAN_simple at 128, IANv1 at 16), each held against the card's one-process
+step and timed beside it; from the same two ranks, encode + decode with the
+'model' weights in halves held against `api.IAN`; the trainer under torchrun
+with `--data-parallel`; and the library blocks (USL, DSL, inception, batch
+renorm) against the CPU. The last line is {"ok": true, "device": {...}}; any
+failed phase ends the run with a nonzero exit before it. Without a CUDA device
+it exits nonzero at once.
 """
 
 import concurrent.futures
 import contextlib
 import json
 import os
+import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1234,6 +1245,280 @@ def check_web_script(url, variables, counters, index):
     return launches
 
 
+# --- phase 8: multi-device training (torch.distributed) ------------------------
+
+DP_TIMEOUT = 240  # seconds any one phase-8 subprocess (or pair) may take
+DP_REPEATS = 5  # timed G + D pairs after the checked one
+# the D step after a G step, data-parallel vs one process on the card: it
+# reads the weights after Adam's first, sign-like step, which rounding moves
+# by up to lr wherever a gradient is noise, even between two processes that
+# make no collective call; TF32 is off on both sides (the subprocesses take
+# --no-tf32), and PERF.md has the readings
+DP_D_RTOL, DP_D_ATOL = 2e-2, 2e-3
+# Adam's first moments after that pair (mu = (1 - b1) * g: the summed
+# gradients), data-parallel vs one process on the card, tensor by tensor in
+# norm: |got - want| <= DP_MU_REL * |want| + DP_MU_FLOOR * (the part's largest
+# value) * sqrt(size). A gradient summed once too few or too many times is
+# off by 50 % or 100 % in every tensor. The card's float32 step does not
+# repeat itself: the same one-process G + D pair run twice in one process
+# parts by several percent in norm (the D gradients, which read the weights
+# after the G step's sign-like Adam step) and by up to a tenth of a tensor's
+# largest value in single elements, so an element-wise bound would hold
+# rounding, not the sum; this phase logs that yardstick beside each
+# comparison, and PERF.md has the readings. The floor passes a gradient that
+# is zero in exact arithmetic and comes out as rounding noise (mu_bnorm.beta's)
+DP_MU_REL, DP_MU_FLOOR = 0.2, 1e-5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_procs(label, commands, root, timeout=DP_TIMEOUT):
+    """Start the commands (argv lists) together from `root`, wait for all
+    within `timeout` seconds; every one must exit 0. Returns their (stdout,
+    stderr) and the wall time. At the limit each one left gets SIGABRT, on
+    which Python's faulthandler prints every thread's stack, then is killed,
+    and its output is logged."""
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""), PYTHONFAULTHANDLER="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in commands]
+    outs = [None] * len(procs)
+    try:
+        for i, proc in enumerate(procs):
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                outs[i] = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for i, proc in enumerate(procs):
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGABRT)
+                try:
+                    outs[i] = proc.communicate(timeout=10)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    outs[i] = proc.communicate()
+    wall = time.perf_counter() - t0
+    for c, proc, (out, err) in zip(commands, procs, outs):
+        if proc.returncode != 0:
+            log(out[-4000:])
+            log(err[-8000:])
+    for c, proc in zip(commands, procs):
+        if proc.returncode != 0:
+            raise AssertionError(f"{label}: {' '.join(c)} exited {proc.returncode} after {wall:.1f} s (limit {timeout} s)")
+    return outs, wall
+
+
+def tagged(lines, tag):
+    return [json.loads(line[len(tag) + 1:]) for line in lines.splitlines() if line.startswith(tag + " ")]
+
+
+def multihost_cmd(port, n, i, *extra):
+    return [sys.executable, "-m", "npe_tpu_torch.parallel.multihost", "--coordinator", f"127.0.0.1:{port}",
+            "--num-processes", str(n), "--process-id", str(i), "--device", "cuda", "--repeats", str(DP_REPEATS),
+            "--timeout", str(DP_TIMEOUT), "--no-tf32", *extra]
+
+
+def check_moments(label, got, want):
+    """Every Adam first moment of the data-parallel state against one
+    process's, by DP_MU_REL / DP_MU_FLOOR. Returns, over the tensors above
+    the floor, the worst |got - want| / |want| and the worst element's
+    |got - want| over its tensor's largest value, each with its tensor."""
+    worst = worst_elt = (0.0, "none")
+    assert sorted(got) == sorted(want), (label, sorted(got))
+    for part, mu in want.items():
+        assert sorted(got[part]) == sorted(mu), (label, part)
+        scale = max(float(t.abs().max()) for t in mu.values())
+        for k, w in mu.items():
+            g = got[part][k].float()
+            assert g.shape == w.shape and torch.isfinite(g).all(), (label, part, k)
+            err, norm, floor = float((g - w).norm()), float(w.norm()), DP_MU_FLOOR * scale * w.numel() ** 0.5
+            assert err <= DP_MU_REL * norm + floor, (f"{label} mu {part}/{k}: |got - want| {err:.3e} over "
+                                                     f"{DP_MU_REL} * |want| {norm:.3e} + {floor:.3e}")
+            if norm > floor:
+                worst = max(worst, (err / norm, f"{part}/{k}"), key=lambda t: t[0])
+                worst_elt = max(worst_elt, (float((g - w).abs().max() / w.abs().max()), f"{part}/{k}"),
+                                key=lambda t: t[0])
+    return worst, worst_elt
+
+
+def moment_spread(label, got, want):
+    return "worst |got - want| / |want| {:.3e} ({}), worst element {:.3e} of its tensor's largest ({})".format(
+        *(x for pair in check_moments(label, got, want) for x in pair))
+
+
+def check_demo(label, got, want, ranks, mu, expect):
+    """A data-parallel G + D step against the card's one-process step on the
+    same weights and batch, the ranks' states and this run's kernel launches
+    on every rank. The G step's metrics, a forward from the same weights, at
+    RTOL / ATOL; the D step's read the weights after the G step, which
+    Adam's first, sign-like step (lr * g / (|g| + eps)) moves by up to lr
+    wherever a gradient is rounding noise, so they are held to DP_D_RTOL /
+    DP_D_ATOL; the gradients themselves through rank 0's Adam first moments
+    (`mu`, check_moments), and every rank's whole state, parameters and
+    moments, bit for bit the same (its digest). Returns the launches summed
+    over the ranks."""
+    for player, (rtol, atol) in (("gen", (RTOL, ATOL)), ("discrim", (DP_D_RTOL, DP_D_ATOL))):
+        assert all(np.isfinite(v) for v in got[player].values()), got
+        for k, w in want[player].items():
+            np.testing.assert_allclose(got[player][k], w, rtol=rtol, atol=atol, err_msg=f"{label} {player} {k}")
+    spread = moment_spread(label, mu, want["mu"])
+    assert len({r["state_sha256"] for r in ranks}) == 1, (label, [r["state_sha256"] for r in ranks])
+    for rank in ranks:
+        assert rank["launches"] == expect, (label, rank)
+    worst = {p: max(abs(got[p][k] - want[p][k]) / (abs(want[p][k]) + 1e-6) for k in want[p])
+             for p in ("gen", "discrim")}
+    log(f"[dp] {label}: G metrics within rtol {RTOL} / atol {ATOL}, D metrics within rtol {DP_D_RTOL} / atol "
+        f"{DP_D_ATOL} of one process's (worst relative diff G {worst['gen']:.3e}, D {worst['discrim']:.3e}); "
+        f"Adam's mu within {DP_MU_REL} of each tensor's norm + {DP_MU_FLOOR} of its part's largest ({spread}); "
+        f"{len(ranks)} rank(s) with state digest "
+        f"{ranks[0]['state_sha256'][:16]}; launches per rank {[r['launches'] for r in ranks]}")
+    return {name: sum(r["launches"][name] for r in ranks) for name in expect}
+
+
+def block_case(name, device):
+    """A library block at small widths on seeded weights and input (drawn on
+    the CPU), run on `device`."""
+    from npe_tpu_torch.models.common import VarBuilder
+    from npe_tpu_torch.ops import blocks, norm
+
+    gen = torch.Generator().manual_seed(3)
+    vb = VarBuilder(gen, "cpu")
+    x = torch.randn((4, 32, 16, 16), generator=gen).to(device)
+    scales = [0, 2, 3]
+    if name == "USL":
+        blocks.usl_init(vb, "usl", 32, 16, scales)
+        return blocks.usl_apply({k: t.to(device) for k, t in vb.v.items()}, "usl", x, scales)
+    if name == "DSL":
+        blocks.dsl_init(vb, "dsl", 32, 16, scales)
+        return blocks.dsl_apply({k: t.to(device) for k, t in vb.v.items()}, "dsl", x, scales)
+    if name == "inception":
+        dicts = [blocks.pd(num_layers=2, num_filters=16, bnorm=1),
+                 blocks.pd(num_layers=1, num_filters=8, filter_size=1, pad=0, bnorm=0),
+                 blocks.pd(num_layers=1, num_filters=8, filter_size=3, style="pool", mode="max", bnorm=0),
+                 blocks.pd(num_layers=1, num_filters=8, filter_size=3, style="pool", bnorm=0),
+                 blocks.pd(num_layers=1, num_filters=8, filter_size=3, style="dilation", dilation=2, bnorm=0)]
+        blocks.inception_init(vb, "inc", 32, dicts)
+        return blocks.inception_apply({k: t.to(device) for k, t in vb.v.items()}, {}, "inc", x, dicts, train=True)
+    vb.bn("rn", 32)
+    v = {k: t.to(device) for k, t in vb.v.items()}
+    return norm.batch_renorm_apply(x, v["rn.beta"], v["rn.gamma"], v["rn.mean"] + 0.2, v["rn.inv_std"] * 1.5,
+                                   *norm.renorm_schedule(3000), True)[0]
+
+
+def drive_data_parallel(root, smi):
+    """Phase 8: the port's multi-device path in subprocesses, each group
+    with its own time limit. (a) one rank over NCCL, mesh (1, 1); (b) two
+    ranks sharing the card over gloo, mesh (2, 1); (c) from (b)'s ranks,
+    mesh (1, 2) encode + decode with the 'model' weights in halves; (d) the
+    trainer under torchrun with --data-parallel; (e) the library blocks.
+    Returns (the launches of staging and rgb_beta_tail on these paths, the
+    readings)."""
+    from npe_tpu_torch.api import IAN
+    from npe_tpu_torch.models import ian_simple
+    from npe_tpu_torch.parallel import multihost
+
+    dp = {name: 0 for name in ("staging", "rgb_beta_tail")}
+
+    def count(launches):
+        for name, n in launches.items():
+            dp[name] += n
+
+    readings = {}
+    out_dir = tempfile.mkdtemp()
+    steps = (("IAN_simple", TRAIN_BATCH), ("IANv1", 16))
+    # the card's one-process steps on the same weights and batch, timed alike
+    single = {c: multihost.run_demo(None, b, c, repeats=DP_REPEATS) for c, b in steps}
+    # the yardstick of the moments' rule: the same one-process pair again, in this process
+    for c, b in steps:
+        again = multihost.run_demo(None, b, c)["mu"]
+        log(f"[dp] {c} batch {b}, one process's G + D pair twice in one process: Adam's mu "
+            f"{moment_spread(c + ' twice', again, single[c]['mu'])}")
+    torch.cuda.synchronize()
+
+    def moments(where, config):
+        return torch.load(os.path.join(out_dir, where, f"mu_{config}.pt"))
+
+    # (a) one rank over NCCL, mesh (1, 1)
+    (outs,), wall = run_procs("(a)", [multihost_cmd(free_port(), 1, 0, "--config", "IAN_simple", "--batch-size",
+                                                    str(TRAIN_BATCH), "--out", os.path.join(out_dir, "a"))], root)
+    got = tagged(outs[0], "MULTIHOST_METRICS")[0]
+    assert got["backend"] == "nccl" and got["mesh"] == [1, 1], got
+    ranks = tagged(outs[0], "MULTIHOST_LAUNCHES")
+    assert len(ranks) == 1, ranks
+    count(check_demo(f"(a) IAN_simple batch {TRAIN_BATCH}, one rank over NCCL", got, single["IAN_simple"], ranks,
+                     moments("a", "IAN_simple"), {"staging": 1, "rgb_beta_tail": 0}))
+    one = single["IAN_simple"]["ms_per_g_and_d_step"]
+    readings["nccl_world_of_one"] = {"ms_per_g_and_d_step": got["ms_per_g_and_d_step"], "one_process_ms": one,
+                                     "process_wall_s": wall}
+    log(f"[dp] (a) G + D step at batch {TRAIN_BATCH}: {got['ms_per_g_and_d_step']:.3f} ms under a world of one "
+        f"over NCCL, {one:.3f} ms in one process without a process group; the subprocess took {wall:.1f} s ({smi})")
+
+    # (b) two ranks on the card over gloo, mesh (2, 1); (c) then mesh (1, 2)
+    port = free_port()
+    extra = ["--backend", "gloo", "--config", *[c for c, _ in steps], "--batch-size", *[str(b) for _, b in steps],
+             "--infer-mesh", "1", "2", "--out", os.path.join(out_dir, "b")]
+    outs, wall = run_procs("(b)", [multihost_cmd(port, 2, i, *extra) for i in range(2)], root)
+    metrics = {m["config"]: m for m in tagged(outs[0][0], "MULTIHOST_METRICS")}
+    ranks = [r for out, _ in outs for r in tagged(out, "MULTIHOST_LAUNCHES")]
+    readings["gloo_two_ranks_one_card"] = {"process_wall_s": wall}
+    for c, b in steps:
+        got = metrics[c]
+        assert got["backend"] == "gloo" and got["mesh"] == [2, 1], got
+        expect = {"staging": 1, "rgb_beta_tail": 4 if c == "IANv1" else 0}
+        on_c = [r for r in ranks if r["config"] == c]
+        assert sorted(r["rank"] for r in on_c) == [0, 1], on_c
+        count(check_demo(f"(b) {c} batch {b} ({b // 2} a rank), two ranks sharing the card over gloo", got,
+                         single[c], on_c, moments("b", c), expect))
+        readings["gloo_two_ranks_one_card"][c] = {"ms_per_g_and_d_step": got["ms_per_g_and_d_step"],
+                                                  "one_process_ms": single[c]["ms_per_g_and_d_step"]}
+        log(f"[dp] (b) {c} batch {b}: {got['ms_per_g_and_d_step']:.3f} ms per G + D step, two ranks SHARING one card "
+            f"over gloo (no multi-card scaling is measured), {single[c]['ms_per_g_and_d_step']:.3f} ms in one process "
+            f"({smi})")
+    infer = tagged(outs[0][0], "MULTIHOST_INFER")[0]
+    assert infer["mesh"] == [1, 2] and {"enc_conv4.W", "dec_conv1.W", "l_dec_fc2.W"} <= set(infer["sharded"]), infer
+    with np.load(os.path.join(out_dir, "b", "infer.npz")) as f:
+        x, y = f["x"], f["y"]
+    shutil.rmtree(out_dir)
+    ian = IAN("IAN_simple", variables=ian_simple.init(torch.Generator().manual_seed(0), "cuda"), device="cuda")
+    check_close("(c) IAN_simple encode + decode at batch 64, mesh (1, 2) with the 'model' weights in halves, vs "
+                "api.IAN", y, ian.sample_at(ian.encode_images(x)))
+    log(f"[dp] (c) sharded along 'model': {infer['sharded']}")
+
+    # (d) the trainer under torchrun, one epoch of two chunks
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1", "--master_port",
+               str(free_port()), "-m", "npe_tpu_torch.training.train", "IAN_simple", "--data-parallel",
+               "--max-epochs", "1", "--num-examples", str(4 * TRAIN_BATCH + TRAIN_BATCH // 2), "--batch-size",
+               str(TRAIN_BATCH), "--batches-per-chunk", "2", "--out-dir", tmp, "--pics-dir", os.path.join(tmp, "pics")]
+        ((out, err),), wall = run_procs("(d)", [cmd], root)
+        done = [line for line in err.splitlines() if "training done; kernel launches in this process" in line]
+        assert len(done) == 1, err[-3000:]
+        trainer = {name: int(n) for name, n in re.findall(r"(staging|rgb_beta_tail) (\d+)", done[0])}
+        assert trainer == {"staging": 2, "rgb_beta_tail": 0}, done[0]
+        recs = read_metrics(os.path.join(tmp, "IAN_simpleMETRICS.jsonl"))
+        assert [r["itr"] for r in recs] == [2, 4], recs
+        assert all(np.isfinite(v) for r in recs for v in r["metrics"].values()), recs
+        for name in ("IAN_simple.npz", "IAN_simple_train_state.npz", "pics/IAN_simple_0.png"):
+            assert os.path.isfile(os.path.join(tmp, name)), name
+    count(trainer)
+    readings["torchrun_trainer_wall_s"] = wall
+    log(f"[dp] (d) torchrun --nproc-per-node 1 ... --data-parallel, IAN_simple, 2 chunks of 2 batches of "
+        f"{TRAIN_BATCH}: {wall:.1f} s; 2 finite metrics records, checkpoint files, a grid; {done[0].split('| ')[-1]}")
+
+    # (e) the library blocks on the card against the CPU
+    for name in ("USL", "DSL", "inception", "batch renorm"):
+        check_close(f"(e) {name} card vs cpu", block_case(name, "cuda").cpu().numpy(), block_case(name, "cpu").numpy())
+    return dp, readings
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1902,7 +2187,15 @@ def main():
     log(f"[time] rgb_beta_tail_bf16 at a bf16 training step's batch of 16: kernel {tail_fwd:.5f} ms, its backward "
         f"(the plain VJP in bf16) {tail_bwd:.5f} ms device time (CUDA graph), {tail_bwd_eager:.5f} ms eager ({smi})")
 
+    log(f"[phase] 8 starts at {time.perf_counter() - started:.1f} s")
+    # 8. Multi-device training: subprocesses, counts read from their output
+    t0 = time.perf_counter()
+    dp_launches, dp_times = drive_data_parallel(root, smi)
+    dp_times["phase_s"] = time.perf_counter() - t0
+    log(f"[dp] launches on the data-parallel paths {dp_launches}; phase 8 took {dp_times['phase_s']:.1f} s")
+
     for entry in entries:
+        entry["dp_launches"] = dp_launches.get(entry["name"], 0)
         entry.update(route="cuda", launches=main_launches[entry["name"]],
                      serving_launches=serving_launches[entry["name"]],
                      training_bf16_launches=training_launches[entry["name"]],
@@ -1922,7 +2215,8 @@ def main():
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
                     "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,
-                    "serving": serve_times, "bf16": bf16_times, "wall_s": time.perf_counter() - started}))
+                    "serving": serve_times, "bf16": bf16_times, "data_parallel": dp_times,
+                    "wall_s": time.perf_counter() - started}))
     log(f"[time] chip_smoke.py wall time {time.perf_counter() - started:.1f} s ({smi})")
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,7 @@ from npe_tpu_torch.ops.linear import dense
 from npe_tpu_torch.ops.mdcl import compose_mdcl_kernel, mdcl_apply
 from npe_tpu_torch.ops.minibatch import minibatch_discrimination
 from npe_tpu_torch.ops.norm import batch_norm_apply
+from npe_tpu_torch.parallel.collectives import current_data_axis
 
 NON_TRAINABLE_SUFFIXES = (".mean", ".inv_std", ".weights_mask")
 
@@ -99,8 +100,12 @@ def _coeff_suffix(scale):
 
 
 def bn(v, upd, name, x, train):
+    """Batch norm of layer `name`; in training mode over the global batch of
+    the data axis a training step has set (`parallel.collectives.data_axis`),
+    else over x's rows."""
     y, (m, s) = batch_norm_apply(
-        x, v[f"{name}.beta"], v[f"{name}.gamma"], v[f"{name}.mean"], v[f"{name}.inv_std"], train
+        x, v[f"{name}.beta"], v[f"{name}.gamma"], v[f"{name}.mean"], v[f"{name}.inv_std"], train,
+        axis=current_data_axis() if train else None,
     )
     if train and upd is not None:
         upd[f"{name}.mean"] = m
@@ -306,12 +311,14 @@ def apply_latent_heads(v, c4, train, upd, act=elu):
 def apply_discrim_head(v, c4):
     """GlobalPool -> minibatch discrimination -> dense LOGITS (the reference
     applies sigmoid/softmax in-layer; callers here apply it, keeping the
-    training losses numerically stable)."""
+    training losses numerically stable). The minibatch features compare
+    across the global batch of the data axis a training step has set."""
     f = minibatch_discrimination(
         global_avg_pool(c4),
         v["minibatch_discrim.theta"],
         v["minibatch_discrim.log_weight_scale"],
         v["minibatch_discrim.b"],
+        axis=current_data_axis(),
     )
     return dense(f, v["discrimi.W"])
 

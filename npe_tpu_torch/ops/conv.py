@@ -21,10 +21,84 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x, w, b=None, padding=0, dilation=1):
-    """Stride-1 cross-correlation with explicit zero padding (npe_tpu
-    `ops/conv.py:conv2d`). x: (N, Cin, H, W); w: (Cout, Cin, kh, kw)."""
-    return F.conv2d(x, w, b, stride=1, padding=padding, dilation=dilation)
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _same_pads(size, window, stride, dilation=1):
+    """XLA's "SAME" padding of one spatial axis: (lo, hi), the output
+    ceil(size / stride) long, the odd pixel at the end."""
+    eff = (window - 1) * dilation + 1
+    out = -(-size // stride)
+    total = max((out - 1) * stride + eff - size, 0)
+    return total // 2, total - total // 2
+
+
+def _explicit_pads(x, window, stride, padding, dilation=(1, 1)):
+    """npe_tpu's padding argument ("SAME", "VALID", an int, or per-axis
+    (lo, hi) pairs) as ((lo, hi), (lo, hi)) for the H and W of NCHW x."""
+    if isinstance(padding, str):
+        if padding == "VALID":
+            return (0, 0), (0, 0)
+        if padding != "SAME":
+            raise ValueError(f"padding {padding!r}: 'SAME', 'VALID', an int or ((lo, hi), (lo, hi))")
+        return tuple(_same_pads(x.shape[2 + i], window[i], stride[i], dilation[i]) for i in range(2))
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    return tuple(_pair(p) for p in padding)
+
+
+def conv2d(x, w, b=None, padding=0, dilation=1, stride=1):
+    """Cross-correlation (npe_tpu `ops/conv.py:conv2d`, cuDNN's
+    flip_filters=False). x: (N, Cin, H, W); w: (Cout, Cin, kh, kw); padding:
+    an int, "SAME", "VALID" or ((lo, hi), (lo, hi)) as npe_tpu takes it."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    if isinstance(padding, int):
+        return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation)
+    (t, bo), (le, r) = _explicit_pads(x, w.shape[2:], stride, padding, dilation)
+    if t == bo and le == r:
+        return F.conv2d(x, w, b, stride=stride, padding=(t, le), dilation=dilation)
+    return F.conv2d(F.pad(x, (le, r, t, bo)), w, b, stride=stride, dilation=dilation)
+
+
+def dilated_conv2d(x, w, dilation, padding=None):
+    """Dilated conv (npe_tpu `ops/conv.py:dilated_conv2d`); the default
+    padding keeps the spatial size, ((e - 1) // 2, e // 2) for the dilated
+    extent e."""
+    d = _pair(dilation)
+    if padding is None:
+        eff = [k + (k - 1) * (di - 1) for k, di in zip(w.shape[2:], d)]
+        padding = tuple(((e - 1) // 2, e // 2) for e in eff)
+    return conv2d(x, w, padding=padding, dilation=d)
+
+
+def avg_pool(x, window, stride, padding="VALID", count_include_pad=False):
+    """Average pooling over NCHW spatial dims (npe_tpu
+    `ops/conv.py:avg_pool`): with "SAME" or explicit padding and
+    count_include_pad=False, each window's mean over the pixels it covers."""
+    window, stride = _pair(window), _pair(stride)
+    (t, bo), (le, r) = _explicit_pads(x, window, stride, padding)
+    padded = F.pad(x, (le, r, t, bo))
+    area = window[0] * window[1]
+    summed = F.avg_pool2d(padded, window, stride) * area
+    if count_include_pad or (t, bo, le, r) == (0, 0, 0, 0):
+        return summed / area
+    ones = F.pad(torch.ones_like(x[:1, :1]), (le, r, t, bo))
+    return summed / (F.avg_pool2d(ones, window, stride) * area)
+
+
+def max_pool(x, window, stride, padding="VALID"):
+    """Max pooling over NCHW spatial dims (npe_tpu `ops/conv.py:max_pool`);
+    padding never wins a max."""
+    window, stride = _pair(window), _pair(stride)
+    (t, bo), (le, r) = _explicit_pads(x, window, stride, padding)
+    return F.max_pool2d(F.pad(x, (le, r, t, bo), value=float("-inf")), window, stride)
+
+
+def upscale2d(x, factor):
+    """Nearest-neighbour upscale (Lasagne Upscale2DLayer, npe_tpu
+    `ops/conv.py:upscale2d`)."""
+    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
 
 
 def enc_conv2d(x, w, b=None):
@@ -33,12 +107,12 @@ def enc_conv2d(x, w, b=None):
     return F.conv2d(x, w, b, stride=2, padding=2)
 
 
-def deconv2d(x, w, b=None):
-    """DCGAN-style transposed conv with the reference DeconvLayer's geometry:
-    k=5, stride 2, crop 2, output spatial = 2 x input spatial (npe_tpu
-    `ops/conv.py:deconv2d` / `deconv2d_phased`). w holds the forward taps
-    unflipped, as npe_tpu's do."""
-    return F.conv_transpose2d(x, w, b, stride=2, padding=2, output_padding=1)
+def deconv2d(x, w, b=None, stride=2, crop=2):
+    """DCGAN-style transposed conv with the reference DeconvLayer's geometry,
+    output spatial = stride x input spatial (npe_tpu `ops/conv.py:deconv2d`
+    / `deconv2d_phased`): the models' k=5, stride 2, crop 2 by default. w
+    (cin, cout, kh, kw) holds the forward taps unflipped, as npe_tpu's do."""
+    return F.conv_transpose2d(x, w, b, stride=stride, padding=crop, output_padding=stride + 2 * crop - w.shape[2])
 
 
 def space_to_depth(x, r):
@@ -59,7 +133,11 @@ def s2d_block_taps(ksize, r):
     return 2 * -(-(ksize // 2) // r) + 1
 
 
+# built outside inference mode: a constant first built under a server's
+# inference_mode would be an inference tensor, which no later autograd graph
+# may save for its backward
 @functools.lru_cache(maxsize=32)
+@torch.inference_mode(False)
 def _s2d_gather(ksize, r, device):
     """For `pack_kernel_s2d`: which dense tap (flat index dy*K + dx) each
     packed tap reads, as (index, mask), both flat over (a, b, p, q, u, v):

@@ -51,6 +51,7 @@ CO = 6
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)  # as `ops.conv._s2d_gather`
 def _placement(scales, device):
     """(T, K*K) 0/1 matrix that puts tap t of `tap_offsets(scales)` at its
     offset in a K x K kernel, K = 2 * max dilation + 1."""

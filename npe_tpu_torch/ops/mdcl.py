@@ -15,6 +15,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from npe_tpu_torch.ops.conv import conv2d
 
@@ -25,6 +26,7 @@ def mdcl_kernel_size(scales):
 
 
 @functools.lru_cache(maxsize=32)
+@torch.inference_mode(False)  # as `ops.conv._s2d_gather`
 def _placement(scales, device):
     """(B*9, size*size) 0/1 (and 1/9) matrix that places the 9 taps of each
     of the B = 1 + len(scales) branches into the composed kernel: branch 0
@@ -87,3 +89,25 @@ def mdcl_apply_branch(x, w, coeff_base, scale_coeffs, scales):
         if s > 0:
             out = out + conv2d(x, w * scale_coeffs[s][:, None, None, None], padding=s, dilation=s)
     return out
+
+
+def mdclw_kernel(w, coeffs, scales):
+    """`mdclW` (npe_tpu `ops/mdcl.py:mdclw_kernel`, reference
+    `layers.py:138-150`): OVERWRITE placement, largest scale first, so that
+    the base filter lands on top. A library extra; the models use the
+    additive MDCL above. w: (nf, ni, 3, 3); coeffs {scale: (nf,)}, scale 1
+    the base filter. Returns (nf, ni, size, size)."""
+    size = mdcl_kernel_size(scales)
+    c = size // 2
+    big = w.new_zeros(w.shape[:2] + (size, size))
+    for s in sorted([s for s in scales if s > 0] + [1], reverse=True):
+        big[:, :, c - s : c + s + 1 : s, c - s : c + s + 1 : s] = w * coeffs[s][:, None, None, None]
+    return big
+
+
+def subpixel_shuffle(x, r):
+    """ESPCN subpixel upscaling (npe_tpu `ops/mdcl.py:subpixel_shuffle`,
+    reference `SubpixelLayer`, `layers.py:157-171`): out[n, c, h*r + dx,
+    w*r + dy] = x[n, c*r^2 + r*dx + dy, h, w]. On NCHW maps that channel map
+    is `F.pixel_shuffle`'s own."""
+    return F.pixel_shuffle(x, r)

@@ -20,11 +20,18 @@ back through the casts in float32, to float32 masters; the BN running
 statistics and the masks stay float32, and the forward's outputs and BN
 updates are widened to float32 before any loss. No autocast: every op
 rounds where npe_tpu's explicit cast rounds.
+
+Under a training step's data axis (`parallel.collectives.data_axis`) each
+objective is this rank's share of the global batch's, and its penalties of
+the weights alone count on the axis' first rank only (`once`), so the
+objectives summed over the axis are one process's; the metrics come back
+summed over it.
 """
 
 import torch
 
 from npe_tpu_torch.models.common import is_trainable
+from npe_tpu_torch.parallel.collectives import once, sum_metrics
 from npe_tpu_torch.training import losses as L
 from npe_tpu_torch.utils.cast import resolve_dtype
 
@@ -116,16 +123,20 @@ def _forward_f32(module, variables, x, z_rand, noise, cfg, upd=None, cut_x_hat=F
 
 
 def compute_metrics(cfg, out, x, n_classes):
-    """The step's metrics as 0-d tensors on the device, outside autograd."""
+    """The step's metrics as 0-d tensors on the device, outside autograd;
+    under a data axis the global batch's, the same on every rank (each is a
+    sum of the ranks' shares, and pixel_acc is formed after the sum)."""
     with torch.no_grad():
         adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], n_classes)
-        return {
+        m = sum_metrics({
             **adv,
             "pixel_loss": L.pixel_l1(out["x_hat"], x),
             "feature_loss": L.feature_matching(out["g_x"], out["g_xh"]),
             "kl": L.kl_to_standard_normal(out["mu"], out["ls"]),
-            "pixel_acc": 1.0 - L.pixel_mse(out["x_hat"], x),
-        }
+            "pixel_acc": L.pixel_mse(out["x_hat"], x),
+        })
+        m["pixel_acc"] = 1.0 - m["pixel_acc"]
+        return m
 
 
 def _detached(upd):
@@ -144,14 +155,14 @@ def _latent_objective(cfg, out, x, adv, latent_params):
         + cfg["agr_weight"] * adv["gen_recon_loss"]
         + cfg["ags_weight"] * adv["gen_sample_loss"]
         + L.kl_to_standard_normal(out["mu"], out["ls"])
-        + cfg["reg"] * L.l2_penalty(latent_params)
+        + once(cfg["reg"] * L.l2_penalty(latent_params))
     )
 
 
 def _discrim_objective(cfg, adv, discrim_params):
     total = cfg["dg_weight"] * adv["discrim_g_loss"] + cfg["dd_weight"] * adv["discrim_d_loss"]
     if cfg.get("ortho"):
-        total = total + cfg["ortho"] * L.ortho_penalty(discrim_params)
+        total = total + once(cfg["ortho"] * L.ortho_penalty(discrim_params))
     return total
 
 
@@ -172,7 +183,7 @@ def gen_loss_fn(gen_latent_params, other, module, cfg, x, z_rand, noise):
     adv = L.adversarial_losses(out["p_x"], out["p_x_hat"], out["p_x_gen"], module.N_DISCRIM_CLASSES)
     total = _latent_objective(cfg, out, x, adv, _only(gen_latent_params, "latent"))
     if cfg.get("ortho"):
-        total = total + cfg["ortho"] * L.ortho_penalty(_only(gen_latent_params, "gen"))
+        total = total + once(cfg["ortho"] * L.ortho_penalty(_only(gen_latent_params, "gen")))
     return total, (out, _detached(upd))
 
 

@@ -19,6 +19,10 @@ Parameter partitions, as the reference's Lasagne graph walks give them
 Loss definitions (`train_IAN.py:169-250`): pixel L1 (x2), KL to N(0,1),
 ternary or binary adversarial CE, introspective feature-matching MSE, and the
 orthogonal regularizer `ortho_res` (`train_IAN.py:158-165`).
+
+Every mean over the batch is `parallel.collectives.batch_mean`: on one
+device the mean, and under a training step's data axis this rank's share of
+the global batch's mean.
 """
 
 import math
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from npe_tpu_torch.models.common import is_trainable
+from npe_tpu_torch.parallel.collectives import batch_mean
 from npe_tpu_torch.utils.checkpoints import is_deconv
 
 LATENT_HEAD_PREFIXES = (
@@ -80,42 +85,42 @@ def merge_partitions(parts):
 
 def pixel_l1(x_hat, x):
     """`train_IAN.py:169`: mean(2*|X_hat - X + 1e-8|)."""
-    return torch.mean(2.0 * torch.abs(x_hat - x + 1e-8))
+    return batch_mean(2.0 * torch.abs(x_hat - x + 1e-8))
 
 
 def pixel_mse(x_hat, x):
-    return torch.mean((x_hat - x) ** 2)
+    return batch_mean((x_hat - x) ** 2)
 
 
 def gaussian_nll_pixel(x_hat, x, log_sigma):
     """Gaussian NLL pixel loss with a learned per-pixel log_sigma map, the
     legacy training script's variant (reference `train_IAN_simple.py:300-310`):
     0.5*mean(log(2*pi) + 2*log_sigma + (x_hat - x)^2 / exp(2*log_sigma))."""
-    return 0.5 * torch.mean(
+    return 0.5 * batch_mean(
         math.log(2 * math.pi) + 2 * log_sigma + (x_hat - x) ** 2 / torch.exp(2 * log_sigma)
     )
 
 
 def kl_to_standard_normal(mu, ls):
     """`train_IAN.py:172`: -0.5*mean(1 + 2*ls - mu^2 - exp(2*ls))."""
-    return -0.5 * torch.mean(1 + 2 * ls - mu**2 - torch.exp(2 * ls))
+    return -0.5 * batch_mean(1 + 2 * ls - mu**2 - torch.exp(2 * ls))
 
 
 def feature_matching(feats_x, feats_xhat):
     """Introspective loss (`train_IAN.py:244`): mean over layers of MSE."""
-    return torch.stack([torch.mean((a - b) ** 2) for a, b in zip(feats_x, feats_xhat)]).mean()
+    return torch.stack([batch_mean((a - b) ** 2) for a, b in zip(feats_x, feats_xhat)]).mean()
 
 
 def softmax_ce(logits, class_idx):
     """Categorical CE against a constant one-hot class."""
-    return -torch.mean(F.log_softmax(logits, dim=-1)[:, class_idx])
+    return -batch_mean(F.log_softmax(logits, dim=-1)[:, class_idx])
 
 
 def sigmoid_bce(logits, target):
     """Binary CE against a constant 0/1 target, stable form:
     max(x, 0) - x*t + log1p(exp(-|x|))."""
     x = logits[:, 0]
-    return torch.mean(torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-torch.abs(x))))
+    return batch_mean(torch.clamp(x, min=0) - x * target + torch.log1p(torch.exp(-torch.abs(x))))
 
 
 def ortho_res(w, deconv=False):
@@ -156,7 +161,7 @@ REAL, RECON, SAMPLE = 0, 1, 2
 
 
 def _frac(cond):
-    return cond.to(torch.float32).mean()
+    return batch_mean(cond.to(torch.float32))
 
 
 def adversarial_losses(p_x, p_x_hat, p_x_gen, n_classes):

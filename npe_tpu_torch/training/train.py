@@ -20,14 +20,24 @@ validation set each checkpoint also reports the encoder-FID
 (`training/quality.py`) in a frozen feature space; `profile_dir` traces the
 first chunk (`utils/profiling.py`).
 
-Not ported yet, and refused rather than ignored: data-parallel training
-(`--data-parallel`, ROADMAP queue 1 item 6).
+Data-parallel (`train(mesh=...)`, `--data-parallel`, npe_tpu's sharded
+trainer): every rank loads the same chunk and the same permutation (rank
+0's, broadcast) and stages only its rows of each global batch, in one
+`staging` launch; the steps compute one process's step on the global batch
+(`training.train_step`, `parallel/`); metrics, the JSONL, grids,
+checkpoints (whole arrays, npe_tpu's format), validation and encoder-FID
+run on rank 0 while the others wait at a barrier (on a group of its own
+whose timeout is CHECKPOINT_WAIT, a day: that work has no fixed length, and
+the setup timeout of `parallel.multihost.init_multihost` bounds only the
+default group); `--resume` reads on every rank. The dataset cache on the card stays single-device, as in npe_tpu.
 
 CLI: python -m npe_tpu_torch.training.train IAN_simple --resume=True ...
+     torchrun --nproc-per-node N -m npe_tpu_torch.training.train IAN_simple --data-parallel
 """
 
 import argparse
 import contextlib
+import datetime
 import logging
 import os
 import time
@@ -35,11 +45,17 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from npe_tpu_torch.data import data_loader, get_dataset, index_loader
 from npe_tpu_torch.data import native_loader
 from npe_tpu_torch.models import get_config
+from npe_tpu_torch.ops.kernels import rgb_beta_tail
 from npe_tpu_torch.ops.kernels.staging import stage_chunk
+from npe_tpu_torch.parallel.mesh import (
+    broadcast_from_first, gather_train_state, make_mesh, shard_train_state, state_layout,
+)
+from npe_tpu_torch.parallel.multihost import init_multihost
 from npe_tpu_torch.training import train_step as TS
 from npe_tpu_torch.training.eval_grids import sample_and_interp_grid
 from npe_tpu_torch.training.evaluate import validation_pixel_accuracy
@@ -50,6 +66,8 @@ from npe_tpu_torch.utils.metrics_logging import MetricsLogger
 
 GEN_KEYS = ["gen_recon_loss", "gen_sample_loss", "pixel_loss", "feature_loss", "pixel_acc"]
 DISCRIM_KEYS = ["discrim_g_loss", "discrim_d_loss", "discrim_acc", "pixel_loss", "pixel_acc"]
+
+CHECKPOINT_WAIT = datetime.timedelta(days=1)  # the longest rank 0's checkpoint step may take
 
 
 class AdaptiveRatioGuard:
@@ -145,6 +163,7 @@ def train(
     async_checkpoint=False,
     device="cuda",
     device_cache_bytes=2 << 30,
+    mesh=None,
 ):
     """Train `config` and return the final train state. Runs on the card;
     without one it raises unless the caller asks for `device="cpu"`.
@@ -159,8 +178,13 @@ def train(
     `profile_dir`: a `torch.profiler` trace of the first chunk.
     `fid_feature_weights`: a weights file that fixes the encoder-FID feature
     space; without it the first validation checkpoint does, saved to
-    `<name>_fid_basis.npz` and read back on resume."""
-    device = resolve_device(device)
+    `<name>_fid_basis.npz` and read back on resume.
+    `mesh` (`parallel.mesh.make_mesh`, on every rank): data-parallel over
+    its 'data' axis, with the weights it names held in 'model' slices; the
+    run is on the mesh's device, and the files are rank 0's. Returns this
+    rank's state (its slices)."""
+    device = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     module = get_config(config)
     cfg = dict(module.cfg)
     if max_epochs is not None:
@@ -175,13 +199,18 @@ def train(
     metrics_fname = os.path.join(out_dir, name + "METRICS.jsonl")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s| %(message)s")
-    logging.info("Metrics will be saved to %s", metrics_fname)
-    mlog = MetricsLogger(metrics_fname, reinitialize=not resume)
+    if lead:
+        logging.info("Metrics will be saved to %s", metrics_fname)
+    mlog = MetricsLogger(metrics_fname, reinitialize=not resume) if lead else None
 
     variables = module.init(torch.Generator().manual_seed(seed), device)
     state = TS.init_train_state(module, variables, cfg)
+    layout = state_layout(state, mesh)  # names and shapes only: a resumed state has the same
+    # the other ranks wait for rank 0's checkpoint, grids and validation on this group
+    waiting = dist.new_group(timeout=CHECKPOINT_WAIT) if mesh is not None and mesh.size > 1 else None
     adaptive_acc = cfg.get("adaptive_ratio_acc")
-    chunk_step = TS.make_chunk_step(module, cfg, cfg["batches_per_chunk"], guard_acc=adaptive_acc)
+    chunk_step = TS.make_chunk_step(module, cfg, cfg["batches_per_chunk"], guard_acc=adaptive_acc, mesh=mesh,
+                                    layout=layout)
 
     itr = 0
     min_epoch = 0
@@ -198,6 +227,8 @@ def train(
         itr = int(meta.get("itr", 0))
         lr = float(meta.get("learning_rate", lr))
         logging.info("resumed: epoch=%d itr=%d lr=%g", min_epoch, itr, lr)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, layout)
 
     native = None
     if str(dataset_spec).startswith("native:"):
@@ -209,7 +240,7 @@ def train(
         dataset = get_dataset(dataset_spec, num_examples=num_examples)
     device_cache = None
     n_ex = dataset.num_examples
-    if native is None and n_ex * 3 * 64 * 64 <= device_cache_bytes:
+    if native is None and mesh is None and n_ex * 3 * 64 * 64 <= device_cache_bytes:
         device_cache = torch.from_numpy(np.uint8(dataset.get_data(np.arange(n_ex)))).to(device)
     valid_dataset = (
         get_dataset(valid_dataset_spec, num_examples=num_valid_examples) if valid_dataset_spec else None
@@ -235,7 +266,7 @@ def train(
         meta = checkpoints.load_weights(fid_basis, fid_feature_vars)
         logging.info("encoder-FID feature basis from %s (epoch %s)", fid_basis, meta.get("epoch"))
 
-    ckptr = checkpoints.AsyncCheckpointer() if async_checkpoint else None
+    ckptr = checkpoints.AsyncCheckpointer() if async_checkpoint and lead else None
     # Consecutive checkpoint-WRITE failures (disk full, permissions...):
     # one is survivable (the previous atomic checkpoint is intact, the next
     # save retries), but a persistent failure would silently leave a long run
@@ -257,6 +288,10 @@ def train(
             iter_counter += 1
             num_batches = len(x_chunk) // cfg["batch_size"]
             perm = np.random.permutation(len(x_chunk))
+            if mesh is not None:
+                # rank 0's order; this rank's rows of each global batch, in batch order
+                perm = broadcast_from_first(perm, mesh)
+                perm = perm.reshape(num_batches, mesh.data.size, -1)[:, mesh.data.index].reshape(-1)
             # Chunks arrive as raw uint8 NCHW (or as index vectors into the
             # device-resident cache); the host ships the bytes as they are
             # and ONE kernel does gather + cast + to_tanh on the card.
@@ -296,6 +331,8 @@ def train(
                 scheduled_g = sum(1 for i in range(num_batches) if (itr + i) % period == 0)
                 metrics["d_steps_skipped"] = float(n_gen - scheduled_g)
             itr += num_batches
+            if not lead:
+                continue
 
             if (iter_counter - 1) % 50 == 0:
                 logging.info("epoch   itr    " + "  ".join(metrics))
@@ -307,7 +344,11 @@ def train(
 
         if not (epoch % cfg["checkpoint_every_nth"]) or epoch == cfg["max_epochs"] - 1:
             checkpoint_count += 1
-            variables = TS.variables_of(state)
+            whole = gather_train_state(state, mesh, layout)  # every rank of a 'model' axis takes part
+            if not lead:
+                dist.barrier(group=waiting)  # rank 0 writes the checkpoint, the grids and the validation
+                continue
+            variables = TS.variables_of(whole)
             if checkpoint_grids:
                 os.makedirs(pics_dir, exist_ok=True)
                 sample_and_interp_grid(
@@ -349,9 +390,9 @@ def train(
                 # The copy and the write run on the checkpoint thread against
                 # the epoch-N tensors, which no step writes to, while epoch
                 # N+1 trains.
-                ckptr.submit(_do_save, state)
+                ckptr.submit(_do_save, whole)
             else:
-                _do_save(state)
+                _do_save(whole)
             if valid_dataset is not None:
                 ev = validation_pixel_accuracy(module, variables, valid_dataset, cfg, max_chunks=1)
                 # the FID batch clamped to the validation set, so that a small
@@ -375,13 +416,27 @@ def train(
                 logging.info("validation: pixel_acc=%.4f mse=%.4f encoder_fid=%.3f", ev["test_error"], ev["mse"],
                              ev["encoder_fid"])
                 mlog.log(epoch=epoch, itr=itr, validation=ev)
+            if waiting is not None:
+                dist.barrier(group=waiting)
 
     if ckptr is not None:
         ckptr.close()
     if native is not None:
         native.close()
-    logging.info("training done")
+    logging.info("training done; kernel launches in this process: staging %d, rgb_beta_tail %d",
+                 stage_chunk.launches, rgb_beta_tail.rgb_beta_tail.launches)
     return state
+
+
+def data_parallel_mesh(device="cuda"):
+    """The mesh of `--data-parallel`: under torchrun (RANK and WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT in the environment) this rank's process
+    group, `parallel.multihost.init_multihost`'s (NCCL on a card, gloo on the
+    CPU), every rank on 'data'; alone, a world of one, as npe_tpu's
+    `make_mesh()` on one device."""
+    if "RANK" not in os.environ:
+        return make_mesh(devices=[resolve_device(device)])
+    return init_multihost("env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), device)
 
 
 def main(argv=None):
@@ -407,7 +462,8 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--batches-per-chunk", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
-    p.add_argument("--data-parallel", action="store_true", help="not ported yet (ROADMAP queue 1 item 6)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="data-parallel over the ranks torchrun starts (alone: a world of one)")
     p.add_argument(
         "--compute-dtype",
         default=None,
@@ -458,8 +514,7 @@ def main(argv=None):
     )
     p.add_argument("--device", default="cuda", help="'cuda' (the default; raises without one) or 'cpu'")
     a = p.parse_args(argv)
-    if a.data_parallel:
-        p.error("--data-parallel is not ported yet: the port trains on one device (ROADMAP queue 1 item 6)")
+    mesh = data_parallel_mesh(a.device) if a.data_parallel else None
     overrides = {}
     if a.batch_size:
         overrides["batch_size"] = a.batch_size
@@ -490,7 +545,11 @@ def main(argv=None):
         state_every=a.state_every,
         async_checkpoint=a.async_checkpoint,
         device=a.device,
+        mesh=mesh,
     )
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -25,10 +25,23 @@ A step takes (state, x, z_rand, noise, lr): the sample latents and the
 reparameterization noise come from the caller (the chunk loop draws both
 from its torch.Generator). No step synchronises with the host: metrics come
 back as 0-d tensors on the device.
+
+On a mesh (`parallel.mesh`, npe_tpu's sharded step): x, z_rand and noise
+are this rank's rows of the global batch; the step sets the mesh's data
+axis (`parallel.collectives.data_axis`) around its forward and backward, so
+that batch norm, minibatch discrimination, the losses and the metrics are
+the global batch's, sums the gradients over the axis and updates the same
+parameters, moments and BN statistics on every rank: one process's step on
+the global batch. Weights the state holds in 'model' slices (its `layout`,
+`parallel.mesh.state_layout`) are gathered before use, and the state keeps
+its slices. Every rank runs the same
+backward passes in the same order: each crosses the collectives.
 """
 
 import torch
 
+from npe_tpu_torch.parallel.collectives import data_axis, sum_grads
+from npe_tpu_torch.parallel.mesh import batch_rows, unshard_variables
 from npe_tpu_torch.training import losses as L
 from npe_tpu_torch.training.graph import (
     compute_dtype, compute_metrics, discrim_and_latent_losses, gen_loss_fn,
@@ -138,23 +151,33 @@ def _grad(outputs, leaves, grad_outputs=None, retain_graph=False):
     return {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(leaves.items(), grads)}
 
 
-def gen_grads(module, cfg, parts, x, z_rand, noise):
-    """The G step's gradients: (g_gen, g_latent, out, upd)."""
+def _other(parts, names, mesh, layout):
+    with torch.no_grad():
+        return unshard_variables({k: v for p in names for k, v in parts[p].items()}, mesh, layout)
+
+
+def gen_grads(module, cfg, parts, x, z_rand, noise, mesh=None, layout=None):
+    """The G step's gradients: (g_gen, g_latent, out, upd), in the shapes
+    of `parts` (the 'model' slices `layout` names, if any); this rank's
+    share of them under a data axis."""
     gl = _leaves({**parts["gen"], **parts["latent"]})
-    other = {**parts["discrim"], **parts["frozen"], **parts["state"]}
-    loss, (out, upd) = gen_loss_fn(gl, other, module, cfg, x, z_rand, noise)
+    other = _other(parts, ("discrim", "frozen", "state"), mesh, layout)
+    loss, (out, upd) = gen_loss_fn(unshard_variables(gl, mesh, layout), other, module, cfg, x, z_rand, noise)
     grads = _grad(loss, gl)
     return ({k: g for k, g in grads.items() if k in parts["gen"]},
             {k: g for k, g in grads.items() if k in parts["latent"]}, out, upd)
 
 
-def discrim_grads(module, cfg, parts, x, z_rand, noise):
+def discrim_grads(module, cfg, parts, x, z_rand, noise, mesh=None, layout=None):
     """The D step's gradients from one forward: (g_discrim, g_latent, out,
     upd); `graph.discrim_and_latent_losses` says why they are the gradients
-    of `discrim_loss_fn` and of `latent_loss_fn`."""
+    of `discrim_loss_fn` and of `latent_loss_fn`. Three backward passes over
+    one graph, in a fixed order (under a data axis each crosses the
+    collectives of batch norm and minibatch discrimination)."""
     d, lat = _leaves(parts["discrim"]), _leaves(parts["latent"])
-    other = {**parts["gen"], **parts["frozen"], **parts["state"]}
-    dloss, zloss, (out, upd) = discrim_and_latent_losses(d, lat, other, module, cfg, x, z_rand, noise)
+    other = _other(parts, ("gen", "frozen", "state"), mesh, layout)
+    dloss, zloss, (out, upd) = discrim_and_latent_losses(unshard_variables(d, mesh, layout),
+                                                         unshard_variables(lat, mesh, layout), other, module, cfg, x, z_rand, noise)
     g_d = _grad(dloss, d, retain_graph=True)
     x_hat_in, x_hat = out["cut"]  # in the compute dtype, and so is g_cut
     (g_cut,) = torch.autograd.grad(zloss, [x_hat_in], retain_graph=True)
@@ -162,9 +185,13 @@ def discrim_grads(module, cfg, parts, x, z_rand, noise):
     return g_d, g_z, out, upd
 
 
-def make_train_steps(module, cfg):
+def make_train_steps(module, cfg, mesh=None, layout=None):
     """Returns (gen_step, discrim_step):
     state, x, z_rand, noise, lr -> (state, metrics).
+
+    `mesh` (`parallel.mesh.Mesh`): the state as `shard_train_state(state,
+    mesh, layout)` holds it and this rank's rows of the global batch; the
+    metrics are the global batch's, the same on every rank.
 
     cfg['skip_nonfinite_updates'] (default off, the faithful recipes'
     semantics): if any gradient of the step is inf/NaN, the whole update
@@ -183,12 +210,15 @@ def make_train_steps(module, cfg):
 
     def step(state, x, z_rand, noise, lr, player, grads_fn):
         parts, opt = state["parts"], state["opt"]
-        g_player, g_lat, out, upd = grads_fn(module, cfg, parts, x, z_rand, noise)
+        with data_axis(mesh.data if mesh is not None else None):
+            g_player, g_lat, out, upd = grads_fn(module, cfg, parts, x, z_rand, noise, mesh=mesh, layout=layout)
+            metrics = compute_metrics(cfg, out, x, n_classes)
+        if mesh is not None:
+            g_player, g_lat = sum_grads([g_player, g_lat], mesh.data)
         new = {player: adam_update(parts[player], g_player, opt[player], lr, b1, moments_dtype=md),
                "latent": adam_update(parts["latent"], g_lat, opt["latent"], lr, b1, moments_dtype=md)}
         # BN running stats from the real-X pass and the reconstruction decode
         new_state_vars = {**parts["state"], **upd}
-        metrics = compute_metrics(cfg, out, x, n_classes)
         if guard:
             ok = _grads_finite(g_player, g_lat)
             new = {p: _guarded(ok, new[p], (parts[p], opt[p])) for p in new}
@@ -238,7 +268,7 @@ def guard_ema_update(ema, is_gen, skip_d, d_acc):
     )
 
 
-def make_chunk_step(module, cfg, num_batches, guard_acc=None):
+def make_chunk_step(module, cfg, num_batches, guard_acc=None, mesh=None, layout=None):
     """The chunk "program": a Python loop over `num_batches` eager steps,
     alternating G/D by `(itr0 + i) % (update_ratio + 1)` like the reference's
     host loop (`train_IAN.py:493-509`), with z_rand and the noise drawn from
@@ -261,11 +291,19 @@ def make_chunk_step(module, cfg, num_batches, guard_acc=None):
     branch on a device value without reading it, so with the guard the loop
     reads the decision back to the host on each scheduled D step: one
     synchronisation per such step. The EMA itself stays a 0-d device tensor
-    threaded through the signature."""
-    gen_step, discrim_step = make_train_steps(module, cfg)
+    threaded through the signature.
+
+    `mesh`, `layout` (as `make_train_steps`): x_chunk holds this rank's rows of each global batch, in batch
+    order (batch i's rows at [i * b, (i + 1) * b) for the local batch b =
+    batch_size / D); z_rand and the noise are drawn for the whole global
+    batch from `gen`, as one process draws them, and each rank keeps its
+    rows, so that every rank's generator stays the single-process stream."""
+    gen_step, discrim_step = make_train_steps(module, cfg, mesh=mesh, layout=layout)
     period = cfg["update_ratio"] + 1
     bs = cfg["batch_size"]
     zdim = cfg["num_latents"]
+    lo, hi = batch_rows(bs, mesh)
+    local = hi - lo
 
     def chunk_step(state, x_chunk, itr0, gen, lr, ema=None):
         if (ema is None) != (guard_acc is None):
@@ -273,9 +311,9 @@ def make_chunk_step(module, cfg, num_batches, guard_acc=None):
         device = x_chunk.device
         rows, is_gen_flags = [], []
         for i in range(num_batches):
-            xb = x_chunk[i * bs : (i + 1) * bs]
-            z_rand = torch.randn((bs, zdim), generator=gen, device=device)
-            noise = torch.randn((bs, zdim), generator=gen, device=device)
+            xb = x_chunk[i * local : (i + 1) * local]
+            z_rand = torch.randn((bs, zdim), generator=gen, device=device, dtype=x_chunk.dtype)[lo:hi]
+            noise = torch.randn((bs, zdim), generator=gen, device=device, dtype=x_chunk.dtype)[lo:hi]
             scheduled_gen = (itr0 + i) % period == 0
             is_gen, skip_d = scheduled_gen, False
             if guard_acc is not None and not scheduled_gen:

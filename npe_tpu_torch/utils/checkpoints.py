@@ -205,10 +205,16 @@ def save_weights(fname, variables, metadata=None, include_masks=False, compress=
     metadata so that `load_weights` regenerates the exact masks whatever
     mask seed the loading process would use. `compress` writes with
     `np.savez_compressed` (np.load reads both)."""
-    arrays = to_reference({k: v for k, v in variables.items() if include_masks or not k.endswith(MASK_SUFFIX)})
+    save_arrays(fname, to_reference(variables), metadata, include_masks, compress)
+
+
+def save_arrays(fname, arrays, metadata=None, include_masks=False, compress=False):
+    """`save_weights` of arrays already in npe_tpu's layouts (name -> numpy
+    array): npe_tpu's own `save_weights`, as the converter writes."""
+    orderings = made_orderings_of(arrays)
+    arrays = {k: np.asarray(v) for k, v in arrays.items() if include_masks or not k.endswith(MASK_SUFFIX)}
     metadata = dict(metadata or {})
     metadata.setdefault("format_version", FORMAT_VERSION)
-    orderings = made_orderings_of(variables)
     if orderings:
         metadata.setdefault("made_orderings", orderings)
     arrays[METADATA_KEY] = np.frombuffer(pickle.dumps(metadata), dtype=np.uint8)

@@ -659,3 +659,77 @@ def test_bf16_served_decodes_on_the_card(cuda, wire):
     (y32, z32), (y16, z16) = outs
     assert y16.dtype == z16.dtype == np.float32
     assert np.abs(y16 - y32).mean() < 0.05 and np.abs(z16 - z32).mean() < 0.2
+
+
+# --- the library blocks and multi-device training --------------------------------
+
+
+def _block_case(name, device):
+    from npe_tpu_torch.ops import blocks, norm
+
+    gen = torch.Generator().manual_seed(3)
+    vb = common.VarBuilder(gen, "cpu")
+    x = torch.randn((2, 6, 8, 8), generator=gen)
+    if name == "usl":
+        blocks.usl_init(vb, "b", 6, 4, [0, 2])
+        fn = lambda v, x: blocks.usl_apply(v, "b", x, [0, 2])  # noqa: E731
+    elif name == "dsl":
+        blocks.dsl_init(vb, "b", 6, 4, [0, 2, 3])
+        fn = lambda v, x: blocks.dsl_apply(v, "b", x, [0, 2, 3])  # noqa: E731
+    elif name == "inception":
+        dicts = [blocks.pd(num_layers=2, num_filters=8, bnorm=1),
+                 blocks.pd(num_layers=1, num_filters=4, filter_size=3, style="pool", mode="max", bnorm=0),
+                 blocks.pd(num_layers=1, num_filters=4, filter_size=3, style="dilation", dilation=2, bnorm=0)]
+        blocks.inception_init(vb, "inc", 6, dicts)
+        fn = lambda v, x: blocks.inception_apply(v, {}, "inc", x, dicts, train=True)  # noqa: E731
+    else:
+        vb.bn("rn", 6)
+        fn = lambda v, x: norm.batch_renorm_apply(x, v["rn.beta"], v["rn.gamma"], v["rn.mean"] + 0.3,  # noqa: E731
+                                                  v["rn.inv_std"], 1.5, 0.5, True)[0]
+    return fn({k: t.to(device) for k, t in vb.v.items()}, x.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["usl", "dsl", "inception", "renorm"])
+def test_library_blocks_on_the_card_match_the_cpu(cuda, name):
+    np.testing.assert_allclose(_block_case(name, cuda).cpu().numpy(), _block_case(name, "cpu").numpy(),
+                               rtol=1e-3, atol=1e-4)
+
+
+def _gloo_rank(rank, store, out):
+    import torch.distributed as dist
+
+    from npe_tpu_torch.parallel import multihost
+
+    mesh = multihost.init_multihost(f"file://{store}", 2, rank, "cuda", backend="gloo",
+                                    timeout_s=120)
+    try:
+        torch.save(multihost.run_demo(mesh, 8, TINY_V1, seed=2), f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_step_like_one_process(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (all_reduce and all_gather of
+    CUDA tensors) run one process's G and D step of the tiny IANv1 profile,
+    each rank staging its rows and launching the tail kernel in both steps."""
+    import multiprocessing
+
+    from npe_tpu_torch.parallel import multihost
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "store"), str(tmp_path / "out")))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=180)
+        assert p.exitcode == 0
+    want = multihost.run_demo(None, 8, TINY_V1, seed=2, device="cuda")
+    for r in range(2):
+        got = torch.load(f"{tmp_path}/out.{r}")
+        assert got["launches"] == {"staging": 1, "rgb_beta_tail": 4}
+        for player in ("gen", "discrim"):
+            for k, w in want[player].items():
+                np.testing.assert_allclose(got[player][k], w, rtol=1e-3, atol=1e-4, err_msg=f"{player} {k}")

@@ -303,3 +303,29 @@ def test_gaussian_sample_takes_its_noise_as_an_argument():
     tp.assert_close(outs[0].numpy(), want, rtol=1e-5, atol=1e-6)
     assert torch.equal(outs[1], tmu)
     assert tsampling.gaussian_sample_list([tmu], [tls], None)[0] is tmu
+
+
+def test_cached_constants_first_built_in_inference_mode_still_carry_gradients():
+    """The packing and placement constants are cached per device; the first
+    build may come from a server's dispatcher under `torch.inference_mode()`.
+    A later training step must still save them for its backward (the hybrid
+    head's s2d packing, the MDCL compose, the fused head's plain version)."""
+    from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
+
+    for cache in (tconv._s2d_gather, tmdcl._placement, rh._placement):
+        cache.cache_clear()
+    rng = np.random.RandomState(9)
+    k = torch.from_numpy(rng.randn(6, 4, 9, 9).astype(np.float32))
+    w = torch.from_numpy(rng.randn(5, 4, 3, 3).astype(np.float32))
+    coeffs = {s: torch.ones(5) for s in (2, 3)}
+    taps = torch.from_numpy(rng.randn(len(rh.tap_offsets([2, 3, 4])), 4, 6).astype(np.float32))
+    with torch.inference_mode():
+        tconv.pack_kernel_s2d(k, 4)
+        tmdcl.compose_mdcl_kernel(w, torch.ones(5), coeffs, [2, 3])
+        rh.trunk_kernel(taps, [2, 3, 4])
+    for t in (k, w, taps):
+        t.requires_grad_(True)
+    loss = (tconv.pack_kernel_s2d(k, 4).square().sum() + tmdcl.compose_mdcl_kernel(w, torch.ones(5), coeffs, [2, 3]).sum()
+            + rh.trunk_kernel(taps, [2, 3, 4]).sum())
+    loss.backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (k, w, taps))

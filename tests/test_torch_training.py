@@ -618,15 +618,16 @@ def test_train_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path, cap
         TT.train(tp.TINY_TORCH, "native:" + str(tmp_path / "nowhere.raw"), out_dir=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
         TT.train(tp.TINY_TORCH, out_dir=str(tmp_path), device="cpu", cfg_overrides={"compute_dtype": "float16"})
-    with pytest.raises(SystemExit):
-        TT.main([tp.TINY_TORCH, "--data-parallel"])
-    assert "queue 1 item 6" in capsys.readouterr().err
-    # every other flag of npe_tpu's trainer reaches train()
+    if not torch.cuda.is_available():  # --data-parallel alone: a world of one, on the card by default
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TT.main([tp.TINY_TORCH, "--data-parallel"])
+    # every flag of npe_tpu's trainer reaches train(), --data-parallel as a mesh
     seen = {}
     monkeypatch.setattr(TT, "train", lambda **kw: seen.update(kw))
     TT.main([tp.TINY_TORCH, "--compute-dtype=bfloat16", "--profile-dir=trace", "--fid-feature-weights=basis.npz",
-             "--dataset=native:train.raw", "--valid-dataset=synthetic"])
+             "--dataset=native:train.raw", "--valid-dataset=synthetic", "--data-parallel", "--device=cpu"])
     assert seen["cfg_overrides"] == {"compute_dtype": "bfloat16"} and seen["dataset_spec"] == "native:train.raw"
+    assert seen["mesh"].shape == (1, 1) and seen["mesh"].device == torch.device("cpu")
     assert (seen["profile_dir"], seen["fid_feature_weights"]) == ("trace", "basis.npz")
 
 
