@@ -1555,7 +1555,7 @@ def main():
     log(f"[phase] 2 starts at {time.perf_counter() - started:.1f} s")
     # 2. Build: one nvcc per source, all started together
     names = build.kernel_names()
-    assert names == ["edit_tail", "mdblock", "rgb_beta_head", "rgb_beta_tail", "staging"], names
+    assert names == ["edit_tail", "mdblock", "mdblock_bf16", "rgb_beta_head", "rgb_beta_tail", "staging"], names
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         outputs = list(pool.map(build.build, names))
@@ -1636,16 +1636,17 @@ def main():
     # 3b. The bf16 forms of the three dtype-generic kernels, each against its
     # bf16 plain version on the same bf16 inputs, compared in bf16
     def check_bf16_kernel(name, case, kernel, plain, args, grad=False):
-        """Forward and (`grad`) the gradient of sum(out^2) through the
-        wrapper's autograd.Function (the plain version's VJP, in bf16), each
-        within BF16_POINTS steps of the plain version's."""
+        """Forward and (`grad`) the gradient of sum(out^2) to each bf16 input
+        through the wrapper's autograd.Function (the plain version's VJP, in
+        bf16), each within BF16_POINTS steps of the plain version's."""
         got = kernel(*args)
         torch.cuda.synchronize()
         worst[name] = max(worst[name], within_steps(f"[kernel] {name} {case}", got, plain(*args)))
         if grad:
             leaves = [a.clone().requires_grad_(True) for a in args]
-            got_g = torch.autograd.grad((kernel(*leaves).float() ** 2).sum(), leaves)
-            want_g = torch.autograd.grad((plain(*leaves).float() ** 2).sum(), leaves)
+            wrt = [a for a in leaves if a.dtype == torch.bfloat16]
+            got_g = torch.autograd.grad((kernel(*leaves).float() ** 2).sum(), wrt)
+            want_g = torch.autograd.grad((plain(*leaves).float() ** 2).sum(), wrt)
             torch.cuda.synchronize()
             for i, (g, w) in enumerate(zip(got_g, want_g)):
                 within_steps(f"[kernel] {name} {case} gradient {i}", g, w, BF16_POINTS + 1)
@@ -1669,13 +1670,22 @@ def main():
         assert got.dtype == torch.float32 and e <= HEAD_TOL, f"the bf16 head's trunk disagrees: {e}"
         check_bf16_kernel("rgb_beta_head_bf16", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb),
                           grad=True)
-    for _, channels, size, scales in MDBLOCK_SHAPES:
-        for batch in (1, 128):
-            x, t1, t2, aff = mdblock_inputs(batch, channels, size, scales, 80 + batch, dev)
-            check_bf16_kernel("mdblock_bf16", f"{size}x{size}x{channels} scales {list(scales)} batch {batch}",
-                              lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
-                              lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
-                              (*bf16((x, t1, t2)), aff))
+    # the bf16 MDBLOCK (its own kernel, mdblock_bf16.cu): full IAN's shapes at
+    # batch 1, 8 and 128 (one patch a block and slices; two patches a block),
+    # an odd batch, a channel count that is not a multiple of its 64-channel
+    # chunk, and a 4x16 map (no 8x8 patches: rows mode); the gradient to each
+    # bf16 input (the plain version's VJP) where the batch is small
+    bf16_cases = [(channels, (size, size), scales, batch) for _, channels, size, scales in MDBLOCK_SHAPES
+                  for batch in (1, 8, 128)]
+    bf16_cases += [(512, (8, 8), (0, 2), 3), (48, (8, 8), (0, 2), 2), (32, (4, 16), (0, 2), 2)]
+    for channels, (h, w), scales, batch in bf16_cases:
+        x, t1, t2, aff = mdblock_inputs(batch, channels, int((h * w) ** 0.5), scales, 80 + batch, dev)
+        x = x.reshape(batch, channels, h, w)
+        plan = mk.bf16_plan(batch, channels, h, w, scales, torch.cuda.get_device_properties(dev).multi_processor_count)
+        check_bf16_kernel("mdblock_bf16", f"{h}x{w}x{channels} scales {list(scales)} batch {batch} ({plan})",
+                          lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
+                          lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
+                          (*bf16((x, t1, t2)), aff), grad=batch < 8)
 
     staging_cache = check_staging(staging, dev, worst)
 
@@ -2096,7 +2106,11 @@ def main():
                                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0], "bound_by": bound[1],
                                 "trunk_ms": trunk_ms})
             bf16_times["kernels"][f"rgb_beta_head_bf16 C 64 batch {batch}"] = k_ms
+        # the bf16 MDBLOCK beside its yardstick: the whole bf16 block from the
+        # bf16 weights in both forms (tap stacking, and the kernel's repacking,
+        # included), the per-op form a composition of library calls, not one
         per_shape = []
+        vi16 = bf16_sessions["IAN fused MDBLOCKs"].variables
         for name, channels, size, scales in MDBLOCK_SHAPES:
             for batch in (1, 128):
                 x, t1, t2, aff = mdblock_inputs(batch, channels, size, scales, 100 + batch, dev)
@@ -2104,14 +2118,22 @@ def main():
                 reps = dict(iters=5, reps=4) if batch == 128 else dict(iters=20)
                 k_ms = graph_ms(lambda: mk.mdblock_fused(*args, scales), **reps)  # noqa: B023
                 p_ms = graph_ms(lambda: mk.mdblock_taps_reference(*args, scales), **reps)  # noqa: B023
+                forms = {mode: graph_ms(lambda: common.mdblock(vi16, None, name, args[0], scales,  # noqa: B023
+                                                               common.LRELU, False, mode=mode), **reps)  # noqa: B023
+                         for mode in common.MDBLOCK_MODES}
                 bound = mdblock_bound_ms(batch, channels, size, scales, route="bf16")
                 log(f"[time] mdblock_bf16 {size}x{size}x{channels} batch {batch}, device time (CUDA graph): kernel "
-                    f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) ({smi})")
-                bf16_times["kernels"][f"mdblock_bf16 {size}x{size}x{channels} batch {batch}"] = k_ms
+                    f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}); the whole bf16 block "
+                    f"from the weights: fused {forms['fused']:.5f} ms, per-op {forms['plain']:.5f} ms ({smi})")
+                key = f"{size}x{size}x{channels} batch {batch}"
+                bf16_times["kernels"][f"mdblock_bf16 {key}"] = k_ms
+                bf16_times.setdefault("mdblock_bf16_blocks", {})[key] = {"kernel_ms": k_ms, "bound_ms": bound[0],
+                                                                        "fused_block_ms": forms["fused"],
+                                                                        "per_op_block_ms": forms["plain"]}
                 if batch == 1:
                     per_shape.append({"shape": f"{size}x{size}x{channels}", "ms": k_ms, "plain_ms": p_ms,
-                                      "bound_ms": bound[0], "bound_by": bound[1]})
-        entries.append({"name": "mdblock_bf16", "source": mk.SOURCE, "replaces": mk.REPLACES,
+                                      "bound_ms": bound[0], "bound_by": bound[1], "per_op_ms": forms["plain"]})
+        entries.append({"name": "mdblock_bf16", "source": mk.BF16_SOURCE, "replaces": mk.REPLACES,
                         **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms")},
                         "bound_by": max(per_shape, key=lambda e: e["bound_ms"])["bound_by"], "per_shape": per_shape})
 

@@ -73,21 +73,8 @@
 // wave of two a multiprocessor (__launch_bounds__ holds the registers to
 // that; 52 KB of shared memory a block).
 //
-// bfloat16. npe_tpu's kernel is dtype-generic: given bf16 x and taps it widens
-// x to float32, applies the affines and lrelus in float32 (the affines stay
-// float32), rounds each MDCL's input to bf16 just before its products, adds
-// them in float32, forms x + h in float32 and rounds the output to bf16
-// (`_kernel`, `_mdcl_sum`). The bf16 form here is this kernel over a
-// template: bf16 loads widened as they are staged; the activations rounded
-// to bf16 after the prologue, at the store into shared memory; one
-// mma.sync m16n8k16 product of bf16 operands (exact in float32) a fragment
-// and step, summed from zero and added to float32 running sums, as the
-// float32 form does; h1 stored in bf16 after BN1's affine and lrelu (where
-// npe_tpu rounds it; the split-K partial sums stay float32); the residual
-// added to the float32 sum from the widened x. The operands are staged as
-// float32 planes that hold bf16 values and packed into bf16 pairs as the
-// fragments are read: the simple form first. Its bound at one image is the
-// taps' bytes, half the float32 form's.
+// This file is the float32 form. The bf16 form is mdblock_bf16.cu, a kernel
+// of its own (wgmma over tap tiles and halo tiles brought by TMA).
 //
 // Left for a later change: staging that moves fewer bytes per product (a
 // halo tile of the activations shared by all taps of a branch; TMA for the
@@ -98,9 +85,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
-#include "bf16.cuh"
 #include "dynamic_smem.cuh"
 
 namespace {
@@ -125,10 +110,9 @@ struct Branches {
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.0f ? v : 0.2f * v; }
 
 // lrelu(s * (sum [+ residual]) + t) over four neighbouring pixels of a channel.
-template <typename T>
-__device__ __forceinline__ float4 epilogue(float4 v, const T* resid, float s, float t) {
+__device__ __forceinline__ float4 epilogue(float4 v, const float* resid, float s, float t) {
   if (resid != nullptr) {
-    const float4 r = npe::load4(resid);
+    const float4 r = *reinterpret_cast<const float4*>(resid);
     v.x += r.x; v.y += r.y; v.z += r.z; v.w += r.w;
   }
   return make_float4(lrelu(fmaf(s, v.x, t)), lrelu(fmaf(s, v.y, t)), lrelu(fmaf(s, v.z, t)),
@@ -159,57 +143,20 @@ __device__ __forceinline__ void mma_tf32_first(float c[4], const uint32_t a[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
 }
 
-// c = a * b for one m16n8k16 fragment of bf16 operands, into float32 sums that
-// start from zero.
-__device__ __forceinline__ void mma_bf16_first(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
-}
-
-// Two values that are bf16 already, as one bf16x2 operand register (lo in the
-// low half: the lower k index).
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// What a thread loads of four tap columns: a float4, or four bf16 in 8 bytes.
-template <typename T>
-using TapQuad = std::conditional_t<std::is_same_v<T, float>, float4, uint2>;
-
-template <typename T>
-__device__ __forceinline__ float4 tap_quad_f32(TapQuad<T> q) {
-  if constexpr (std::is_same_v<T, float>) {
-    return q;
-  } else {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
-// One MDCL over the slice blockIdx.y of its inner dimension. T is float (the
-// float32 form: 3xTF32) or __nv_bfloat16 (the bf16 form: one bf16 product).
+// One MDCL over the slice blockIdx.y of its inner dimension.
 //   in       (batch, channels, height, width)
 //   aff_in   rows (s, t) of the prologue lrelu(s * in + t), or null: in as it is
 //   taps     (9 * branches.n, channels, channels)
-//   aff_out  null: the result is the partial sums, float32 in both forms,
-//            partial (batch, slices, channels, height, width);
-//            else rows (s, t) of the epilogue and the result is the finished map out
+//   aff_out  null: dst is the partial sums (batch, slices, channels, height, width);
+//            else rows (s, t) of the epilogue and dst is the finished map
 //   resid    added before the epilogue's affine, or null
-template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T* __restrict__ taps,
-            Branches branches, float* __restrict__ partial, T* __restrict__ out,
-            const float* __restrict__ aff_out, const T* __restrict__ resid, int channels,
+mdcl_kernel(const float* __restrict__ in, const float* __restrict__ aff_in,
+            const float* __restrict__ taps, Branches branches, float* __restrict__ dst,
+            const float* __restrict__ aff_out, const float* __restrict__ resid, int channels,
             int height, int width, int units_per_split) {
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   // (stage, hi / lo, input channel x pixel) and (stage, hi / lo, input
-  // channel x output channel); the bf16 form uses the hi planes alone, for
-  // operands that are bf16 values held as float32
+  // channel x output channel)
   extern __shared__ __align__(16) float smem[];
   float (*as)[2][kStep * kRowA] = reinterpret_cast<float (*)[2][kStep * kRowA]>(smem);
   float (*ws)[2][kStep * kRowW] = reinterpret_cast<float (*)[2][kStep * kRowW]>(smem + 2 * 2 * kStep * kRowA);
@@ -242,8 +189,8 @@ mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T*
   // split wait until they are stored, so that the loads stay in flight behind
   // the products), whether this thread's pixel is inside the image, and its
   // first channel.
-  T a_next[4];
-  TapQuad<T> w_next[2];
+  float a_next[4];
+  float4 w_next[2];
   bool inside_next = false;
   int c_next = 0;
 
@@ -258,51 +205,35 @@ mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T*
     for (int e = 0; e < 4; ++e)
       a_next[e] = inside_next
                       ? __ldg(in + (static_cast<size_t>(n) * channels + c_next + 4 * e) * hw + y * width + x)
-                      : npe::from_f32<T>(0.0f);
-    const T* wsrc = taps + (static_cast<size_t>(t) * channels + c0 + wr) * channels + tile_c * kTileC + wc;
+                      : 0.0f;
+    const float* wsrc = taps + (static_cast<size_t>(t) * channels + c0 + wr) * channels + tile_c * kTileC + wc;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (wc_ok) {
-        w_next[e] = __ldg(reinterpret_cast<const TapQuad<T>*>(wsrc + static_cast<size_t>(8 * e) * channels));
-      } else {
-        w_next[e] = {};
-      }
-    }
+    for (int e = 0; e < 2; ++e)
+      w_next[e] = wc_ok ? __ldg(reinterpret_cast<const float4*>(wsrc + static_cast<size_t>(8 * e) * channels))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   };
-  // The prologue on the activations, then both operands into stage s: split
-  // into hi and lo in the float32 form; in the bf16 form the activations
-  // rounded to bf16 (npe_tpu rounds an MDCL's input just before its
-  // products) and the taps as they are, both in the hi planes.
+  // The prologue on the activations, then both operands split into stage s.
   auto store = [&](int s) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float v = npe::to_f32(a_next[e]);
+      float v = a_next[e];
       if (aff_in != nullptr && inside_next) {
         const int c = c_next + 4 * e;
         v = lrelu(fmaf(__ldg(aff_in + c), v, __ldg(aff_in + channels + c)));
       }
-      if constexpr (kBf16) {
-        as[s][0][(lk + 4 * e) * kRowA + lp] = npe::round_to<T>(v);
-      } else {
-        uint32_t hi, lo;
-        split_tf32(v, hi, lo);
-        as[s][0][(lk + 4 * e) * kRowA + lp] = __uint_as_float(hi);
-        as[s][1][(lk + 4 * e) * kRowA + lp] = __uint_as_float(lo);
-      }
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      as[s][0][(lk + 4 * e) * kRowA + lp] = __uint_as_float(hi);
+      as[s][1][(lk + 4 * e) * kRowA + lp] = __uint_as_float(lo);
     }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float4 w = tap_quad_f32<T>(w_next[e]);
-      if constexpr (kBf16) {
-        *reinterpret_cast<float4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = w;
-      } else {
-        const float v[4] = {w.x, w.y, w.z, w.w};
-        uint32_t hi[4], lo[4];
+      const float v[4] = {w_next[e].x, w_next[e].y, w_next[e].z, w_next[e].w};
+      uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(v[q], hi[q], lo[q]);
-        *reinterpret_cast<uint4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(&ws[s][1][(wr + 8 * e) * kRowW + wc]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      }
+      for (int q = 0; q < 4; ++q) split_tf32(v[q], hi[q], lo[q]);
+      *reinterpret_cast<uint4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(&ws[s][1][(wr + 8 * e) * kRowW + wc]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
 
@@ -314,62 +245,36 @@ mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T*
     const int s = (unit - first) & 1;
     const bool more = unit + 1 < last;
     if (more) fetch(unit + 1);
-    if constexpr (kBf16) {
-      // one m16n8k16 product a fragment covers the step's 16 channels. A
-      // fragment: rows (pixels) grp and grp + 8, k pairs 2 tig and 2 tig + 8;
-      // B fragment: k pairs 2 tig and 2 tig + 8, column grp.
-      const float* a_s = as[s][0];
-      const float* w_s = ws[s][0];
-      uint32_t a[2][4];
+#pragma unroll
+    for (int kk = 0; kk < kStep; kk += 8) {
+      // A fragment: (row, k), (row + 8, k), (row, k + 4), (row + 8, k + 4)
+      uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int p = wm + 16 * i + grp;
+        const int at = (kk + tig) * kRowA + wm + 16 * i + grp;
+        const int off[4] = {0, 8, 4 * kRowA, 4 * kRowA + 8};
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int row = p + 8 * (q & 1), k = 2 * tig + 8 * (q >> 1);
-          a[i][q] = pack_bf16x2(a_s[k * kRowA + row], a_s[(k + 1) * kRowA + row]);
+          a_hi[i][q] = __float_as_uint(as[s][0][at + off[q]]);
+          a_lo[i][q] = __float_as_uint(as[s][1][at + off[q]]);
         }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = wn + 8 * j + grp;
-        const uint32_t b[2] = {pack_bf16x2(w_s[(2 * tig) * kRowW + col], w_s[(2 * tig + 1) * kRowW + col]),
-                               pack_bf16x2(w_s[(2 * tig + 8) * kRowW + col], w_s[(2 * tig + 9) * kRowW + col])};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16_first(step[i][j], a[i], b);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kStep; kk += 8) {
-        // A fragment: (row, k), (row + 8, k), (row, k + 4), (row + 8, k + 4)
-        uint32_t a_hi[2][4], a_lo[2][4];
+        // B fragment: (k, column), (k + 4, column)
+        const int at = (kk + tig) * kRowW + wn + 8 * j + grp;
+        const uint32_t b_hi[2] = {__float_as_uint(ws[s][0][at]), __float_as_uint(ws[s][0][at + 4 * kRowW])};
+        const uint32_t b_lo[2] = {__float_as_uint(ws[s][1][at]), __float_as_uint(ws[s][1][at + 4 * kRowW])};
+        // lo*hi, then hi*lo, then hi*hi into each sum
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int at = (kk + tig) * kRowA + wm + 16 * i + grp;
-          const int off[4] = {0, 8, 4 * kRowA, 4 * kRowA + 8};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            a_hi[i][q] = __float_as_uint(as[s][0][at + off[q]]);
-            a_lo[i][q] = __float_as_uint(as[s][1][at + off[q]]);
-          }
+          if (kk == 0) mma_tf32_first(step[i][j], a_lo[i], b_hi);
+          else mma_tf32(step[i][j], a_lo[i], b_hi);
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B fragment: (k, column), (k + 4, column)
-          const int at = (kk + tig) * kRowW + wn + 8 * j + grp;
-          const uint32_t b_hi[2] = {__float_as_uint(ws[s][0][at]), __float_as_uint(ws[s][0][at + 4 * kRowW])};
-          const uint32_t b_lo[2] = {__float_as_uint(ws[s][1][at]), __float_as_uint(ws[s][1][at + 4 * kRowW])};
-          // lo*hi, then hi*lo, then hi*hi into each sum
+        for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_lo);
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            if (kk == 0) mma_tf32_first(step[i][j], a_lo[i], b_hi);
-            else mma_tf32(step[i][j], a_lo[i], b_hi);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_lo);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_hi);
-        }
+        for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_hi);
       }
     }
     // The tensor cores align a sum to its largest term and truncate what
@@ -405,11 +310,10 @@ mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T*
           const size_t at = (image * channels + co) * hw + tile_p * kTileP + wm + 16 * i + grp + 8 * lower;
           float v = acc[i][j][2 * lower + odd];
           if (aff_out != nullptr) {
-            if (resid != nullptr) v += npe::to_f32(resid[at]);
-            out[at] = npe::from_f32<T>(lrelu(fmaf(s_out, v, t_out)));
-          } else {
-            partial[at] = v;
+            if (resid != nullptr) v += resid[at];
+            v = lrelu(fmaf(s_out, v, t_out));
           }
+          dst[at] = v;
         }
       }
     }
@@ -418,10 +322,9 @@ mdcl_kernel(const T* __restrict__ in, const float* __restrict__ aff_in, const T*
 
 // out[n, c, p] = lrelu(s[c] * (sum over the slices, in order, of partial[n, slice, c, p]
 //                              [+ resid[n, c, p]]) + t[c]), four pixels a thread.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 add_slices_kernel(const float* __restrict__ partial, const float* __restrict__ aff_out,
-                  const T* __restrict__ resid, T* __restrict__ out, int splits, int channels,
+                  const float* __restrict__ resid, float* __restrict__ out, int splits, int channels,
                   int hw) {
   const int per_image = channels * hw;
   const int i = 4 * (blockIdx.x * kThreads + threadIdx.x);
@@ -434,52 +337,29 @@ add_slices_kernel(const float* __restrict__ partial, const float* __restrict__ a
   }
   const int c = i / hw;
   const size_t at = static_cast<size_t>(blockIdx.y) * per_image + i;
-  npe::store4(out + at, epilogue(v, resid == nullptr ? nullptr : resid + at, __ldg(aff_out + c),
-                                 __ldg(aff_out + channels + c)));
+  *reinterpret_cast<float4*>(out + at) =
+      epilogue(v, resid == nullptr ? nullptr : resid + at, __ldg(aff_out + c), __ldg(aff_out + channels + c));
 }
 
-template <typename T>
-cudaError_t mdcl(const T* in, const float* aff_in, const T* taps, const Branches& branches,
-                 float* partial, T* out, const float* aff_out, const T* resid, int batch,
+cudaError_t mdcl(const float* in, const float* aff_in, const float* taps, const Branches& branches,
+                 float* partial, float* out, const float* aff_out, const float* resid, int batch,
                  int channels, int height, int width, int splits, cudaStream_t s) {
   const int hw = height * width;
   const dim3 grid((hw / kTileP) * ((channels + kTileC - 1) / kTileC), splits, batch);
   const int units_per_split = 9 * branches.n * (channels / kStep) / splits;
   if (splits == 1) {
-    mdcl_kernel<T><<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, nullptr, out, aff_out, resid,
-                                                      channels, height, width, units_per_split);
+    mdcl_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, out, aff_out, resid, channels,
+                                                   height, width, units_per_split);
     return cudaGetLastError();
   }
-  mdcl_kernel<T><<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, partial, nullptr, nullptr,
-                                                    nullptr, channels, height, width, units_per_split);
+  mdcl_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, partial, nullptr, nullptr,
+                                                 channels, height, width, units_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int quads = channels * hw / 4;
-  add_slices_kernel<T><<<dim3((quads + kThreads - 1) / kThreads, batch), kThreads, 0, s>>>(
+  add_slices_kernel<<<dim3((quads + kThreads - 1) / kThreads, batch), kThreads, 0, s>>>(
       partial, aff_out, resid, out, splits, channels, hw);
   return cudaGetLastError();
-}
-
-template <typename T>
-int mdblock(const void* x, const void* taps1, const void* taps2, const void* aff, void* h1, void* partial,
-            void* out, int batch, int channels, int height, int width, int n_branches, const int* dilations,
-            int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_branches < 1 || n_branches > kMaxBranches) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = npe::allow_dynamic_smem<mdcl_kernel<T>>(kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Branches branches;
-  branches.n = n_branches;
-  for (int b = 0; b < kMaxBranches; ++b) branches.dilation[b] = b < n_branches ? dilations[b] : 0;
-  const T* xt = static_cast<const T*>(x);
-  const float* af = static_cast<const float*>(aff);
-  float* part = static_cast<float*>(partial);
-  err = mdcl<T>(xt, af, static_cast<const T*>(taps1), branches, part, static_cast<T*>(h1), af + 2 * channels,
-                nullptr, batch, channels, height, width, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = mdcl<T>(static_cast<const T*>(h1), nullptr, static_cast<const T*>(taps2), branches, part,
-                static_cast<T*>(out), af + 4 * channels, xt, batch, channels, height, width, splits, s);
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -496,17 +376,21 @@ extern "C" int npe_mdblock(const void* x, const void* taps1, const void* taps2, 
                            void* h1, void* partial, void* out, int batch, int channels, int height,
                            int width, int n_branches, const int* dilations, int splits,
                            void* stream) {
-  return mdblock<float>(x, taps1, taps2, aff, h1, partial, out, batch, channels, height, width, n_branches,
-                        dilations, splits, stream);
-}
-
-// The bfloat16 form: x, h1, out, taps1 and taps2 bf16 (h1 holds
-// lrelu(BN1(MDCL1(..))) rounded to bf16, where npe_tpu rounds it); aff and
-// partial float32. Otherwise as npe_mdblock.
-extern "C" int npe_mdblock_bf16(const void* x, const void* taps1, const void* taps2, const void* aff,
-                                void* h1, void* partial, void* out, int batch, int channels, int height,
-                                int width, int n_branches, const int* dilations, int splits,
-                                void* stream) {
-  return mdblock<__nv_bfloat16>(x, taps1, taps2, aff, h1, partial, out, batch, channels, height, width,
-                                n_branches, dilations, splits, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_branches < 1 || n_branches > kMaxBranches) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = npe::allow_dynamic_smem<mdcl_kernel>(kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Branches branches;
+  branches.n = n_branches;
+  for (int b = 0; b < kMaxBranches; ++b) branches.dilation[b] = b < n_branches ? dilations[b] : 0;
+  const float* xf = static_cast<const float*>(x);
+  const float* af = static_cast<const float*>(aff);
+  err = mdcl(xf, af, static_cast<const float*>(taps1), branches,
+                         static_cast<float*>(partial), static_cast<float*>(h1), af + 2 * channels,
+                         nullptr, batch, channels, height, width, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = mdcl(static_cast<const float*>(h1), nullptr, static_cast<const float*>(taps2), branches,
+             static_cast<float*>(partial), static_cast<float*>(out), af + 4 * channels, xf, batch,
+             channels, height, width, splits, s);
+  return static_cast<int>(err);
 }

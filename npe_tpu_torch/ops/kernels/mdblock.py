@@ -26,14 +26,21 @@ One call is two launches of one MDCL kernel (the first leaves
 lrelu(BN1(MDCL1(..))) in a scratch map, the second reads it and the raw x),
 each followed, when the inner dimension is cut into slices so that a single
 image still spreads over the card, by a launch that adds the slices' partial
-sums in a fixed order. The bfloat16 form (x and the taps in bf16, the
-affines float32) multiplies bf16 operands on the tensor cores in one product
-(`mma.sync` m16n8k16) into float32 sums. `mdblock_fused.launches` counts the
-float32 form's calls, `mdblock_fused.launches_bf16` the bf16 form's.
+sums in a fixed order.
+
+The bfloat16 form (x and the taps in bf16, the affines float32) is a kernel
+of its own, `npe_tpu_torch/csrc/mdblock_bf16.cu` (its header has the design):
+a prologue launch writes MDCL1's input lrelu(BN0(x)) in bf16, pixel-major,
+once per element; each MDCL runs on wgmma with both operands brought into
+shared memory by the tensor memory accelerator, the activations as one halo
+tile per 8x8 patch and 64-channel chunk shared by all taps, the taps as they
+lie. Its tiles and slices come from `bf16_plan`. `mdblock_fused.launches` counts the float32 form's
+calls, `mdblock_fused.launches_bf16` the bf16 form's.
 """
 
 import ctypes
 import functools
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +49,7 @@ from npe_tpu_torch.ops.kernels import build
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, count_launch, sum_dtype, vjp_of_plain
 
 SOURCE = "npe_tpu_torch/csrc/mdblock.cu"
+BF16_SOURCE = "npe_tpu_torch/csrc/mdblock_bf16.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
 TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 128 channels
 TILE_CHANNELS = 128
@@ -51,6 +59,14 @@ MAX_BRANCHES = 8
 # __launch_bounds__(256, 2) keeps its registers to 128 a thread, and a block
 # has 52 KB of shared memory.
 BLOCKS_PER_SM = 2
+# The bf16 kernel: a warpgroup takes a patch of 64 pixels (8x8 in halo mode)
+# by 128 or 256 output channels, over units of one tap by 64 input channels
+BF16_CHANNEL_STEP = 64
+BF16_TILE_CHANNELS = 128  # 256 where the plan takes two patches a block and C >= 256
+BF16_MIN_UNITS = 4  # units a slice takes at least: the tap ring's depth
+BF16_STAGES, BF16_ROWS_STAGE_BYTES = 4, 64 * 64 * 2
+SMEM_PER_BLOCK = 227 * 1024  # the most dynamic shared memory a block may take on the H100
+SMEM_PER_SM = 228 * 1024  # what the SM has for its blocks, 1 KB of it reserved per block
 
 
 def dilations(scales):
@@ -139,13 +155,99 @@ def inner_splits(batch, tiles, units, sm_count):
     return max(d for d in range(1, min(most, units) + 1) if units % d == 0)
 
 
+BF16Plan = namedtuple("BF16Plan", "halo sub_tiles tile_channels splits")
+
+
+def bf16_smem_bytes(sub_tiles, halo, radius, tile_channels=BF16_TILE_CHANNELS):
+    """Dynamic shared memory of one block of the bf16 kernel: the tap ring
+    (64 input by `tile_channels` output channels a stage), then per patch
+    two halo tiles of (8 + 2 radius)^2 pixels by 64 channels, or (rows mode)
+    a ring of 64-pixel windows, then an 8-byte barrier a stage."""
+    acts = 2 * (8 + 2 * radius) ** 2 * BF16_CHANNEL_STEP * 2 if halo else BF16_STAGES * BF16_ROWS_STAGE_BYTES
+    return BF16_STAGES * (BF16_CHANNEL_STEP * tile_channels * 2 + 8) + sub_tiles * acts
+
+
+def bf16_plan(batch, channels, height, width, scales, sm_count):
+    """How the bf16 kernel cuts one MDCL (a stated rule, the same on every
+    call of a shape):
+    - halo: 8x8 patches that share one halo tile among all taps, when both
+      sides are multiples of 8 and two patches' halo tiles fit a block;
+      else rows mode, 64 consecutive pixels with a window staged per tap;
+    - sub_tiles: two patches a block (two warpgroups over the same tap
+      stages, half the taps' traffic) once the output tiles (patches x
+      128-channel tiles) give every SM two; else one;
+    - tile_channels: with two patches a block and C >= 256, 256 output
+      channels a block (wgmma's widest N: half the products' issue a
+      multiply-add), where its shared memory fits; else 128;
+    - splits: slices of the inner dimension (chunks of 64 channels x taps)
+      so that the blocks fill the card's slots (one block of two patches or,
+      where shared memory allows, two of one a multiprocessor), each slice
+      at least BF16_MIN_UNITS units; one once the batch fills the card."""
+    radius = max(dilations(scales))
+    halo = height % 8 == 0 and width % 8 == 0 and bf16_smem_bytes(2, True, radius) <= SMEM_PER_BLOCK
+    patches = batch * height * width // TILE_PIXELS
+    sub = 2 if patches * -(-channels // BF16_TILE_CHANNELS) >= 2 * sm_count else 1
+    wide = sub == 2 and channels >= 256 and bf16_smem_bytes(2, halo, radius, 256) <= SMEM_PER_BLOCK
+    tile_channels = 256 if wide else BF16_TILE_CHANNELS
+    per_sm = 1 if sub == 2 else min(2, SMEM_PER_SM // (bf16_smem_bytes(1, halo, radius) + 1024))
+    blocks = -(-patches // sub) * -(-channels // tile_channels)
+    units = -(-channels // BF16_CHANNEL_STEP) * 9 * len(dilations(scales))
+    splits = max(1, min(units // BF16_MIN_UNITS, per_sm * sm_count // blocks))
+    return BF16Plan(halo, sub, tile_channels, splits)
+
+
 @functools.cache
 def _entry(bf16):
-    lib = build.load("mdblock")
-    fn = lib.npe_mdblock_bf16 if bf16 else lib.npe_mdblock
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    if bf16:
+        fn = build.load("mdblock_bf16").npe_mdblock_bf16
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+    else:
+        fn = build.load("mdblock").npe_mdblock
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_float32(x, taps1, taps2, affines, scales):
+    """The float32 kernel's call: scratch for h1 and, when `inner_splits`
+    slices, float32 partial sums. Returns (the output, the C function's
+    return code)."""
+    n, c, h, w = x.shape
+    branches = dilations(scales)
+    tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = inner_splits(n, tiles, 9 * len(branches) * c // CHANNEL_STEP, sms)
+    h1, out = torch.empty_like(x), torch.empty_like(x)
+    partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=x.device) if splits > 1 else None
+    with torch.cuda.device(x.device):
+        rc = _entry(False)(
+            x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(),
+            h1.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
+            n, c, h, w, len(branches), (ctypes.c_int * len(branches))(*branches), splits,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    return out, rc
+
+
+def _launch_bf16(x, taps1, taps2, affines, scales):
+    """The bf16 kernel's call: scratch for MDCL1's input and h1 (bf16,
+    pixel-major), float32 partial sums when `bf16_plan` slices; the taps as
+    they lie. Returns (the output, the C function's return code)."""
+    n, c, h, w = x.shape
+    branches = dilations(scales)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = bf16_plan(n, c, h, w, scales, sms)
+    act, h1, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    partial = torch.empty((n, plan.splits, c, h, w), dtype=torch.float32, device=x.device) if plan.splits > 1 else None
+    with torch.cuda.device(x.device):
+        rc = _entry(True)(
+            x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(), act.data_ptr(), h1.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(), n, c, h, w, len(branches),
+            (ctypes.c_int * len(branches))(*branches), plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    return out, rc
 
 
 class _MDBlock(torch.autograd.Function):
@@ -153,23 +255,8 @@ class _MDBlock(torch.autograd.Function):
     def forward(ctx, x, taps1, taps2, affines, scales):
         ctx.save_for_backward(x, taps1, taps2, affines)
         ctx.scales = scales
-        n, c, h, w = x.shape
-        branches = dilations(scales)
-        tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = inner_splits(n, tiles, 9 * len(branches) * c // CHANNEL_STEP, sms)
-        # h1 = lrelu(BN1(MDCL1(..))) in x's dtype: under bfloat16 it is rounded
-        # where npe_tpu rounds it, after the activation and before MDCL2's
-        # products; the slices' partial sums stay float32 in both forms
-        h1, out = torch.empty_like(x), torch.empty_like(x)
-        partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=x.device) if splits > 1 else None
-        with torch.cuda.device(x.device):
-            rc = _entry(x.dtype == torch.bfloat16)(
-                x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(),
-                h1.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
-                n, c, h, w, len(branches), (ctypes.c_int * len(branches))(*branches), splits,
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
+        launch = _launch_bf16 if x.dtype == torch.bfloat16 else _launch_float32
+        out, rc = launch(x, taps1, taps2, affines, scales)
         if rc != 0:
             raise RuntimeError(f"mdblock kernel launch failed with CUDA error {rc}")
         count_launch(mdblock_fused, x.dtype)

@@ -4,6 +4,8 @@
     git archive 9a0f129 npe_tpu_torch/csrc | tar -x -C scratch_archive/base
     python3 scripts/kernel_ab.py scratch_archive/base   # 9a0f129's edit_tail and RGB-Beta head
     python3 scripts/kernel_ab.py --wgmma                # scripts/mdblock_wgmma.cu's MDBLOCK
+    git archive 76a5cfd npe_tpu_torch/csrc | tar -x -C scratch_archive/pr10
+    python3 scripts/kernel_ab.py --mdblock-bf16 scratch_archive/pr10   # 76a5cfd's bf16 MDBLOCK
 
 The earlier side is bound to commit 9a0f129 (edit_tail one block per image;
 the head's trunk as nine tap products over the space-to-depth(4) map, cut
@@ -22,15 +24,21 @@ batch 1 (both sides over the same weights: the earlier side's s2d taps are
 packed from the current side's stacked taps), or full IAN's three MDBLOCK
 shapes at batch 1, 8 and 128. A side first holds its kernel against the
 plain version (chip_smoke.py's KERNEL_TOL, HEAD_TOL, MDBLOCK_TOL) and fails
-if it disagrees, then times it by CUDA-graph replay. Beside them, in every
+if it disagrees, then times it by CUDA-graph replay. `--mdblock-bf16` sets
+76a5cfd's bf16 MDBLOCK (`npe_mdblock_bf16` in its mdblock.cu, the current
+`npe_mdblock` ABI and `inner_splits` rule, one mma.sync product a 16-channel
+step) against the current one (`csrc/mdblock_bf16.cu` through the wrapper)
+at full IAN's three shapes at batch 1 and 128, each held to the bf16 plain
+version within chip_smoke.py's bf16 rule (BF16_POINTS steps of |want| +
+std; its error is the worst fraction of that rule). Beside them, in every
 process, the hybrid head's trunk (one cuDNN conv over the s2d map) at the
 head's shapes, a yardstick for the kernel's trunk and a control of drift
 between processes; on the current side the trunk alone (its launch and the
 pass that adds the slices) and an empty kernel of edit_tail's grid (the
 launch floor, scripts/launch_floor.py). The yardstick, the trunk alone and
 the empty kernel are timed, not checked (their error is null). One line
-per case, and a JSON summary in runs/kernel_ab.json or
-runs/kernel_ab_wgmma.json (git-ignored).
+per case, and a JSON summary in runs/kernel_ab.json, runs/kernel_ab_wgmma.json
+or runs/kernel_ab_mdblock_bf16.json (git-ignored).
 """
 
 import ctypes
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, ".")
-from chip_smoke import HEAD_TOL, KERNEL_TOL, MDBLOCK_TOL  # noqa: E402
+from chip_smoke import BF16_POINTS, BF16_STEP, HEAD_TOL, KERNEL_TOL, MDBLOCK_TOL  # noqa: E402
 from npe_tpu_torch.ops.conv import conv2d, space_to_depth  # noqa: E402
 from npe_tpu_torch.ops.kernels import build  # noqa: E402
 from npe_tpu_torch.ops.kernels import edit_tail as et  # noqa: E402
@@ -76,10 +84,13 @@ def nvcc(src, lib):
 
 def library_entry(lib, name):
     """An entry point of _build/baseline/`lib`: `npe_mdblock` (current ABI),
-    or 9a0f129's `npe_edit_tail` and `npe_rgb_beta_head`."""
+    76a5cfd's `npe_mdblock_bf16` (the same ABI), or 9a0f129's
+    `npe_edit_tail` and `npe_rgb_beta_head`."""
     fn = getattr(ctypes.CDLL(os.path.join(BASELINE_DIR, lib)), name)
     fn.argtypes = {
         "npe_mdblock": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+        "npe_mdblock_bf16": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                                                           ctypes.c_void_p],
         "npe_edit_tail": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "npe_rgb_beta_head": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     }[name]
@@ -104,6 +115,13 @@ def s2d_trunk_taps(taps, scales):
     return rt.pack_head_taps(k, 4)
 
 
+def bf16_rule(got, want):
+    """The worst |got - want| over chip_smoke.py's bf16 limit, BF16_POINTS
+    steps of 2^-8 of |want| + std(want) (1 is the limit)."""
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (BF16_POINTS * BF16_STEP * (w.abs() + w.std()))).max())
+
+
 def run_side(side, what):
     """Checks and times one side's kernels; {case: {"ms", "err"}}."""
     # a launch outside the capturing stream leaves the timed graph empty
@@ -112,12 +130,12 @@ def run_side(side, what):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
 
-    def measure(case, fn, plain=None, tol=None, reps=100):
+    def measure(case, fn, plain=None, tol=None, reps=100, error=lambda got, want: float((got - want).abs().max())):
         """Times fn; first holds it to `plain` within `tol`, where it has one
         (err None where nothing is checked: the yardstick, the empty kernel)."""
         err = None
         if plain is not None:
-            err = float((fn() - plain()).abs().max())
+            err = error(fn(), plain())
             if not err <= tol:
                 raise AssertionError(f"{side} {case} disagrees with its plain version: {err} > {tol}")
         torch.cuda.synchronize()
@@ -127,6 +145,40 @@ def run_side(side, what):
         return torch.cuda.current_stream().cuda_stream
 
     with torch.no_grad():
+        if what == "mdblock_bf16":
+            md = None if side == "current" else library_entry("libmdblock.so", "npe_mdblock_bf16")
+            bf = torch.bfloat16
+            for c, size, scales in MDBLOCK_SHAPES:
+                for batch in (1, 128):
+                    rng = np.random.RandomState(c + batch)
+                    n_taps = 9 * len(mk.dilations(scales))
+                    x = torch.from_numpy(rng.randn(batch, c, size, size).astype(np.float32)).to(dev, bf)
+                    t1, t2 = (torch.from_numpy((rng.randn(n_taps, c, c) / np.sqrt(2.2 * c)).astype(np.float32))
+                              .to(dev, bf) for _ in range(2))
+                    aff = torch.from_numpy(np.stack([rng.uniform(0.8, 1.2, c), rng.uniform(-0.2, 0.2, c)] * 3)
+                                           .astype(np.float32)).to(dev)
+                    if md is None:
+                        fn = lambda: mk.mdblock_fused(x, t1, t2, aff, scales)  # noqa: E731, B023
+                    else:
+                        br = mk.dilations(scales)
+                        # 76a5cfd's rule for either dtype: 64 x 128 tiles, 16-channel steps
+                        tiles = (size * size // mk.TILE_PIXELS) * -(-c // mk.TILE_CHANNELS)
+                        splits = mk.inner_splits(batch, tiles, n_taps * c // mk.CHANNEL_STEP, sms)
+                        h1, out = torch.empty_like(x), torch.empty_like(x)
+                        partial = (torch.empty((batch, splits, c, size, size), dtype=torch.float32, device=dev)
+                                   if splits > 1 else None)
+
+                        def fn():
+                            rc = md(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),  # noqa: B023
+                                    None if partial is None else partial.data_ptr(), out.data_ptr(), batch, c,  # noqa: B023
+                                    size, size, len(br), (ctypes.c_int * len(br))(*br), splits, stream())  # noqa: B023
+                            assert rc == 0, rc
+                            return out  # noqa: B023
+
+                    measure(f"mdblock_bf16 {size}x{size}x{c} batch {batch}", fn,
+                            lambda: mk.mdblock_taps_reference(x, t1, t2, aff, scales),  # noqa: B023
+                            1.0, 5 if batch == 128 else 20, error=bf16_rule)
+            return results
         if what == "mdblock":
             md = None if side == "current" else library_entry(WGMMA_LIB, "npe_mdblock")
             for c, size, scales in MDBLOCK_SHAPES:
@@ -224,8 +276,9 @@ def run_side(side, what):
 
 
 def main():
-    if not torch.cuda.is_available() or len(sys.argv) not in (2, 4):
-        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory or --wgmma", file=sys.stderr)
+    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3, 4):
+        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory, --wgmma, or --mdblock-bf16 "
+              "and 76a5cfd's directory", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # the plain versions in float32
@@ -235,8 +288,12 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
+    # {the current kernel's name: (the other side's source, its library)}
     if sys.argv[1] == "--wgmma":
         other, what, sources = "wgmma", "mdblock", {"mdblock": (WGMMA_SOURCE, WGMMA_LIB)}
+    elif sys.argv[1] == "--mdblock-bf16":
+        other, what = "earlier", "mdblock_bf16"
+        sources = {"mdblock_bf16": (os.path.join(sys.argv[2], "npe_tpu_torch", "csrc", "mdblock.cu"), "libmdblock.so")}
     else:
         other, what = "earlier", "edit_head"
         sources = {name: (os.path.join(sys.argv[1], "npe_tpu_torch", "csrc", f"{name}.cu"), f"lib{name}.so")
@@ -267,13 +324,15 @@ def main():
         err = {other: runs[0][case]["err"], "current": runs[1][case]["err"]}
         rec = {"case": case, f"{other}_ms": [t[0], t[3]], "current_ms": [t[1], t[2]],
                "max_abs_err_vs_plain": err, "speedup": (t[0] + t[3]) / (t[1] + t[2])}
-        checked = (f"; max abs err vs plain {err[other]:.3e} / {err['current']:.3e}, each within its tolerance"
+        measure = "worst fraction of the bf16 rule" if what == "mdblock_bf16" else "max abs err vs plain"
+        checked = (f"; {measure} {err[other]:.3e} / {err['current']:.3e}, each within its tolerance"
                    if err["current"] is not None else "; not checked (no plain version)")
         print(f"[ab] {case}: {other} {t[0]:.5f} / {t[3]:.5f} ms, current {t[1]:.5f} / {t[2]:.5f} ms "
               f"({rec['speedup']:.2f}x){checked} ({smi})", flush=True)
         results.append(rec)
     os.makedirs("runs", exist_ok=True)
-    with open(f"runs/kernel_ab{'_wgmma' if other == 'wgmma' else ''}.json", "w") as fh:
+    suffix = {"mdblock": "_wgmma", "mdblock_bf16": "_mdblock_bf16"}.get(what, "")
+    with open(f"runs/kernel_ab{suffix}.json", "w") as fh:
         json.dump({"device": smi, "turns": turns, "cases": results}, fh, indent=1)
     return 0
 

@@ -1,13 +1,17 @@
 """The port's bench scripts on the CPU: their arguments, their refusal to run
 without a CUDA device, and the parts that need no card (the operation count
-behind `mfu`, the stroke script and its timing loop)."""
+behind `mfu`, the stroke script and its timing loop, the stage profile's
+multiply-add counts against the reference script's and its stages on the
+tiny profile)."""
 
 import numpy as np
 import pytest
 import torch
 
+import bench_stages
 import bench_torch
 import bench_torch_edit
+import bench_torch_stages
 import torch_parity as tp
 from npe_tpu_torch.editor.engine import EditSession
 from npe_tpu_torch.models import get_config
@@ -18,6 +22,7 @@ tp.torch_threads()
 @pytest.mark.parametrize("bench,argv", [
     (bench_torch, ["--models", "IAN_simple", "--iters", "1", "--repeats", "1"]),
     (bench_torch_edit, ["--models", "IAN_simple", "--strokes", "1", "--repeats", "1"]),
+    (bench_torch_stages, ["--batch", "1", "--iters", "1", "--rounds", "1"]),
 ])
 def test_exits_nonzero_without_cuda(bench, argv, capsys):
     if torch.cuda.is_available():
@@ -92,3 +97,59 @@ def test_stroke_script_and_stroke_times_on_a_cpu_session():
     image = np.zeros((3, 64, 64), np.float32)
     times = bench_torch_edit.stroke_times(session, image, 3, warm=1)
     assert len(times) == 3 and all(t > 0 for t in times) and len(session._undo) == 4
+
+
+def test_bench_torch_stages_arguments():
+    a = bench_torch_stages.parse([])
+    # the reference's defaults: full IAN in bf16 at batch 128; the port's default forms
+    assert (a.batch, a.dtype, a.mdblock_mode, a.head_mode, a.iters, a.rounds) == (128, "bfloat16", "plain",
+                                                                                  "hybrid", 10, 5)
+    a = bench_torch_stages.parse(["--dtype", "float32", "--mdblock-mode", "fused", "--head-mode", "fused",
+                                  "--batch", "256"])
+    assert (a.dtype, a.mdblock_mode, a.head_mode, a.batch) == ("float32", "fused", "fused", 256)
+    for bad in (["--dtype", "float16"], ["--mdblock-mode", "branch"], ["--head-mode", "s2d"], ["--batch", "0"],
+                ["--rounds", "0"], ["--mdcl-mode", "fused"]):
+        with pytest.raises(SystemExit):
+            bench_torch_stages.parse(bad)
+
+
+def test_stage_macs_are_the_reference_scripts():
+    """Full IAN's widths give each stage the multiply-adds that
+    bench_stages.py:94-147 writes out for it, stage by stage and by name."""
+    cm, zdim = bench_stages.conv_macs, 100
+    want = {
+        "encode(total)": cm(32, 75, 1, 128) + cm(16, 25, 128, 256) + cm(8, 25, 256, 512) + cm(4, 25, 512, 1024)
+        + 16384 * 1000 + 2 * 1000 * zdim,
+        "decode(total)": None,
+        "fc2+unflatten": zdim * 8192,
+        "deconv1 512->512 @8": cm(8, 25, 512, 512) // 4,
+        "mdblock2a @8 512 [0,2]": 2 * cm(8, 25, 512, 512),
+        "deconv2 512->256 @16": cm(16, 25, 512, 256) // 4,
+        "mdblock3a @16 256 [0,2,3]": 2 * cm(16, 49, 256, 256),
+        "deconv3 256->128 @32": cm(32, 25, 256, 128) // 4,
+        "mdblock4a @32 128 [0,2,3]": 2 * cm(32, 49, 128, 128),
+        "deconv4+bn 128->128 @64": cm(64, 25, 128, 128) // 4,
+        "rgb_beta_head @64": cm(64, 81, 128, 6) + cm(64, 81, 2, 2) + cm(64, 81, 4, 2),
+    }
+    got = bench_torch_stages.stage_macs((128, 256, 512, 1024), 1000, (512, 512, 256, 128, 128), zdim)
+    assert list(got) == list(want) and got == want
+
+
+@pytest.mark.parametrize("mdblock_mode,head_mode", [("plain", "hybrid"), ("fused", "fused")])
+def test_stages_run_on_the_tiny_profile(mdblock_mode, head_mode):
+    """Every stage of the profile is a call of the port's own functions: on
+    the tiny full-IAN profile on the CPU each gives a finite map of its
+    stage's shape, in the reference's order, the same from both forms."""
+    module = get_config(tp.TINY_FULL_TORCH)
+    v = tp.port_variables(tp.TINY_FULL_JAX)
+    enc, fc, dec = bench_torch_stages.widths(v)
+    assert (enc, fc, dec) == ((16, 32, 64, 128), 64, (64, 64, 32, 16, 16))
+    rows = bench_torch_stages.stages(module, v, 2, torch.float32, "cpu", mdblock_mode, head_mode)
+    shapes = [(2, 16), (2, 3, 64, 64), (2, 64, 4, 4), (2, 64, 8, 8), (2, 64, 8, 8), (2, 32, 16, 16),
+              (2, 32, 16, 16), (2, 16, 32, 32), (2, 16, 32, 32), (2, 16, 64, 64), (2, 3, 64, 64)]
+    assert [name for name, _, _ in rows] == list(bench_torch_stages.stage_macs(enc, fc, dec, 16))
+    with torch.no_grad():
+        for (name, fn, macs), shape in zip(rows, shapes):
+            out = fn()
+            assert tuple(out.shape) == shape and bool(torch.isfinite(out).all()), name
+            assert (macs is None) == (name == "decode(total)")

@@ -27,7 +27,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "npe_tpu")
 
 def _port_sources():
     return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [
-        ROOT / f"{name}.py" for name in ("chip_smoke", "bench_torch", "bench_torch_edit", "bench_torch_serving")] + [
+        ROOT / f"{name}.py" for name in ("chip_smoke", "bench_torch", "bench_torch_edit", "bench_torch_serving",
+                                          "bench_torch_stages")] + [
         ROOT / "scripts" / f"{name}.py" for name in ("kernel_ab", "kernel_sweep", "launch_floor")]
 
 

@@ -595,6 +595,35 @@ def test_bf16_kernel_forms_match_their_bf16_plain_versions(cuda, kernel, batch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,channels,shape,scales", [
+    # full IAN's three blocks at batch 1 and 8 (one patch a block, slices) and 128 (two patches a block)
+    (1, 512, (8, 8), (0, 2)), (1, 256, (16, 16), (0, 2, 3)), (1, 128, (32, 32), (0, 2, 3)),
+    (8, 512, (8, 8), (0, 2)), (8, 256, (16, 16), (0, 2, 3)), (8, 128, (32, 32), (0, 2, 3)),
+    (128, 512, (8, 8), (0, 2)), (128, 256, (16, 16), (0, 2, 3)), (128, 128, (32, 32), (0, 2, 3)),
+    (3, 512, (8, 8), (0, 2)),  # an odd batch
+    (2, 48, (8, 8), (0, 2)),  # C not a multiple of the 64-channel chunk: a short last chunk
+    (3, 80, (16, 16), (2, 3, 4)),  # a part-full channel tile and chunk; no scale 0
+    (2, 32, (4, 16), (0, 2)),  # no 8x8 patches: rows mode
+])
+def test_bf16_mdblock_kernel_matches_plain(cuda, batch, channels, shape, scales):
+    """The bf16 MDBLOCK kernel (csrc/mdblock_bf16.cu) against the bf16
+    plain version on the same bf16 inputs, counted in `launches_bf16`, and
+    the gradient to x through the wrapper (the plain version's VJP)."""
+    h, w = shape
+    x, t1, t2, aff = _mdblock_inputs(batch, channels, int((h * w) ** 0.5), scales, cuda)
+    x, t1, t2 = x.reshape(batch, channels, h, w).to(BF16), t1.to(BF16), t2.to(BF16)
+    before = (mk.mdblock_fused.launches, mk.mdblock_fused.launches_bf16)
+    got = mk.mdblock_fused(x, t1, t2, aff, scales)
+    torch.cuda.synchronize()
+    assert (mk.mdblock_fused.launches, mk.mdblock_fused.launches_bf16) == (before[0], before[1] + 1)
+    _within_bf16_steps(got, mk.mdblock_taps_reference(x, t1, t2, aff, scales))
+    xg = x.clone().requires_grad_(True)
+    (got_g,) = torch.autograd.grad((mk.mdblock_fused(xg, t1, t2, aff, scales).float() ** 2).sum(), xg)
+    (want_g,) = torch.autograd.grad((mk.mdblock_taps_reference(xg, t1, t2, aff, scales).float() ** 2).sum(), xg)
+    _within_bf16_steps(got_g, want_g, 4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("config,form", [(TINY, {}), (TINY_V1, {"head_mode": "hybrid"}),
                                          (TINY_V1, {"head_mode": "fused"}), (TINY_FULL, {"mdblock_mode": "fused"})])
 def test_bf16_session_on_the_card_runs_the_bf16_forms(cuda, config, form):

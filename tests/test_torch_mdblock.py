@@ -310,3 +310,51 @@ def test_three_tf32_products_keep_float32_accuracy_and_one_does_not():
     assert float(want.std()) > 1
     assert err3 <= MDBLOCK_TOL / 20, err3
     assert err1 > MDBLOCK_TOL, err1
+
+
+@pytest.mark.parametrize("batch,channels,size,scales,want", [
+    # full IAN's three blocks: one image takes one patch a block (two an SM where they fit: R = 2)
+    # and slices of at least 4 units
+    (1, 512, (8, 8), (0, 2), (True, 1, 128, 36)), (1, 256, (16, 16), (0, 2, 3), (True, 1, 128, 16)),
+    (1, 128, (32, 32), (0, 2, 3), (True, 1, 128, 8)),
+    (8, 512, (8, 8), (0, 2), (True, 1, 128, 8)), (8, 128, (32, 32), (0, 2, 3), (True, 1, 128, 1)),
+    (3, 512, (8, 8), (0, 2), (True, 1, 128, 22)),
+    # batch 128 fills the card: two patches a block, 256 channels where C has them, one slice
+    (128, 512, (8, 8), (0, 2), (True, 2, 256, 1)), (128, 256, (16, 16), (0, 2, 3), (True, 2, 256, 1)),
+    (128, 128, (32, 32), (0, 2, 3), (True, 2, 128, 1)),
+    # two patches a block whose 256-channel tap ring and halo would not fit: 128 channels
+    (256, 256, (8, 8), (2, 3, 4), (True, 2, 128, 1)),
+    # a 4x16 map has no 8x8 patches, and a dilation of 10 no halo that fits: rows mode
+    (2, 32, (4, 16), (0, 2), (False, 1, 128, 4)), (2, 64, (16, 16), (0, 10), (False, 1, 128, 4)),
+    # a channel count that is not a multiple of 64 has a short last chunk
+    (2, 48, (8, 8), (0, 2), (True, 1, 128, 4)), (3, 80, (16, 16), (2, 3, 4), (True, 1, 128, 11)),
+])
+def test_bf16_plan_by_batch(batch, channels, size, scales, want):
+    """The bf16 kernel's tiles and slices as a stated rule of the shape:
+    halo tiles where the sides are multiples of 8 and the halo fits; two
+    patches a block once the output tiles give each of the card's 132 SMs
+    two, then 256 output channels a block where C has them and the block's
+    shared memory fits; slices that fill the card's slots, at least
+    BF16_MIN_UNITS units each."""
+    h, w = size
+    plan = tk.bf16_plan(batch, channels, h, w, scales, 132)
+    assert tuple(plan) == want
+    units = -(-channels // tk.BF16_CHANNEL_STEP) * 9 * len(tk.dilations(scales))
+    patches = batch * h * w // tk.TILE_PIXELS
+    blocks = -(-patches // plan.sub_tiles) * -(-channels // plan.tile_channels)
+    assert plan.splits == 1 or (units // plan.splits >= tk.BF16_MIN_UNITS and blocks * plan.splits <= 2 * 132)
+    radius = max(tk.dilations(scales))
+    assert tk.bf16_smem_bytes(plan.sub_tiles, plan.halo, radius, plan.tile_channels) <= tk.SMEM_PER_BLOCK
+
+
+def test_bf16_shared_memory_by_mode():
+    """A block's shared memory: a ring of four tap stages of 64 x 128 (16
+    KB) or 64 x 256 (32 KB) bf16 taps, then per patch two halo tiles of
+    (8 + 2R)^2 pixels x 64 channels, or a ring of four 8 KB windows in rows
+    mode, then four 8-byte stage barriers."""
+    assert tk.bf16_smem_bytes(1, True, 2) == 4 * 16384 + 2 * 144 * 128 + 32
+    assert tk.bf16_smem_bytes(2, True, 3) == 4 * 16384 + 2 * 2 * 196 * 128 + 32
+    assert tk.bf16_smem_bytes(2, True, 3, 256) == 4 * 32768 + 2 * 2 * 196 * 128 + 32 <= tk.SMEM_PER_BLOCK
+    assert tk.bf16_smem_bytes(2, False, 10) == 4 * 16384 + 2 * 4 * 8192 + 32
+    assert tk.bf16_smem_bytes(2, True, 5) <= tk.SMEM_PER_BLOCK < tk.bf16_smem_bytes(2, True, 6)
+    assert tk.bf16_smem_bytes(2, True, 4, 256) > tk.SMEM_PER_BLOCK
