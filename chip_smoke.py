@@ -19,15 +19,18 @@ editor over HTTP held exactly against a direct `EditSession`; and the
 serving times (bench_torch_serving.py's functions). Then the trainer:
 `training.train.train` on IAN_simple at full width (batch 128, the procedural
 dataset, two epochs and a resumed third, with the dataset resident on the card
-and with per-chunk uploads, each chunk staged by the `staging` kernel), one G
-and one D step held against the CPU, the same steps on IANv1 and full IAN;
+and with per-chunk uploads, each chunk staged by the `staging` kernel, the
+steps replayed as captured CUDA graphs), one G and one D step held against
+the CPU, the same steps on IANv1 and full IAN, and a chunk of each model
+captured held against the same chunk run eagerly;
 then (phase 6b) bf16 training: one bf16 G and D step of each model beside
 float32 on the same weights and batch (IAN_simple at batch 128 within
 npe_tpu's bf16 trajectory bounds; IANv1 and full IAN through the tail's bf16
 form alone), `train()` on IAN_simple from a `native:` raw file in bf16 with
 encoder-FID validation, a profiler trace and a resumed epoch that reads the
 FID basis back, and the sample CLI; and the training times, float32 and bf16
-in turns, with the trainer's three data paths. Then bfloat16: the bf16 forms
+in turns, eager and captured (with bench_torch_train.py's function), with
+the trainer's three data paths. Then bfloat16: the bf16 forms
 of `rgb_beta_tail`, `rgb_beta_head` and `mdblock_fused` held against their
 bf16 plain versions, `api.IAN`, `EditSession` and `InferenceServer` (both
 wires) with `dtype=torch.bfloat16` on the same weights for every model and
@@ -112,6 +115,13 @@ STAGING_TOL = 1e-6
 # term would be tens of percent); the float64 step to GRAD64_TOL.
 GRAD32_TOL = 1e-1
 GRAD64_TOL = 1e-6
+# the captured training chunk against the eager one on the card, from the same
+# state, seed and batch: CAPTURE_STEPS steps (an eager G and D, a captured and
+# replayed G and D, then replays); in float64 each tensor within CAPTURE64_TOL of
+# its largest value (the parity rule: both run the same kernels in the same order)
+CAPTURE_STEPS, CAPTURE64_TOL = 6, 1e-7
+# phase 7's captured rounds: bench_torch_train.run's G + D pairs a round and rounds
+TRAIN_BENCH_PAIRS, TRAIN_BENCH_ROUNDS = 8, 3
 # words in the names of cuDNN's convolution kernels (fprop, dgrad, wgrad)
 CONV_KERNEL_WORDS = ("conv", "dgrad", "wgrad", "fprop", "implicit_gemm", "xmma", "cudnn")
 # a bf16 G + D step against float32 on the same weights and batch: npe_tpu's
@@ -677,6 +687,103 @@ def bf16_steps(label, module, variables, counters, batch_size, expect_tail):
     return rows, launches["bfloat16"]
 
 
+def flat_state(state):
+    """{path tuple: tensor} of a train state (`training.captured.flatten`)."""
+    from npe_tpu_torch.training.captured import flatten
+
+    return dict(flatten(state))
+
+
+def check_train_state(label, got, want, start):
+    """A float32 train state after some steps on the card against another
+    run's from the same start (`flat_state`'s), by phase 8's rule per
+    tensor in norm (`check_moments`: within DP_MU_REL of |want| plus
+    DP_MU_FLOOR of the part's largest value times sqrt(size)): the Adam
+    moments and the BN statistics as they are, the parameters by what the
+    steps moved them (got - start against want - start). A parameter whose
+    gradient is rounding noise (its first moment within the floor, as a
+    bias before a batch norm has) is held through its moments alone: Adam
+    moves it by sign-like steps of lr either way. What is not floating, and
+    the frozen weights, are equal. Returns the rule and the worst readings
+    as a line of text."""
+    groups, noise = {}, []
+    for path, w in want.items():
+        if not w.is_floating_point() or path[:2] == ("parts", "frozen"):
+            assert torch.equal(got[path], w), (label, path)
+        elif path[0] == "opt" or path[:2] == ("parts", "state"):
+            groups.setdefault("/".join(path[:-1]), {})[path[-1]] = (got[path], w)
+    for part in ("gen", "latent", "discrim"):
+        mu = {path[-1]: w for path, w in want.items() if path[:3] == ("opt", part, "mu")}
+        scale = max(float(t.abs().max()) for t in mu.values())
+        for path, w in want.items():
+            if path[:2] != ("parts", part):
+                continue
+            if float(mu[path[-1]].float().norm()) <= DP_MU_FLOOR * scale * w.numel() ** 0.5:
+                noise.append("/".join(path[1:]))
+            else:
+                groups.setdefault(f"steps of parts/{part}", {})[path[-1]] = (got[path] - start[path],
+                                                                           w - start[path])
+    got = {g: {k: a for k, (a, _) in d.items()} for g, d in groups.items()}
+    want = {g: {k: b for k, (_, b) in d.items()} for g, d in groups.items()}
+    (worst, where), (worst_elt, where_elt) = check_moments(f"{label} captured vs eager", got, want)
+    return (f"parameters' steps, Adam moments and BN statistics per tensor in norm within {DP_MU_REL} of |want| + "
+            f"{DP_MU_FLOOR} of the part's largest (worst {worst:.3e} at {where}; worst element {worst_elt:.3e} of its "
+            f"tensor's largest at {where_elt}); {len(noise)} parameters with rounding-noise gradients held through "
+            f"their moments ({', '.join(noise[:4])}{', ...' if len(noise) > 4 else ''})")
+
+
+def captured_vs_eager(label, module, variables, counters, dtype, batch_size=16, nb=CAPTURE_STEPS):
+    """One chunk of `nb` steps from the same state, generator seed and
+    batch, captured (`make_chunk_rows`, the trainer's path: an eager G and
+    D, then each captured and replayed) and eager, under
+    `deterministic_algorithms`, each with the counts set to 0 just before it.
+    float64 (IAN_simple, no hand kernel on its path): the metric rows and
+    every tensor of the state to CAPTURE64_TOL of its largest value;
+    float32 (IANv1, full IAN, through the tail kernel): the rows at the
+    golden tolerance and the state by `check_train_state`. The launches of
+    the two paths are equal. Returns the captured path's launches."""
+    from npe_tpu_torch.training import train_step as ts
+
+    cfg = dict(module.cfg, batch_size=batch_size)
+    state0 = ts.init_train_state(module, {k: v.to(dtype) if v.is_floating_point() else v
+                                          for k, v in variables.items()}, cfg)
+    rng = np.random.RandomState(37)
+    x_chunk = torch.from_numpy(rng.uniform(-0.9, 0.9, (nb * batch_size, 3, 64, 64))).to(device="cuda", dtype=dtype)
+    out = {}
+    with deterministic_algorithms():
+        for name in ("eager", "captured"):
+            rows = ts.make_chunk_rows(module, cfg, nb, eager=name == "eager")
+            counters.zero()
+            t0 = time.perf_counter()
+            state, keys, table, flags, _ = rows(state0, x_chunk, 0, torch.Generator("cuda").manual_seed(6), 2e-4)
+            torch.cuda.synchronize()
+            out[name] = (keys, table.cpu().numpy(), flags, flat_state(state), counters.read(),
+                         time.perf_counter() - t0, rows)
+    (w_keys, w_table, w_flags, w_state, w_launches, w_s, _) = out["eager"]
+    (g_keys, g_table, g_flags, g_state, g_launches, g_s, rows) = out["captured"]
+    (runner,) = rows.runners.values()
+    assert all(p.graph is not None and (p.calls, p.captures) == (nb // 2, 1) for p in runner.programs.values())
+    assert (g_keys, g_flags) == (w_keys, w_flags) and g_launches == w_launches, (label, g_launches, w_launches)
+    assert np.isfinite(g_table).all() and list(g_state) == list(w_state)
+    assert all(not np.array_equal(g_table[i], g_table[i + 1]) for i in range(nb - 1)), label  # no aliased rows
+    if dtype == torch.float64:
+        np.testing.assert_allclose(g_table, w_table, rtol=CAPTURE64_TOL, atol=CAPTURE64_TOL, err_msg=label)
+        worst = 0.0
+        for path, w in w_state.items():
+            scale = float(w.abs().max()) if w.is_floating_point() else 1.0
+            err = float((g_state[path] - w).abs().max()) if w.numel() else 0.0
+            assert err <= CAPTURE64_TOL * scale, (label, path, err, scale)
+            worst = max(worst, err / max(scale, 1e-300))
+        rule = f"rows and state within {CAPTURE64_TOL} (worst {worst:.3e} of a tensor's largest value)"
+    else:
+        np.testing.assert_allclose(g_table, w_table, rtol=RTOL, atol=ATOL, err_msg=label)
+        rule = check_train_state(label, g_state, w_state, flat_state(state0))
+    log(f"[train] {label} {str(dtype).split('.')[1]} batch {batch_size}, a chunk of {nb} steps captured vs eager from "
+        f"the same state: {rule}; launches {g_launches} on both; eager {w_s:.2f} s, captured {g_s:.2f} s "
+        "(captures included)")
+    return g_launches
+
+
 def drive_training_bf16(counters, smi):
     """`train()` on IAN_simple at batch 128 through every hook at once: a
     `native:` raw file written by `export_raw`, `compute_dtype` bfloat16, a
@@ -723,7 +830,10 @@ def drive_training_bf16(counters, smi):
                 with open(os.path.join(trace_dir, traces[0])) as fh:
                     events = json.load(fh)["traceEvents"]
                 n_kernels = sum(e.get("cat") == "kernel" for e in events)
-                log(f"[train] trace {traces[0]}: {len(events)} events, {n_kernels} of them the card's kernels")
+                graph_calls = {name: sum(e.get("name", "").startswith(name) for e in events)
+                               for name in ("cudaStreamBeginCapture", "cudaGraphInstantiate", "cudaGraphLaunch")}
+                log(f"[train] trace {traces[0]}: {len(events)} events, {n_kernels} of them the card's kernels; "
+                    f"host calls {graph_calls}")
                 assert n_kernels > 0
                 with open(files["_fid_basis.npz"], "rb") as fh:
                     basis_bytes = fh.read()
@@ -815,61 +925,129 @@ def time_data_paths(smi, epochs=2):
     return times
 
 
-def time_training(label, module, variables, batch_size, batches_per_chunk, smi, **cfg_extra):
-    """ms per G step, per D step and imgs/s over one chunk of alternating
-    steps (CUDA events, steady state after one warm chunk), with peak
-    device memory. `cfg_extra`: e.g. compute_dtype="bfloat16"."""
-    from npe_tpu_torch.training import train_step as ts
-
-    cfg = dict(module.cfg, batch_size=batch_size, batches_per_chunk=batches_per_chunk, **cfg_extra)
-    state = ts.init_train_state(module, variables, cfg)
-    n = batch_size * batches_per_chunk
-    rng = np.random.RandomState(5)
-    x_chunk = torch.from_numpy(rng.uniform(-0.9, 0.9, (n, 3, 64, 64)).astype(np.float32)).cuda()
+def time_chunk(chunk_step, state, x_chunk):
+    """ms of one chunk of `chunk_step` (CUDA events), after a warm chunk
+    (for the captured chunk: its eager steps and its captures); returns
+    (ms, state)."""
     gen = torch.Generator("cuda").manual_seed(1)
-    chunk_step = ts.make_chunk_step(module, cfg, batches_per_chunk)
-    gen_step, discrim_step = ts.make_train_steps(module, cfg)
-    batch = step_batch(cfg, batch_size, 33, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    state, *_ = chunk_step(state, x_chunk, 0, gen, 2e-4)  # warm
+    state, *_ = chunk_step(state, x_chunk, 0, gen, 2e-4)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     state, *_ = chunk_step(state, x_chunk, 0, gen, 2e-4)
     end.record()
     torch.cuda.synchronize()
-    chunk_ms = start.elapsed_time(end)
+    return start.elapsed_time(end), state
+
+
+def time_training(label, model, batch_size, batches_per_chunk, smi, counters, expect_tail, top, **cfg_extra):
+    """The trainer's chunk of `batches_per_chunk` alternating steps on the
+    same procedural faces from seeded default-init weights (what `train`
+    starts from), eager (`make_chunk_step(eager=True)`) and then captured
+    (the trainer's path), each as imgs/s over one chunk after a warm one,
+    with its peak device memory (nothing of the other path alive) and a
+    profile (`profile_steps`: 8 eager steps, one captured chunk); the eager
+    path's ms per G and per D step (`make_train_steps`); the captured
+    chunk's kernel launches (counts set to 0 just before it: two of the
+    tail a step where the model has the RGB-Beta head, in the form of the
+    compute dtype); last, alone on the card, bench_torch_train.py's rounds
+    of captured G + D pairs. `cfg_extra`: e.g. compute_dtype="bfloat16".
+    Returns ({"eager": ..., "captured": ...}, the captured launches)."""
+    import bench_torch_train
+    from npe_tpu_torch.data import SyntheticFaces
+    from npe_tpu_torch.models import get_config
+    from npe_tpu_torch.training import train_step as ts
+
+    module = get_config(model)
+    cfg = dict(module.cfg, batch_size=batch_size, batches_per_chunk=batches_per_chunk, **cfg_extra)
+    variables = module.init(torch.Generator().manual_seed(0), "cuda")
+    n = batch_size * batches_per_chunk
+    # procedural faces in [-1, 1], as `train` stages them
+    x_chunk = torch.from_numpy(SyntheticFaces(n).get_data(np.arange(n)).astype(np.float32) / 127.5 - 1).cuda()
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms, state = time_chunk(ts.make_chunk_step(module, cfg, batches_per_chunk, eager=True),
+                                 ts.init_train_state(module, variables, cfg), x_chunk)
+    steps = ts.make_train_steps(module, cfg)
+    batch = step_batch(cfg, batch_size, 33, "cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     per_step = {}
-    for name, step in (("G", gen_step), ("D", discrim_step)):
+    for name, step in zip("GD", steps):
         start.record()
         for _ in range(8):
             state, _ = step(state, *batch, 2e-4)
         end.record()
         torch.cuda.synchronize()
         per_step[name] = start.elapsed_time(end) / 8
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    rate = n / chunk_ms * 1e3
-    log(f"[time] {label} training, batch {batch_size}: {per_step['G']:.3f} ms per G step, {per_step['D']:.3f} ms per D "
-        f"step, {chunk_ms:.2f} ms per chunk of {batches_per_chunk} alternating steps = {rate:.1f} imgs/s; peak memory "
-        f"{peak:.0f} MiB ({smi})")
-    return {"g_step_ms": per_step["G"], "d_step_ms": per_step["D"], "imgs_per_s": rate, "peak_mib": peak}, state
+    out["eager"] = {"g_step_ms": per_step["G"], "d_step_ms": per_step["D"], "chunk_ms": eager_ms,
+                    "imgs_per_s": n / eager_ms * 1e3, "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+    def eager8():
+        s = state
+        for i in range(8):
+            s, _ = steps[i % 2](s, *batch, 2e-4)
+
+    out["eager"].update(zip(("device_ms_per_step", "idle_share", "conv_share"),
+                            profile_steps(f"{label} eager", eager8, 8, top)))
+    del state, eager8
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_step = ts.make_chunk_step(module, cfg, batches_per_chunk)
+    gen = torch.Generator("cuda").manual_seed(1)
+    state, *_ = chunk_step(ts.init_train_state(module, variables, cfg), x_chunk, 0, gen, 2e-4)  # warm
+    torch.cuda.synchronize()
+    counters.zero()
+    start.record()
+    state, gen_m, dis_m, _ = chunk_step(state, x_chunk, 0, gen, 2e-4)
+    end.record()
+    torch.cuda.synchronize()
+    launches = counters.read()
+    finite = all(np.isfinite(v) for v in torch.stack([*gen_m.values(), *dis_m.values()]).tolist())
+    captured_ms = start.elapsed_time(end)
+    tail = "rgb_beta_tail_bf16" if cfg_extra.get("compute_dtype") == "bfloat16" else "rgb_beta_tail"
+    want = {name: 0 for name in counters.forms}
+    if expect_tail:
+        want[tail] = 2 * batches_per_chunk
+    assert launches == want, (label, launches)
+    out["captured"] = {"chunk_ms": captured_ms, "imgs_per_s": n / captured_ms * 1e3,
+                       "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": launches,
+                       "metrics_finite": finite}
+    log(f"[time] {label} training, batch {batch_size}: eager {per_step['G']:.3f} ms per G step, {per_step['D']:.3f} "
+        f"ms per D step, {eager_ms:.2f} ms per chunk of {batches_per_chunk} alternating steps = "
+        f"{out['eager']['imgs_per_s']:.1f} imgs/s, peak memory {out['eager']['peak_mib']:.0f} MiB; captured "
+        f"{captured_ms:.2f} ms per chunk = {out['captured']['imgs_per_s']:.1f} imgs/s, peak memory "
+        f"{out['captured']['peak_mib']:.0f} MiB, launches {launches}, its metrics finite: {finite} ({smi})")
+    out["captured"].update(zip(("device_ms_per_step", "idle_share", "conv_share"), profile_steps(
+        f"{label} captured", lambda: chunk_step(state, x_chunk, 0, gen, 2e-4), batches_per_chunk, top)))
+    del chunk_step, state
+
+    # bench_train.py's inputs are noise images; at default init IANv1's D step
+    # gives a non-finite latent gradient from the second pair on at lr 2e-4
+    # (card and CPU alike) and full IAN drifts there within a few hundred pairs
+    # (docs/NUMERICS.md): both are timed at lr 0, the same program
+    lr = 2e-4 if model == "IAN_simple" else 0.0
+    bench = bench_torch_train.run(model=model, batch=batch_size, pairs=TRAIN_BENCH_PAIRS, rounds=TRAIN_BENCH_ROUNDS,
+                                  compute_dtype=cfg_extra.get("compute_dtype"), lr=lr)
+    out["captured"]["bench_torch_train"] = bench
+    log(f"[time] {label} training, bench_torch_train.run (lr {lr}), captured G + D pairs: {bench['value']:.1f} imgs/s, "
+        f"{bench['ms_per_step']:.3f} ms a step, spread {bench['spread_frac']:.3f}, mfu {bench['mfu']:.4f}, peak memory "
+        f"{bench['peak_mib']:.0f} MiB, rounds {bench['round_times_s']} s, discarded {bench['discarded_round_times_s']} "
+        f"({smi})")
+    return out, launches
 
 
-def profile_training(label, module, state, batch_size, top, **cfg_extra):
-    """torch.profiler over 8 alternating steps: device kernel time, the
-    device's idle share, the top kernels by name and the share of the
-    device time in convolution kernels (cuDNN's, by name)."""
-    from npe_tpu_torch.training import train_step as ts
-
-    cfg = dict(module.cfg, batch_size=batch_size, **cfg_extra)
-    steps = ts.make_train_steps(module, cfg)
-    batch = step_batch(cfg, batch_size, 35, "cuda")
+def profile_steps(label, run, n_steps, top):
+    """torch.profiler over `run()`, which runs `n_steps` training steps:
+    device kernel time a step, the device's idle share, the top kernels by
+    name and the share of the device time in convolution kernels (cuDNN's,
+    by name)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        for i in range(8):
-            state, _ = steps[i % 2](state, *batch, 2e-4)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -878,12 +1056,13 @@ def profile_training(label, module, state, batch_size, top, **cfg_extra):
         log(f"[time] {label} training profiler: no device time recorded (idle share not measured)")
         return None, None, None
     conv = sum(e.self_device_time_total for e in kernels if any(w in e.key.lower() for w in CONV_KERNEL_WORDS)) / 1e3
-    log(f"[time] {label} training profiler, 8 steps under the profiler: wall {wall:.2f} ms, device kernels {busy:.2f} ms "
-        f"(idle share {1 - busy / wall:.3f}; convolution kernels by name {conv / busy:.3f} of the device time); "
-        "kernels by device time:")
+    log(f"[time] {label} training profiler, {n_steps} steps under the profiler: wall {wall:.2f} ms, device kernels "
+        f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}; convolution kernels by name {conv / busy:.3f} of the device "
+        "time); kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[time]   {e.self_device_time_total / 8e3:9.3f} ms/step  {e.count / 8:6.1f}x  {e.key[:90]}")
-    return busy / 8, 1 - busy / wall, conv / busy
+        log(f"[time]   {e.self_device_time_total / n_steps / 1e3:9.3f} ms/step  {e.count / n_steps:6.1f}x  "
+            f"{e.key[:90]}")
+    return busy / n_steps, 1 - busy / wall, conv / busy
 
 
 # --- serving: InferenceServer, ModelHost over HTTP, the web editor -----------
@@ -896,6 +1075,23 @@ def http_json(url, body=None, timeout=SERVE_WAIT):
     data = None if body is None else json.dumps(body).encode()
     with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
         return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms, and PyTorch's deterministic forms of
+    the operations that otherwise add with atomics in another order on every
+    run (`torch.use_deterministic_algorithms`, warning where an operation
+    has none): without them the card's float32 training step does not repeat
+    itself, and Adam's sign-like steps carry the last bits into the weights.
+    For comparing two training paths step by step."""
+    old = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with cudnn_deterministic():
+            yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
 
 
 @contextlib.contextmanager
@@ -1893,6 +2089,17 @@ def main():
     tail_step_launches = {label: kernel_steps(label, module, variables, counters)
                           for label, module, variables in (("IANv1", ian_v1, card_v1.variables),
                                                            ("IAN", ian, card_ian.variables))}
+    # the trainer's captured chunk against the eager chunk, each model (its
+    # launches and phase 7's captured chunks' make the entries'
+    # training_captured_launches)
+    captured_launches = {name: 0 for name in counters.forms}
+    for label, module, variables, dtype in (("IAN_simple", ian_simple, card.variables, torch.float64),
+                                            ("IANv1", ian_v1, card_v1.variables, torch.float32),
+                                            ("IAN", ian, card_ian.variables, torch.float32)):
+        launches = captured_vs_eager(label, module, variables, counters, dtype)
+        captured_launches = {k: n + launches[k] for k, n in captured_launches.items()}
+    assert captured_launches == dict({name: 0 for name in counters.forms},
+                                     rgb_beta_tail=2 * 2 * CAPTURE_STEPS), captured_launches
 
     log(f"[phase] 6b starts at {time.perf_counter() - started:.1f} s")
     # 6b. bf16 training (cfg['compute_dtype']) and the rest of the trainer:
@@ -2174,26 +2381,22 @@ def main():
     del staging_cache
 
     log(f"[phase] 7, training times, starts at {time.perf_counter() - started:.1f} s")
-    # training: seeded default-init weights on the card (what `train` starts from)
+    # training: seeded default-init weights on the card (what `train` starts from),
+    # eager and captured
     training = {}
-    for label, module, batch_size, bpc in (("IAN_simple", ian_simple, 128, 8), ("IANv1", ian_v1, 16, 16),
-                                           ("IAN", ian, 16, 16)):
-        fresh = module.init(torch.Generator().manual_seed(0), "cuda")
-        # float32 (TF32 off), then bf16 compute over float32 masters, in turns on the same weights
+    for label, batch_size, bpc in (("IAN_simple", 128, 8), ("IANv1", 16, 16), ("IAN", 16, 16)):
+        # float32 (TF32 off), then bf16 compute over float32 masters, in turns
         for name, extra in ((label, {}), (f"{label} bf16", {"compute_dtype": "bfloat16"})):
-            training[name], trained = time_training(name, module, fresh, batch_size, bpc, smi, **extra)
-            busy, idle, conv = profile_training(name, module, trained, batch_size,
-                                                top=14 if label == "IAN_simple" else 8, **extra)
-            training[name].update(device_ms_per_step=busy, idle_share=idle, conv_share=conv)
-            del trained
+            training[name], launches = time_training(name, label, batch_size, bpc, smi, counters, label != "IAN_simple",
+                                                     14 if label == "IAN_simple" else 8, **extra)
+            captured_launches = {k: n + launches[k] for k, n in captured_launches.items()}
         if label == "IAN_simple":
             # PyTorch's own default lets cuDNN run float32 convolutions in TF32
             torch.backends.cudnn.allow_tf32 = True
-            training["IAN_simple, cuDNN TF32 on"], _ = time_training("IAN_simple, cuDNN TF32 on", module, fresh,
-                                                                     batch_size, bpc, smi)
+            training["IAN_simple, cuDNN TF32 on"] = time_training("IAN_simple, cuDNN TF32 on", label, batch_size,
+                                                                  bpc, smi, counters, False, 6)[0]
             torch.backends.cudnn.allow_tf32 = False
             training["data_paths_ms_per_chunk"] = time_data_paths(smi)
-        del fresh
     # the bf16 tail as a bf16 step of IANv1 and full IAN runs it (batch 16, a
     # bf16 trunk): the kernel forward, and its backward, the plain version's
     # VJP in bf16 (which recomputes the plain forward), as device time
@@ -2221,6 +2424,7 @@ def main():
         entry.update(route="cuda", launches=main_launches[entry["name"]],
                      serving_launches=serving_launches[entry["name"]],
                      training_bf16_launches=training_launches[entry["name"]],
+                     training_captured_launches=captured_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"paint_stroke_p50_ms": p50, "paint_stroke_p95_ms": p95,

@@ -13,12 +13,21 @@ On the card: each chunk is staged by ONE kernel launch
 change), either out of the whole uint8 dataset resident in device memory or
 out of the chunk's bytes sent up from pinned host memory, the bytes of the
 in-process dataset or of the native C++ loader's chunks (`native:<raw>`);
-the steps run eagerly (`training.train_step`), in float32 or, with
-cfg['compute_dtype'] = 'bfloat16' (`--compute-dtype`), in bf16 over float32
-masters; and the chunk's metrics come to the host in one copy. With a
-validation set each checkpoint also reports the encoder-FID
-(`training/quality.py`) in a frozen feature space; `profile_dir` traces the
-first chunk (`utils/profiling.py`).
+the G and D steps run as two captured CUDA graphs (`training/captured.py`,
+npe_tpu's one-program chunk; on the CPU the same static buffers with each
+step called directly), in float32 or, with cfg['compute_dtype'] = 'bfloat16'
+(`--compute-dtype`), in bf16 over float32 masters; the learning rate is a
+0-d device tensor that the steps read, so a new rate needs no new capture;
+and the chunk's metrics come to the host in one copy. The state a chunk
+returns is updated in place by the next, so an asynchronous checkpoint
+writes a copy of it, and the encoder-FID basis is a copy. With a validation
+set each checkpoint also reports the encoder-FID (`training/quality.py`) in
+a frozen feature space; `profile_dir` traces the first chunk
+(`utils/profiling.py`): its first G and first D step run eagerly, the second
+of each is captured (the trace shows `cudaStreamBeginCapture` /
+`cudaGraphInstantiate` on the host and no kernels of its own) and replayed,
+and every later step is one `cudaGraphLaunch` whose kernels the trace lists
+as the card's. Under a mesh the steps stay eager.
 
 Data-parallel (`train(mesh=...)`, `--data-parallel`, npe_tpu's sharded
 trainer): every rank loads the same chunk and the same permutation (rank
@@ -267,6 +276,7 @@ def train(
         logging.info("encoder-FID feature basis from %s (epoch %s)", fid_basis, meta.get("epoch"))
 
     ckptr = checkpoints.AsyncCheckpointer() if async_checkpoint and lead else None
+    lr_dev = torch.tensor(lr, dtype=torch.float32, device=device)  # what the steps read
     # Consecutive checkpoint-WRITE failures (disk full, permissions...):
     # one is survivable (the previous atomic checkpoint is intact, the next
     # save retries), but a persistent failure would silently leave a long run
@@ -276,6 +286,7 @@ def train(
     for epoch in range(min_epoch, cfg["max_epochs"]):
         offset = not offset
         lr = current_lr(cfg, epoch, lr)
+        lr_dev.fill_(lr)
         loader_args = dict(offset=offset * cfg["batch_size"] // 2, shuffle=cfg["shuffle"], seed=epoch)
         if native is not None:
             loader = native_loader.native_chunk_loader(cfg, None, None, loader=native, raw=True, **loader_args)
@@ -307,9 +318,9 @@ def train(
             traced = profile_dir and epoch == min_epoch and iter_counter == 1
             with profiling.device_trace(profile_dir) if traced else contextlib.nullcontext():
                 if guard_ema is None:
-                    state, gen_m, dis_m, n_gen = chunk_step(state, x_dev, itr, gen, lr)
+                    state, gen_m, dis_m, n_gen = chunk_step(state, x_dev, itr, gen, lr_dev)
                 else:
-                    state, gen_m, dis_m, n_gen, guard_ema = chunk_step(state, x_dev, itr, gen, lr, guard_ema)
+                    state, gen_m, dis_m, n_gen, guard_ema = chunk_step(state, x_dev, itr, gen, lr_dev, guard_ema)
                 # one copy for the chunk's ~20 scalar metrics
                 gen_m, dis_m = fetch_scalars(gen_m, dis_m)
             if traced:
@@ -387,10 +398,11 @@ def train(
                     logging.warning("checkpoint save failed (will retry next checkpoint): %s", e)
 
             if ckptr is not None:
-                # The copy and the write run on the checkpoint thread against
-                # the epoch-N tensors, which no step writes to, while epoch
+                # The copy to the host and the write run on the checkpoint
+                # thread against a copy of the epoch-N state made on the card
+                # (the next chunk updates the state in place), while epoch
                 # N+1 trains.
-                ckptr.submit(_do_save, whole)
+                ckptr.submit(_do_save, TS.copy_state(whole))
             else:
                 _do_save(whole)
             if valid_dataset is not None:
@@ -406,10 +418,10 @@ def train(
                 else:
                     # The FIRST validation checkpoint freezes the feature space
                     # (quality.py: FIDs from a drifting encoder conflate encoder
-                    # movement with sample quality). No step writes into the
-                    # tensors of a state it was given, so these stay as they are.
+                    # movement with sample quality). A copy: the next chunk
+                    # updates the state's tensors in place.
                     if fid_feature_vars is None:
-                        fid_feature_vars = variables
+                        fid_feature_vars = {k: v.clone() for k, v in variables.items()}
                         checkpoints.save_weights(fid_basis_fname, fid_feature_vars, {"epoch": epoch})
                     ev["encoder_fid"] = encoder_fid(module, variables, real, num=min(n_fid, len(real)), seed=epoch,
                                                     feature_variables=fid_feature_vars)

@@ -6,14 +6,17 @@ Optimizer: three Adam states, one per trainable partition, as the
 reference's three `lasagne.updates.adam` dicts, with the latent-head
 ('Z_gen') state advancing on EVERY step because that update dict is merged
 into both players (`train_IAN.py:274-276`). The learning rate is an argument
-of every step. Adam is written out as a plain function over the dict
-(optax's `scale_by_adam`: m_hat / (sqrt(v_hat) + eps), one shared count per
-partition state).
+of every step: a Python float, or a 0-d tensor on the state's device that
+the step reads there (what a captured step takes, so that a new rate needs
+no new capture; the two give the same step bit for bit). Adam is written
+out as a plain function over the dict (optax's `scale_by_adam`: m_hat /
+(sqrt(v_hat) + eps), one shared count per partition state).
 
 A step is a function state -> new state: it allocates the new parameters,
 moments and BN statistics and leaves the tensors of the state it was given
-untouched (nothing is updated in place), so a caller may keep a reference to
-an older state, as the async checkpointer does, while training goes on.
+untouched (nothing is updated in place). The captured chunk
+(`make_chunk_rows`, `training/captured.py`) copies each new state into its
+static buffers, so there a state is consumed by the next chunk.
 
 The train state is a nested dict:
     {"parts": {gen, latent, discrim, frozen, state: {name: tensor}},
@@ -23,8 +26,10 @@ The train state is a nested dict:
 
 A step takes (state, x, z_rand, noise, lr): the sample latents and the
 reparameterization noise come from the caller (the chunk loop draws both
-from its torch.Generator). No step synchronises with the host: metrics come
-back as 0-d tensors on the device.
+from its torch.Generator). No step synchronises with the host, branches on a
+device value or makes a shape that depends on data, so that a step can be
+captured as a CUDA graph (`training/captured.py`): metrics come back as 0-d
+tensors on the device.
 
 On a mesh (`parallel.mesh`, npe_tpu's sharded step): x, z_rand and noise
 are this rank's rows of the global batch; the step sets the mesh's data
@@ -94,12 +99,16 @@ def adam_update(params, grads, opt_state, lr, b1, b2=ADAM_B2, eps=ADAM_EPS, mome
     freshly allocated. With `moments_dtype` (cfg['moments_dtype'], e.g.
     'bfloat16') m and v are STORED in that type and the arithmetic runs in
     the parameters' type (float32) every step, so the only deviation from
-    float32 moments is the rounding of m and v between steps."""
+    float32 moments is the rounding of m and v between steps. `lr`: a Python
+    float, or a 0-d tensor on the parameters' device, read there in their
+    type (the same product as the float's)."""
     names = list(params)
     if not names:
         return {}, {"count": opt_state["count"] + 1, "mu": {}, "nu": {}}
     p = [params[k] for k in names]
     dt = p[0].dtype  # float32; the moments are widened to it, whatever they are stored in
+    if isinstance(lr, torch.Tensor):
+        lr = lr.to(dt)
     g = [grads[k].to(dt) for k in names]
     m = [opt_state["mu"][k].to(dt) for k in names]
     v = [opt_state["nu"][k].to(dt) for k in names]
@@ -268,64 +277,126 @@ def guard_ema_update(ema, is_gen, skip_d, d_acc):
     )
 
 
-def make_chunk_step(module, cfg, num_batches, guard_acc=None, mesh=None, layout=None):
-    """The chunk "program": a Python loop over `num_batches` eager steps,
-    alternating G/D by `(itr0 + i) % (update_ratio + 1)` like the reference's
-    host loop (`train_IAN.py:493-509`), with z_rand and the noise drawn from
-    `gen` (a torch.Generator on the chunk's device) and metrics averaged on
-    the device.
+class EagerSteps:
+    """The chunk loop's steps run eagerly, each a new state: the path under a
+    mesh, and the reference the captured steps (`captured.StepRunner`, the
+    same interface) are held against. `step` draws z_rand, then the noise,
+    for the whole global batch from `gen` and keeps this rank's rows
+    [lo, hi), so that every rank's generator stays the single-process
+    stream; it returns the step's metrics as a float32 row in the order of
+    `keys`."""
 
-    Signature: chunk_step(state, x_chunk, itr0, gen, lr[, ema]) ->
-        (state, gen_metrics, discrim_metrics, gen_count[, ema])
-    x_chunk is (num_batches * batch_size, 3, 64, 64) staged data; the metric
-    dicts hold 0-d device tensors, already averaged over this chunk's G / D
-    steps; gen_count is a Python int. Per batch the generator gives z_rand
-    first, then the noise.
+    def __init__(self, module, cfg, mesh=None, layout=None):
+        self.steps = make_train_steps(module, cfg, mesh=mesh, layout=layout)
+        self.shape = (cfg["batch_size"], cfg["num_latents"])
+        self.rows = batch_rows(cfg["batch_size"], mesh)
+        self.state = self.lr = self.keys = None
+
+    def begin(self, state, lr):
+        self.state, self.lr = state, lr
+
+    def step(self, is_gen, xb, gen):
+        lo, hi = self.rows
+        z_rand, noise = (torch.randn(self.shape, generator=gen, device=xb.device, dtype=xb.dtype)[lo:hi]
+                         for _ in range(2))
+        self.state, m = self.steps[0 if is_gen else 1](self.state, xb, z_rand, noise, self.lr)
+        self.keys = list(m)
+        return torch.stack([m[k].to(torch.float32) for k in self.keys])
+
+
+def make_chunk_rows(module, cfg, num_batches, guard_acc=None, mesh=None, layout=None, eager=False):
+    """The chunk "program" step by step: a Python loop over `num_batches`
+    steps, alternating G/D by `(itr0 + i) % (update_ratio + 1)` like the
+    reference's host loop (`train_IAN.py:493-509`), with z_rand and the noise
+    drawn from `gen` (a torch.Generator on the chunk's device), z_rand first,
+    then the noise, per batch.
+
+    Signature: chunk_rows(state, x_chunk, itr0, gen, lr[, ema]) ->
+        (state, keys, table, is_gen_flags, ema)
+    x_chunk is (num_batches * batch_size, 3, 64, 64) staged data; table is
+    the (num_batches, len(keys)) float32 device tensor of each step's
+    metrics, is_gen_flags a list of bools, ema None without the guard.
+
+    With `mesh=None` the steps are npe_tpu's one program: a
+    `captured.StepRunner` for the chunk's device and dtype, made at the
+    first chunk and kept, replays one CUDA graph per step kind on the card,
+    and on the CPU runs the same static buffers with each step called
+    directly. The state it returns is the runner's buffers, which the next
+    chunk updates in place: a state passed in is consumed, as npe_tpu's
+    donated one (`captured.py` has the rules). A capture or replay that
+    fails raises. `eager=True` runs `EagerSteps` instead: each step a new
+    state, nothing in place (the reference the tests and chip_smoke.py hold
+    the captured chunk against).
+
+    Under a `mesh` (`--data-parallel`; `layout` as `make_train_steps`) the
+    steps stay eager (`EagerSteps`): no collective of the process group is
+    captured. x_chunk holds this rank's rows of each global batch, in batch
+    order (batch i's rows at [i * b, (i + 1) * b) for the local batch b =
+    batch_size / D).
 
     Without the guard nothing here synchronises with the host: the schedule
-    is host arithmetic, and the per-step metrics are stacked and averaged on
-    the device. guard_acc (cfg['adaptive_ratio_acc'], the documented
+    is host arithmetic. guard_acc (cfg['adaptive_ratio_acc'], the documented
     D-saturation deviation): a scheduled D step whose accuracy EMA exceeds
     the threshold trains G instead, and the EMA decays toward chance while
-    skipping (`train.AdaptiveRatioGuard`'s semantics). Eager code cannot
-    branch on a device value without reading it, so with the guard the loop
-    reads the decision back to the host on each scheduled D step: one
-    synchronisation per such step. The EMA itself stays a 0-d device tensor
-    threaded through the signature.
+    skipping (`train.AdaptiveRatioGuard`'s semantics). The loop cannot
+    branch on a device value without reading it, so with the guard it reads
+    the decision back to the host on each scheduled D step and runs (or
+    replays) the step it chose: one synchronisation per such step. The EMA
+    itself stays a 0-d device tensor threaded through the signature."""
+    from npe_tpu_torch.training.captured import StepRunner
 
-    `mesh`, `layout` (as `make_train_steps`): x_chunk holds this rank's rows of each global batch, in batch
-    order (batch i's rows at [i * b, (i + 1) * b) for the local batch b =
-    batch_size / D); z_rand and the noise are drawn for the whole global
-    batch from `gen`, as one process draws them, and each rank keeps its
-    rows, so that every rank's generator stays the single-process stream."""
-    gen_step, discrim_step = make_train_steps(module, cfg, mesh=mesh, layout=layout)
     period = cfg["update_ratio"] + 1
-    bs = cfg["batch_size"]
-    zdim = cfg["num_latents"]
-    lo, hi = batch_rows(bs, mesh)
+    lo, hi = batch_rows(cfg["batch_size"], mesh)
     local = hi - lo
+    runners = {}
+    eager_steps = EagerSteps(module, cfg, mesh=mesh, layout=layout) if eager or mesh is not None else None
 
-    def chunk_step(state, x_chunk, itr0, gen, lr, ema=None):
+    def steps_for(state, x_chunk):
+        if eager_steps is not None:
+            return eager_steps
+        key = (x_chunk.device, x_chunk.dtype)
+        if key not in runners:
+            runners[key] = StepRunner(module, cfg, state, x_chunk)
+        return runners[key]
+
+    def chunk_rows(state, x_chunk, itr0, gen, lr, ema=None):
         if (ema is None) != (guard_acc is None):
             raise ValueError("the accuracy EMA is passed exactly when guard_acc is set")
-        device = x_chunk.device
+        steps = steps_for(state, x_chunk)
+        steps.begin(state, lr)
         rows, is_gen_flags = [], []
         for i in range(num_batches):
-            xb = x_chunk[i * local : (i + 1) * local]
-            z_rand = torch.randn((bs, zdim), generator=gen, device=device, dtype=x_chunk.dtype)[lo:hi]
-            noise = torch.randn((bs, zdim), generator=gen, device=device, dtype=x_chunk.dtype)[lo:hi]
             scheduled_gen = (itr0 + i) % period == 0
             is_gen, skip_d = scheduled_gen, False
             if guard_acc is not None and not scheduled_gen:
                 is_gen = skip_d = bool(guard_schedule(False, ema, guard_acc)[0])  # the one host read
-            state, m = (gen_step if is_gen else discrim_step)(state, xb, z_rand, noise, lr)
+            row = steps.step(is_gen, x_chunk[i * local : (i + 1) * local], gen)
             if guard_acc is not None:
-                ema = guard_ema_update(ema, is_gen, skip_d, m["discrim_acc"])
-            rows.append(m)
+                ema = guard_ema_update(ema, is_gen, skip_d, row[steps.keys.index("discrim_acc")])
+            rows.append(row)
             is_gen_flags.append(is_gen)
-        keys = list(rows[0])
-        table = torch.stack([torch.stack([m[k].to(torch.float32) for k in keys]) for m in rows])  # (batches, keys)
-        gen_w = torch.tensor(is_gen_flags, dtype=torch.float32, device=device)
+        return steps.state, steps.keys, torch.stack(rows), is_gen_flags, ema
+
+    chunk_rows.runners = runners
+    return chunk_rows
+
+
+def make_chunk_step(module, cfg, num_batches, guard_acc=None, mesh=None, layout=None, eager=False):
+    """`make_chunk_rows`'s chunk with its metrics averaged per player on the
+    device.
+
+    Signature: chunk_step(state, x_chunk, itr0, gen, lr[, ema]) ->
+        (state, gen_metrics, discrim_metrics, gen_count[, ema])
+    The metric dicts hold 0-d device tensors, already averaged over this
+    chunk's G / D steps; gen_count is a Python int. The returned state is
+    consumed by the next chunk of the same chunk_step unless it is eager
+    (`make_chunk_rows`)."""
+    chunk_rows = make_chunk_rows(module, cfg, num_batches, guard_acc=guard_acc, mesh=mesh, layout=layout,
+                                 eager=eager)
+
+    def chunk_step(state, x_chunk, itr0, gen, lr, ema=None):
+        state, keys, table, is_gen_flags, ema = chunk_rows(state, x_chunk, itr0, gen, lr, ema)
+        gen_w = torch.tensor(is_gen_flags, dtype=torch.float32, device=x_chunk.device)
         n_gen = sum(is_gen_flags)
         weights = torch.stack([gen_w / max(n_gen, 1), (1 - gen_w) / max(num_batches - n_gen, 1)])
         means = (weights[:, :, None] * table[None]).sum(dim=1)  # (2, keys)
@@ -336,6 +407,13 @@ def make_chunk_step(module, cfg, num_batches, guard_acc=None, mesh=None, layout=
         return state, gen_m, dis_m, n_gen, ema
 
     return chunk_step
+
+
+def copy_state(state):
+    """A copy of a train state (every tensor cloned on its device): what a
+    caller keeps of a state that the next captured chunk will update in
+    place."""
+    return {k: copy_state(v) if isinstance(v, dict) else v.clone() for k, v in state.items()}
 
 
 def variables_of(state):

@@ -422,10 +422,10 @@ class AsyncCheckpointer:
     """Overlap a checkpoint's device-to-host copy and file write with
     training, on one worker thread.
 
-    The training steps never update a tensor in place (`training/
-    train_step.py`): a step allocates the new state, so a reference to the
-    epoch-N state stays valid and unchanged while the main thread trains
-    epoch N+1, and the worker can copy it out at its own pace.
+    The state it is given must not change while the worker copies it out at
+    its own pace: the trainer gives it a copy of the epoch-N state made on
+    the card (`training/train_step.copy_state`), since the next captured
+    chunk updates the state in place while the main thread trains epoch N+1.
 
     At most one save is in flight (`submit` joins the previous one first):
     saves stay ordered, the extra device memory is bounded to one retained

@@ -22,13 +22,15 @@ from npe_tpu_torch.utils import checkpoints as tckpt
 tp.torch_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "optax", "npe_tpu")
+# JAX, the JAX package, and the JAX package's root scripts (they import JAX)
+FORBIDDEN = ("jax", "jaxlib", "optax", "npe_tpu", "bench", "bench_train", "bench_stages", "bench_edit",
+             "bench_serving", "bench_deconv_ab", "bench_head_ab", "bench_mdblock_ab", "NPE", "__graft_entry__")
 
 
 def _port_sources():
     return sorted((ROOT / "npe_tpu_torch").rglob("*.py")) + [
         ROOT / f"{name}.py" for name in ("chip_smoke", "bench_torch", "bench_torch_edit", "bench_torch_serving",
-                                          "bench_torch_stages")] + [
+                                          "bench_torch_stages", "bench_torch_train")] + [
         ROOT / "scripts" / f"{name}.py" for name in ("kernel_ab", "kernel_sweep", "launch_floor")]
 
 

@@ -762,3 +762,112 @@ def test_two_gloo_ranks_on_one_card_step_like_one_process(cuda, tmp_path):
         for player in ("gen", "discrim"):
             for k, w in want[player].items():
                 np.testing.assert_allclose(got[player][k], w, rtol=1e-3, atol=1e-4, err_msg=f"{player} {k}")
+
+
+# --- the training step as captured programs (training/captured.py) -----------------
+
+def _captured_and_eager(config, dtype, lrs, nb=6, bs=4):
+    """The same chunks, from the same state, generator seed and batch, as
+    `make_chunk_rows` runs them captured and eagerly on the card (under
+    chip_smoke.py's `deterministic_algorithms`): for each side, each chunk's
+    (keys, table, flags), the final state, the tail's float32 launches and
+    the rows function. Six steps: an eager G and D, a captured G and D (each
+    replayed once), two replays."""
+    from chip_smoke import deterministic_algorithms
+    from npe_tpu_torch.training import train_step as ts
+
+    module = get_config(config)
+    cfg = dict(module.cfg, batch_size=bs)
+    variables = {k: v.to(dtype) if v.is_floating_point() else v for k, v in _unit_gain_variables(config).items()}
+    state0 = ts.init_train_state(module, {k: v.to("cuda") for k, v in variables.items()}, cfg)
+    rng = np.random.RandomState(8)
+    x_chunk = torch.from_numpy(rng.uniform(-0.8, 0.8, (nb * bs, 3, 64, 64))).to(device="cuda", dtype=dtype)
+    with deterministic_algorithms():
+        out = {}
+        for eager in (True, False):
+            rows = ts.make_chunk_rows(module, cfg, nb, eager=eager)
+            gen = torch.Generator("cuda").manual_seed(4)
+            before = rt.rgb_beta_tail.launches
+            state, chunks = state0, []
+            for i, lr in enumerate(lrs):
+                state, keys, table, flags, _ = rows(state, x_chunk, i * nb, gen, lr)
+                chunks.append((keys, table.clone(), flags))
+            torch.cuda.synchronize()
+            out[eager] = (chunks, state, rt.rgb_beta_tail.launches - before, rows)
+    out["start"] = state0
+    return out
+
+
+def _flat_state(state):
+    from chip_smoke import flat_state
+
+    return flat_state(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [TINY, TINY_V1, TINY_FULL])
+def test_captured_chunk_on_the_card_equals_the_eager_chunk(cuda, config):
+    """The tiny IAN_simple in float64 (no hand kernel on its training path)
+    to 1e-7 of each tensor's largest value; the tiny IANv1 and full IAN in
+    float32 through the tail kernel (2 launches a step, the same count on
+    both sides): metric rows at the golden tolerance, the state by
+    chip_smoke.py's rule (`check_train_state`: the card's float32
+    step does not repeat itself, and Adam's sign-like steps turn rounding
+    into steps of lr). The graphs exist after the chunk."""
+    from chip_smoke import check_train_state
+
+    dtype = torch.float64 if config == TINY else torch.float32
+    out = _captured_and_eager(config, dtype, [2e-4])
+    start = out["start"]
+    ((w_keys, w_table, w_flags),), w_state, w_launches, _ = out[True]
+    ((g_keys, g_table, g_flags),), g_state, g_launches, rows = out[False]
+    assert (g_keys, g_flags) == (w_keys, w_flags) and g_launches == w_launches == (0 if config == TINY else 12)
+    (runner,) = rows.runners.values()
+    assert all(p.graph is not None and (p.calls, p.captures) == (3, 1) for p in runner.programs.values())
+    assert g_state is runner.state
+    w_flat, g_flat = _flat_state(w_state), _flat_state(g_state)
+    assert list(w_flat) == list(g_flat)
+    if dtype == torch.float64:
+        np.testing.assert_allclose(g_table.cpu().numpy(), w_table.cpu().numpy(), rtol=1e-7, atol=1e-7)
+        for path, w in w_flat.items():
+            scale = float(w.abs().max()) if w.is_floating_point() and w.numel() else 1.0
+            np.testing.assert_allclose(g_flat[path].cpu().numpy(), w.cpu().numpy(), rtol=0, atol=1e-7 * scale,
+                                       err_msg=str(path))
+        return
+    np.testing.assert_allclose(g_table.cpu().numpy(), w_table.cpu().numpy(), rtol=1e-3, atol=1e-4)
+    check_train_state(config, g_flat, w_flat, _flat_state(start))
+
+
+@pytest.mark.cuda
+def test_a_failing_capture_raises_on_the_card(cuda):
+    """A step body that reads a device value to the host runs eagerly at
+    the first call and fails its capture at the second: the capture raises,
+    nothing falls back, and the counts are as they were."""
+    from npe_tpu_torch.training import captured
+
+    t = torch.ones(4, device=cuda)
+    program = captured.Program(lambda: float(t.sum()), torch.cuda.Stream(cuda), torch.cuda.graph_pool_handle())
+    program()
+    before = captured.read_counts()
+    with pytest.raises(RuntimeError):
+        program()
+    assert program.graph is None and captured.read_counts() == before
+    torch.cuda.synchronize()
+    assert float((t + 1).sum()) == 8.0  # the card still answers
+
+
+@pytest.mark.cuda
+def test_a_new_lr_between_chunks_is_honoured_without_a_new_capture(cuda):
+    """Two chunks of the tiny IAN_simple in float64, the second at another
+    learning rate (a 0-d tensor on the card): equal to two eager chunks at
+    those rates, and the second chunk replays the first's graphs."""
+    out = _captured_and_eager(TINY, torch.float64, [2e-4, torch.tensor(7e-4, device="cuda")])
+    (runner,) = out[False][3].runners.values()
+    assert all((p.calls, p.captures) == (6, 1) for p in runner.programs.values())
+    for (_, w_table, _), (_, g_table, _) in zip(out[True][0], out[False][0]):
+        np.testing.assert_allclose(g_table.cpu().numpy(), w_table.cpu().numpy(), rtol=1e-7, atol=1e-7)
+    w_flat, g_flat = _flat_state(out[True][1]), _flat_state(out[False][1])
+    for path, w in w_flat.items():
+        scale = float(w.abs().max()) if w.is_floating_point() and w.numel() else 1.0
+        np.testing.assert_allclose(g_flat[path].cpu().numpy(), w.cpu().numpy(), rtol=0, atol=1e-7 * scale,
+                                   err_msg=str(path))

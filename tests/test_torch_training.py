@@ -822,8 +822,10 @@ def test_current_lr_and_restore_masks_mirror_npe_tpu():
 
 def test_async_checkpoint_saves_the_state_it_was_given_while_training_goes_on(tmp_path):
     """A deliberately slow save is in flight while two more steps run: the
-    file holds epoch N's values, not N+1's, because no step writes into the
-    tensors of the state it was given."""
+    file holds epoch N's values, not N+1's. The next chunk updates the state
+    a chunk returns in place (npe_tpu's donation, `training/captured.py`), so
+    the checkpointer is given a copy of it (`copy_state`), as the trainer
+    gives it."""
     tm, cfg, x_chunk, state0 = _chunk_setup(2)
     chunk_step = TTS.make_chunk_step(tm, cfg, 2)
     gen = torch.Generator().manual_seed(3)
@@ -836,9 +838,11 @@ def test_async_checkpoint_saves_the_state_it_was_given_while_training_goes_on(tm
         tckpt.save_train_state(fname, state, {"epoch": 7})
 
     ckptr = tckpt.AsyncCheckpointer()
-    ckptr.submit(slow_save, state_n)
+    ckptr.submit(slow_save, TTS.copy_state(state_n))
+    gen_n = {k: v.clone() for k, v in state_n["parts"]["gen"].items()}
     state_n1, *_ = chunk_step(state_n, x_chunk, 2, gen, LR)  # trains on while the save waits
-    assert _moved(state_n1["parts"]["gen"], state_n["parts"]["gen"]) > 0
+    assert state_n1 is state_n  # consumed: updated in place
+    assert _moved(state_n1["parts"]["gen"], gen_n) > 0
     gate.set()
     ckptr.close()
     loaded = tckpt._flat_train_state(tckpt.load_train_state(fname, "cpu"))
