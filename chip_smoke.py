@@ -7,8 +7,13 @@ source, all at once), holds each against its plain PyTorch version on the
 card, drives the Neural Photo Editor's edit path through `EditSession` and
 the model API on IAN_simple, on IANv1 and on full IAN (full width, seeded
 random weights at unit gain; IANv1 with the RGB-Beta head in both kernel
-forms, full IAN with its MDBLOCKs in the fused and the per-op form), holds
-the card's results against the port on the CPU, and times the edit step, the
+forms, full IAN with its MDBLOCKs in the fused and the per-op form; each
+stroke, scroll and latent edit one replayed CUDA graph, `editor/captured.py`),
+holds the card's results against the port on the CPU and against the same
+steps run eagerly on the card (bit for bit under deterministic algorithms,
+each program captured once while the brush moves), holds the kernels'
+launch counts of each edit script to the device kernels that torch.profiler
+records in the same run, and times the edit step captured and eager, the
 kernels and encode+decode. Then serving on the same weights: an
 `InferenceServer` per model and form (IAN_simple on either wire, the uint8
 one through the `staging` kernel; IANv1 with either head kernel; full IAN
@@ -161,6 +166,55 @@ class Counts:
 
     def read(self):
         return {name: getattr(fn, attr) for name, (fn, attr) in self.forms.items()}
+
+
+# the port's kernels by name, as torch.profiler records them on the card:
+# name -> (the `Counts` name of its float32 form, of its bf16 form, kernels of
+# that name a wrapper launch runs). A wrapper launch runs its named kernel
+# once (the float32 MDBLOCK runs mdcl_kernel twice, once an MDCL); the head's
+# own tail (rgb_beta_tail_kernel<..., true>) and the slice sums are left out.
+DEVICE_KERNELS = {"edit_tail_kernel": ("edit_tail", None, 1),
+                  "rgb_beta_tail_kernel": ("rgb_beta_tail", "rgb_beta_tail_bf16", 1),
+                  "head_trunk_kernel": ("rgb_beta_head", "rgb_beta_head_bf16", 1),
+                  "mdcl_kernel": ("mdblock", None, 2), "prologue_kernel": (None, "mdblock_bf16", 1),
+                  "stage_kernel": ("staging", None, 1)}
+
+
+def witnessed(kernels):
+    """The wrappers' launches that the device kernels in `kernels` ({the
+    profiler's kernel name: executions}) witness, by `Counts` name; a
+    kernel's template arguments give its form."""
+    out = {}
+    for name, n in kernels.items():
+        sig = name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(", 1)[0]
+        base = sig.removeprefix("npe::").split("<", 1)[0]
+        if base not in DEVICE_KERNELS or sig.endswith("true>") or (base == "mdcl_kernel" and "<" in sig):
+            continue
+        f32, bf16, per_launch = DEVICE_KERNELS[base]
+        counter = bf16 if "bfloat16" in sig or f32 is None else f32
+        out[counter] = out.get(counter, 0) + n / per_launch
+    return out
+
+
+def profiled(fn):
+    """fn() under torch.profiler, the card synchronised after it: (its
+    result, `witnessed` of the device kernels the profiler recorded)."""
+    from torch.autograd import DeviceType
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, witnessed({e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+
+
+def check_witnessed(label, launches, seen):
+    """The wrappers' counts of a run against the device kernels the profiler
+    recorded in it: a replay counts what its capture recorded, and this holds
+    that count to the kernels the card ran."""
+    counted = {name: n for name, n in launches.items() if n}
+    assert seen == counted, f"{label}: the card ran {seen}, the wrappers counted {counted}"
+    log(f"  [main] {label}: the device kernels the profiler recorded match the wrappers' counts {counted}")
 
 
 def nvidia_smi():
@@ -370,31 +424,64 @@ def rgb_beta_head_s2d_bound_ms(batch, channels, cells=256, rr=16):
 
 
 def run_session_script(session, image, z_grid, n_strokes=N_STROKES, tail=True):
-    """The main path. Returns the number of composite steps it took (each
-    stroke and set_latents composite unless the session shows a sample;
-    scroll_patch never does), the number of decodes (infer, set_latents and
-    sample one each, a stroke or a scroll two: one under the gradient, one
-    at the new latent) and the state after the strokes: (Z, IM, RECON) as
-    numpy. (At the end, undo has restored the exact z_grid of set_latents.)
-    `tail=False` leaves out scroll_patch and sample."""
-    composites, decodes = 0, 1
+    """The main path. Returns the number of paint and composite steps it
+    took (each stroke and set_latents: edit_tail runs on every one, as it does
+    in npe_tpu's `_paint_step` and `_composite_step`, whether the session
+    shows a sample or not; scroll_patch never runs it), the number of decodes
+    (infer, set_latents and sample one each, a stroke or a scroll two: one
+    under the gradient, one at the new latent) and the state after the
+    strokes: (Z, IM, RECON) as numpy. (At the end, undo has restored the
+    exact z_grid of set_latents.) `tail=False` leaves out scroll_patch and
+    sample."""
+    steps, decodes = 0, 1
     session.infer(image)
     for stroke in stroke_script()[:n_strokes]:
-        composites += not session.sample_flag
+        steps += 1
         decodes += 2
         session.paint_stroke(*stroke)
     painted = (session.Z.cpu().numpy(), session.IM, session.RECON)
     if tail:
         session.scroll_patch(20, 20, 36, 36, +1, 0.5)  # shows the raw decode
         decodes += 2
-    composites += not session.sample_flag  # for set_latents, next
+    steps += 1  # set_latents, next
     decodes += 1
     session.set_latents(z_grid)
     if tail:
         session.sample(11)
         decodes += 1
     session.undo()
-    return composites, decodes, painted
+    return steps, decodes, painted
+
+
+def captures_of(session):
+    return {kind: p.captures for kind, p in session.runner.programs.items()}
+
+
+def edit_captured_vs_eager(label, config, variables, image, z_grid, **options):
+    """The whole script on the card through a captured session and through
+    the runner's bodies called eagerly (`eager=True`), from the same weights
+    and image, under deterministic algorithms: Z, IM, DELTA and RECON equal
+    bit for bit; each program captured once while the brush moved, resized
+    and switched sigma, the eager session's never."""
+    from npe_tpu_torch.editor.engine import EditSession
+
+    with deterministic_algorithms():
+        sessions, painted = {}, {}
+        for path in ("captured", "eager"):
+            sessions[path] = EditSession(config, variables=variables, device="cuda", eager=path == "eager", **options)
+            painted[path] = run_session_script(sessions[path], image, z_grid)[2]
+    cap, eag = sessions["captured"], sessions["eager"]
+    pairs = (("Z after the strokes", painted["captured"][0], painted["eager"][0]),
+             ("IM after the strokes", painted["captured"][1], painted["eager"][1]),
+             ("RECON", painted["captured"][2], painted["eager"][2]),
+             ("DELTA", cap.DELTA, eag.DELTA), ("Z at the end", cap.Z.cpu().numpy(), eag.Z.cpu().numpy()),
+             ("IM at the end", cap.IM, eag.IM))
+    for name, a, b in pairs:
+        assert np.array_equal(a, b), f"{label}: {name}, captured vs eager, differs by {max_err(a, b)}"
+    assert captures_of(cap) == {"paint": 1, "scroll": 1, "composite": 1}, captures_of(cap)
+    assert not any(captures_of(eag).values()), captures_of(eag)
+    log(f"[main] {label}: captured session vs the runner's bodies called eagerly, whole script under "
+        f"deterministic algorithms: Z, IM, DELTA and RECON equal bit for bit; captures {captures_of(cap)}")
 
 
 def compare_sessions(label, card, cpu, card_painted, cpu_painted):
@@ -437,20 +524,41 @@ def time_strokes(label, session, image, smi, n=TIMED_STROKES):
 
 
 def profile_strokes(label, session, top):
-    """torch.profiler over 20 strokes: device time by kernel name and the
-    device's idle share. Returns the device kernel time per stroke in ms, or
-    None if the profiler recorded no device time."""
-    busy, idle, kernels = bench_torch_edit.device_ms_per_stroke(session, PROFILED_STROKES)
+    """torch.profiler over PROFILED_STROKES strokes: device time by kernel
+    name, the device's idle share and the host's launches a stroke. Returns
+    (device kernel ms a stroke, idle share, host launches a stroke), or
+    Nones if the profiler recorded no device time."""
+    busy, idle, kernels, launches = bench_torch_edit.device_ms_per_stroke(session, PROFILED_STROKES)
     if busy is None:
         log(f"[time] {label} profiler: no device time recorded (idle share not measured)")
-        return None
+        return None, None, None
     log(f"[time] {label} profiler, {PROFILED_STROKES} strokes: device kernels {busy:.4f} ms a stroke (idle share "
-        f"{idle:.3f}); "
-        "kernels by device time:")
+        f"{idle:.3f}); host launches {launches:.1f} a stroke; kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[time]   {e.self_device_time_total / PROFILED_STROKES:9.2f} us/stroke  "
             f"{e.count / PROFILED_STROKES:5.1f}x  {e.key[:90]}")
-    return busy
+    return busy, idle, launches
+
+
+def time_edit_paths(label, session, image, smi, n, top):
+    """The captured session's strokes beside an eager twin's (the same
+    weights, form and dtype, `eager=True`): p50 / p95 over `n` strokes (a
+    quarter as many eager, at least 8), device ms a stroke, idle share and
+    host launches a stroke, by path."""
+    from npe_tpu_torch.editor.engine import EditSession
+
+    eager = EditSession(session.module.cfg["model"], variables=session.variables, device="cuda",
+                        dtype=session.dtype, eager=True, **session.decode_options)
+    out = {}
+    for path, s, strokes, shown in (("captured", session, n, top), ("eager", eager, max(8, n // 4), 3)):
+        p50, p95 = time_strokes(f"{label} {path}", s, image, smi, strokes)
+        busy, idle, launches = profile_strokes(f"{label} {path}", s, shown)
+        out[path] = {"p50_ms": p50, "p95_ms": p95, "strokes": strokes, "device_ms_per_stroke": busy,
+                     "idle_share": idle, "host_launches_per_stroke": launches}
+    assert not any(captures_of(eager).values()) and captures_of(session)["paint"] == 1, captures_of(session)
+    log(f"[time] {label}: captured p50 {out['captured']['p50_ms']:.4f} ms against eager {out['eager']['p50_ms']:.4f} "
+        f"({out['eager']['p50_ms'] / out['captured']['p50_ms']:.2f}x) ({smi})")
+    return out
 
 
 def staging_bound_ms(n, chw):
@@ -1348,10 +1456,10 @@ def check_model_host(variables, x):
 
 def drive_web(variables, counters, smi, index=7):
     """The web editor over HTTP on the card: /infer, the 16-stroke script as
-    /paint calls, /undo and a /session fork, held exactly against an
-    EditSession on the card that runs the same script directly; edit_tail
-    launches once a stroke. Then /paint's p50 over HTTP. Returns
-    (launches, times)."""
+    /paint calls (the captured stroke, its capture made on a handler
+    thread), /undo and a /session fork, held exactly against an EditSession
+    on the card that runs the same script directly; edit_tail launches once a
+    stroke. Then /paint's p50 over HTTP. Returns (launches, times)."""
     from http.server import ThreadingHTTPServer
 
     from npe_tpu_torch.editor.engine import EditSession
@@ -1403,8 +1511,9 @@ def paint_body(stroke):
 
 
 def check_web_script(url, variables, counters, index):
-    """/infer, the stroke script as /paint calls and /undo, with the counts
-    set to 0 just before and read just after; the latents and the photo
+    """/infer, the stroke script as /paint calls and /undo under the
+    profiler, with the counts set to 0 just before and read just after and
+    held against the device kernels it recorded; the latents and the photo
     against a direct session's, exactly; then a /session fork."""
     import base64
 
@@ -1413,13 +1522,17 @@ def check_web_script(url, variables, counters, index):
     from npe_tpu_torch.utils.png import decode_rgb
     from npe_tpu_torch.utils.ranges import to_tanh
 
+    def script():
+        http_json(url + "/infer", {"index": index})
+        for stroke in stroke_script():
+            http_json(url + "/paint", paint_body(stroke))
+        return http_json(url + "/undo", {})
+
     counters.zero()
-    http_json(url + "/infer", {"index": index})
-    for stroke in stroke_script():
-        http_json(url + "/paint", paint_body(stroke))
-    st = http_json(url + "/undo", {})
+    st, seen = profiled(script)
     launches = counters.read()
-    log(f"[serve] web editor: /infer, {N_STROKES} /paint, /undo over HTTP; launches {launches}")
+    log(f"[serve] web editor: /infer, {N_STROKES} /paint, /undo over HTTP under the profiler; launches {launches}")
+    check_witnessed("web editor", launches, seen)
     assert launches["edit_tail"] == N_STROKES and sum(launches.values()) == N_STROKES, launches
 
     direct = EditSession("IAN_simple", variables=variables, device="cuda")
@@ -1918,18 +2031,21 @@ def main():
         return pair
 
     def drive(label, card, cpu, expect, **script):
-        """Counts to 0, the script on the card, counts read; then the same
-        script on the CPU and the comparison. `expect` maps each kernel to
-        'composites', 'decodes', '3 x decodes' or 0."""
+        """Counts to 0, the script on the card (the captured session) under
+        the profiler, counts read and held against the device kernels it
+        recorded; then the same script on the CPU and the comparison; then one
+        capture a program, and none more for a fork. `expect` maps each kernel
+        to 'steps' (paint and composite steps), 'decodes', '3 x decodes' or
+        0."""
         counters.zero()
         t0 = time.perf_counter()
-        composites, decodes, card_painted = run_session_script(card, image, z_grid, **script)
-        torch.cuda.synchronize()
+        (steps, decodes, card_painted), seen = profiled(lambda: run_session_script(card, image, z_grid, **script))
         launches = counters.read()
-        log(f"[main] {label} card script: {time.perf_counter() - t0:.3f} s; composite steps {composites}, "
-            f"decodes {decodes}; launches {launches}")
+        log(f"[main] {label} card script under the profiler: {time.perf_counter() - t0:.3f} s; paint and composite "
+            f"steps {steps}, decodes {decodes}; launches {launches}")
+        check_witnessed(label, launches, seen)
         for name, what in expect.items():
-            want = {"composites": composites, "decodes": decodes, "3 x decodes": 3 * decodes, 0: 0}[what]
+            want = {"steps": steps, "decodes": decodes, "3 x decodes": 3 * decodes, 0: 0}[what]
             assert launches[name] == want, f"{label}: {name} launched {launches[name]} times, not {want}"
             assert what == 0 or launches[name] > 0
         assert not any(n for name, n in launches.items() if name.endswith("_bf16")), launches
@@ -1937,13 +2053,22 @@ def main():
         assert launches == counters.read()  # the CPU launches nothing
         compare_sessions(label, card, cpu, card_painted, cpu_painted)
         painted[label] = card_painted
+        want = {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1}
+        assert captures_of(card) == want, (label, captures_of(card))
+        fork = card.fork()
+        fork.infer(image)
+        fork.paint_stroke(3, 50, 23, 54, (9, 99, 199), 0.5)
+        fork.set_latents(z_grid * 0.5)
+        assert fork.runner is card.runner and captures_of(card) == want, (label, captures_of(card))
+        log(f"[main] {label}: captures {captures_of(card)} after the script (the brush moved, resized and switched "
+            "sigma), none more for a fork's stroke and latent edit")
         return launches
 
     painted = {}  # the card's float32 state after each script, for the bf16 paths
 
     card, cpu = sessions_of("IAN_simple", ian_simple)
     main_launches = drive("IAN_simple", card, cpu,
-                          {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0,
+                          {"edit_tail": "steps", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0,
                            "staging": 0})
 
     assert common.HEAD_MODE == "hybrid"
@@ -1951,13 +2076,13 @@ def main():
     masks = [k for k in card_v1.variables if k.endswith(".weights_mask")]
     assert len(masks) == 6 and all(card_v1.variables[k].is_cuda for k in masks)
     hybrid_launches = drive("IANv1 hybrid head", card_v1, cpu_v1,
-                            {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
+                            {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
                              "mdblock": 0})
     main_launches["rgb_beta_tail"] = hybrid_launches["rgb_beta_tail"]
     fused_v1, fused_cpu_v1 = (EditSession("IANv1", variables=s.variables, device=s.device, head_mode="fused")
                               for s in (card_v1, cpu_v1))
     fused_launches = drive("IANv1 fused head", fused_v1, fused_cpu_v1,
-                           {"edit_tail": "composites", "rgb_beta_tail": 0, "rgb_beta_head": "decodes"},
+                           {"edit_tail": "steps", "rgb_beta_tail": 0, "rgb_beta_head": "decodes"},
                            n_strokes=4, tail=False)
     main_launches["rgb_beta_head"] = fused_launches["rgb_beta_head"]
 
@@ -1968,12 +2093,21 @@ def main():
     fused_ian, fused_cpu_ian = (EditSession("IAN", variables=s.variables, device=s.device, mdblock_mode="fused")
                                 for s in (card_ian, cpu_ian))
     ian_launches = drive("IAN fused MDBLOCKs", fused_ian, fused_cpu_ian,
-                         {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
+                         {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
                           "mdblock": "3 x decodes"})
     main_launches["mdblock"] = ian_launches["mdblock"]
     drive("IAN per-op MDBLOCKs", card_ian, cpu_ian,
-          {"edit_tail": "composites", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0},
+          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0},
           n_strokes=4, tail=False)
+
+    # captured against the runner's bodies called eagerly, every model and form
+    for label, config, variables, options in (("IAN_simple", "IAN_simple", card.variables, {}),
+                                              ("IANv1 hybrid head", "IANv1", card_v1.variables, {}),
+                                              ("IANv1 fused head", "IANv1", card_v1.variables, {"head_mode": "fused"}),
+                                              ("IAN per-op MDBLOCKs", "IAN", card_ian.variables, {}),
+                                              ("IAN fused MDBLOCKs", "IAN", card_ian.variables,
+                                               {"mdblock_mode": "fused"})):
+        edit_captured_vs_eager(label, config, variables, image, z_grid, **options)
 
     log(f"[phase] 5 starts at {time.perf_counter() - started:.1f} s")
     # 5. API
@@ -2021,12 +2155,13 @@ def main():
     x64 = rng.uniform(-1, 1, (64, 3, 64, 64)).astype(np.float32)
     rgb = np.broadcast_to(np.float32([0.5, -0.5, 0.2])[None, :, None, None], (1, 3, 64, 64))
 
-    def expect_launches(label, launches, expect, decodes, composites):
+    def expect_launches(label, launches, expect, decodes, steps):
         """`expect`'s kernels launched once a decode (three times for the
-        MDBLOCK), edit_tail once a composite step in float32, nothing else."""
+        MDBLOCK), edit_tail once a paint or composite step in float32, nothing
+        else."""
         wants = {"decodes": decodes, "3 x decodes": 3 * decodes}
         for name, n in launches.items():
-            want = wants[expect[name]] if name in expect else composites if name == "edit_tail" else 0
+            want = wants[expect[name]] if name in expect else steps if name == "edit_tail" else 0
             assert n == want, f"{label}: {name} launched {n} times, not {want}"
             bf16_launches[name] += n
 
@@ -2054,17 +2189,21 @@ def main():
         # EditSession: the float32 scripts' strokes
         session = EditSession(config, variables=variables_of[config], device="cuda", dtype="bfloat16", **forms)
         counters.zero()
-        composites, decodes, got = run_session_script(session, image, z_grid, **script)
-        torch.cuda.synchronize()
+        (steps, decodes, got), seen = profiled(
+            lambda: run_session_script(session, image, z_grid, **script))  # noqa: B023
         launches = counters.read()
-        log(f"[bf16] {label} EditSession(dtype=bf16) script: composite steps {composites}, decodes {decodes}; "
-            f"launches {launches}")
-        expect_launches(f"{label} session", launches, expect, decodes, composites)
+        log(f"[bf16] {label} EditSession(dtype=bf16) script: paint and composite steps {steps}, decodes {decodes}; "
+            f"launches {launches}; captures {captures_of(session)}")
+        check_witnessed(f"{label} bf16 session", launches, seen)
+        expect_launches(f"{label} session", launches, expect, decodes, steps)
+        assert captures_of(session) == {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1}
         z32_painted, im32_painted, _ = painted[label]
         assert session.Z.dtype == torch.float32 and got[1].dtype == np.float32 and np.isfinite(session.IM).all()
         mean_close(f"[bf16] {label} Z after the strokes, bf16 vs float32", got[0], z32_painted, Z_BOUND)
         mean_close(f"[bf16] {label} IM after the strokes, bf16 vs float32", got[1], im32_painted, IMAGE_BOUND)
         bf16_sessions[label] = session
+        edit_captured_vs_eager(f"{label} bf16", config, variables_of[config], image, z_grid, dtype="bfloat16",
+                               **forms)
     bf16_serving, serve_times["bf16"] = drive_serving_bf16(variables_of, counters, smi)
     bf16_kernels = ("rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")
     assert all(bf16_launches[name] > 0 and bf16_serving[name] > 0 for name in bf16_kernels), (bf16_launches,
@@ -2123,17 +2262,14 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     log(f"[phase] 7 starts at {time.perf_counter() - started:.1f} s")
-    # 7. Times
-    p50, p95 = time_strokes("IAN_simple", card, image, smi)
-    profile_strokes("IAN_simple", card, top=12)
-    v1_p50, v1_p95 = time_strokes("IANv1 hybrid head", card_v1, image, smi)
-    v1_busy = profile_strokes("IANv1 hybrid head", card_v1, top=16)
-    fused_p50, fused_p95 = time_strokes("IANv1 fused head", fused_v1, image, smi)
-    fused_busy = profile_strokes("IANv1 fused head", fused_v1, top=6)
-    ian_p50, ian_p95 = time_strokes("IAN per-op MDBLOCKs", card_ian, image, smi)
-    ian_busy = profile_strokes("IAN per-op MDBLOCKs", card_ian, top=14)
-    ian_fused_p50, ian_fused_p95 = time_strokes("IAN fused MDBLOCKs", fused_ian, image, smi, n=50)
-    ian_fused_busy = profile_strokes("IAN fused MDBLOCKs", fused_ian, top=14)
+    # 7. Times: each session's strokes captured (its path) and eager
+    strokes = {}
+    for label, session, n, top in (("IAN_simple", card, TIMED_STROKES, 12),
+                                   ("IANv1 hybrid head", card_v1, TIMED_STROKES, 16),
+                                   ("IANv1 fused head", fused_v1, TIMED_STROKES, 6),
+                                   ("IAN per-op MDBLOCKs", card_ian, TIMED_STROKES, 14),
+                                   ("IAN fused MDBLOCKs", fused_ian, TIMED_STROKES // 2, 14)):
+        strokes[label] = time_edit_paths(label, session, image, smi, n, top)
     log(f"[phase] 7's strokes done at {time.perf_counter() - started:.1f} s")
 
     # what the head's weight packing costs on every decode (two a stroke)
@@ -2353,13 +2489,10 @@ def main():
         bf16_times["encode_decode_imgs_per_s_b256"][label] = rate
         log(f"[time] {label} bf16 encode+decode batch 256: {rate:.1f} imgs/s (median of 3 rounds of 3 chained "
             f"passes, spread {spread:.3f}) ({smi})")
-    # (the device time a bf16 stroke takes is bench_torch_edit.py's to report:
-    # a profiler run here costs more wall time than the strokes themselves)
     bf16_times["strokes"] = {}
     for label, session in bf16_sessions.items():
         n = BF16_TIMED_STROKES // 2 if "fused MDBLOCKs" in label else BF16_TIMED_STROKES
-        p50_16, p95_16 = time_strokes(f"{label} bf16", session, image, smi, n=n)
-        bf16_times["strokes"][label] = {"p50_ms": p50_16, "p95_ms": p95_16}
+        bf16_times["strokes"][label] = time_edit_paths(f"{label} bf16", session, image, smi, n, 6)
     del x256
     log(f"[phase] 7b's strokes done at {time.perf_counter() - started:.1f} s")
 
@@ -2427,17 +2560,10 @@ def main():
                      training_captured_launches=captured_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
     log(json.dumps({"kernels": entries}))
-    log(json.dumps({"paint_stroke_p50_ms": p50, "paint_stroke_p95_ms": p95,
+    log(json.dumps({"strokes": strokes, "paint_stroke_p50_ms": strokes["IAN_simple"]["captured"]["p50_ms"],
+                    "paint_stroke_p95_ms": strokes["IAN_simple"]["captured"]["p95_ms"],
                     "encode_decode_imgs_per_s_b128": rates["IAN_simple"],
-                    "ianv1_paint_stroke_p50_ms": v1_p50, "ianv1_paint_stroke_p95_ms": v1_p95,
-                    "ianv1_device_ms_per_stroke": v1_busy,
-                    "ianv1_fused_paint_stroke_p50_ms": fused_p50, "ianv1_fused_paint_stroke_p95_ms": fused_p95,
-                    "ianv1_fused_device_ms_per_stroke": fused_busy,
                     "ianv1_encode_decode_imgs_per_s_b128": rates["IANv1"],
-                    "ian_paint_stroke_p50_ms": ian_p50, "ian_paint_stroke_p95_ms": ian_p95,
-                    "ian_device_ms_per_stroke": ian_busy,
-                    "ian_fused_paint_stroke_p50_ms": ian_fused_p50, "ian_fused_paint_stroke_p95_ms": ian_fused_p95,
-                    "ian_fused_device_ms_per_stroke": ian_fused_busy,
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
                     "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,

@@ -15,7 +15,10 @@ from npe_tpu_torch.utils.device import resolve_device
 
 
 def patch_mask(h, w, c1, r1, c2, r2, dtype=torch.float32, device="cpu"):
-    """(h, w) mask of the half-open box [r1, r2) x [c1, c2)."""
+    """(h, w) mask of the half-open box [r1, r2) x [c1, c2). The box is
+    Python numbers or 0-d tensors on `device` (integer-valued; the captured
+    editor keeps them in a float32 buffer); given tensors, nothing is read
+    from the host."""
     rows = torch.arange(h, device=device)[:, None]
     cols = torch.arange(w, device=device)[None, :]
     m = (rows >= r1) & (rows < r2) & (cols >= c1) & (cols < c2)
@@ -26,7 +29,11 @@ def soft_patch_mask(h, w, c1, r1, c2, r2, sigma, dtype=torch.float32, device="cp
     """Gaussian-feathered brush box (the reference's `gk` localizer,
     `NPE.py:167-175`): 1 inside the box, exp(-(dx^2 + dy^2) / (2 sigma^2 h))
     outside, where dx/dy are the pixel distances past the box edges.
-    sigma == 0 gives the hard box exactly."""
+    sigma == 0 gives the hard box exactly. The box and sigma are Python
+    numbers or 0-d tensors on `device`: given tensors, nothing is read from
+    the host (`torch.as_tensor` returns a tensor sigma of `dtype` as it is,
+    and casts one of another dtype on the device), so a CUDA graph of it
+    takes a new brush from its buffers."""
     rows = torch.arange(h, device=device, dtype=dtype)[:, None]
     cols = torch.arange(w, device=device, dtype=dtype)[None, :]
     dx = torch.clamp(torch.maximum(c1 - cols, cols - (c2 - 1)), min=0.0)

@@ -7,6 +7,14 @@ through the `edit_tail` wrapper, which launches the hand-written CUDA kernel
 for GPU tensors and runs its plain version for CPU tensors. Latents and the
 RECON / ERROR images stay on the device between events.
 
+`paint_stroke`, `scroll_patch` and `set_latents` run through the session's
+`captured.EditRunner`: on the card each is one replayed CUDA graph, npe_tpu's
+jitted `_paint_step`, `_scroll_step` and `_composite_step`, with one upload
+of the brush's values and one download of the images; on the CPU (or with
+`eager=True`) the same bodies run directly. `infer`, `sample` and
+`decode_current` are one-off steps with a host-side uint8 quantisation, and
+run eagerly.
+
 Image convention at the session boundary: CHW float32 in [-1, 1] (tanh
 range), as numpy, like the model API. `*_uint8()` helpers convert for display.
 
@@ -19,20 +27,14 @@ composite and `edit_tail` stay float32.
 import numpy as np
 import torch
 
-from npe_tpu_torch.api import decode_options, soft_patch_mask
+from npe_tpu_torch.api import decode_options
+from npe_tpu_torch.editor.captured import EditRunner
 from npe_tpu_torch.models import get_config
-from npe_tpu_torch.ops.kernels.edit_tail import edit_tail
 from npe_tpu_torch.utils import checkpoints
 from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
 from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
 
-# Gradient-descent step size for brush strokes (`NPE.py:199`).
-PAINT_WEIGHT = 0.05
-# Scroll (lighten/darken) step size (`NPE.py:309`).
-SCROLL_WEIGHT = 0.1
-# Mask blur sigma (`NPE.py:224`).
-MASK_SIGMA = 0.7
 # Per-stroke user-mask accumulation rate (`NPE.py:221`, commented out there).
 USER_MASK_RATE = 0.05
 
@@ -70,6 +72,7 @@ class EditSession:
         head_mode=None,
         mdblock_mode=None,
         dtype=None,
+        eager=False,
     ):
         """variables: port variables on `device` (see
         `utils.checkpoints.from_reference`); drawn from torch.Generator(seed)
@@ -79,7 +82,9 @@ class EditSession:
         (`models.common.MDBLOCK_MODES`). None leaves the model's default.
         dtype: torch.bfloat16 (or "bfloat16") runs the decode and gradient in
         bf16, the weights drawn or loaded in float32 and cast once; None or
-        float32 runs in float32; any other dtype raises ValueError."""
+        float32 runs in float32; any other dtype raises ValueError.
+        eager: on the card, run the edit steps' bodies without CUDA graphs
+        (for comparisons and timings; the CPU never has graphs)."""
         self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
         self.module = get_config(config)
@@ -95,6 +100,7 @@ class EditSession:
         zdim = self.module.cfg["num_latents"]
         if self.dim[0] * self.dim[1] != zdim:
             raise ValueError(f"latent grid {self.dim} does not hold {zdim} latents")
+        self.runner = EditRunner(self.module, self.variables, self.dtype, self.decode_options, self.device, eager)
         self._init_state()
 
     def _init_state(self):
@@ -115,40 +121,13 @@ class EditSession:
 
     def fork(self):
         """A new session with fresh editor state that SHARES this session's
-        weights; only the per-image state is new."""
+        weights and its runner (its captured programs); only the per-image
+        state is new."""
         s = object.__new__(EditSession)
-        for attr in ("device", "dtype", "module", "variables", "dim", "decode_options"):
+        for attr in ("device", "dtype", "module", "variables", "dim", "decode_options", "runner"):
             setattr(s, attr, getattr(self, attr))
         s._init_state()
         return s
-
-    # --- the model pieces of one event -------------------------------------
-
-    def _decode_hwc(self, z_flat):
-        """The decode of a float32 z in this session's dtype, as a float32
-        (H, W, 3) image."""
-        xh = self.module.decode(self.variables, z_flat[None].to(self.dtype), **self.decode_options)
-        return xh[0].permute(1, 2, 0).float().contiguous()
-
-    def _patch_grad(self, z, c1, r1, c2, r2, sigma, rgb_hwc=None):
-        """d(patch loss)/dz through the decoder: the mean squared distance to
-        rgb_hwc over the (feathered) box, or with rgb_hwc None the mean
-        brightness there."""
-        z = z.detach().requires_grad_(True)
-        xh = self._decode_hwc(z)
-        m = soft_patch_mask(xh.shape[0], xh.shape[1], c1, r1, c2, r2, sigma, xh.dtype, self.device)
-        num = xh if rgb_hwc is None else (rgb_hwc - xh) ** 2
-        loss = (num * m[:, :, None]).sum() / (m.sum() * xh.shape[2])
-        (g,) = torch.autograd.grad(loss, z)
-        return g
-
-    def _composite(self, xh):
-        """The shown image: the composite tail, or on the sample path
-        (`sample_flag`) the raw decode."""
-        if self.sample_flag:
-            return xh
-        um = torch.from_numpy(self.USER_MASK).to(self.device)
-        return edit_tail(xh, self._recon, self._error, um, MASK_SIGMA)
 
     # --- helpers ------------------------------------------------------------
 
@@ -216,7 +195,7 @@ class EditSession:
         self.IM = self._gim.copy()
         x = torch.from_numpy(self._gim).to(self.device)
         self.Z = self.module.encode(self.variables, x[None].to(self.dtype))[0].float()
-        self._recon = self._quantized(self._decode_hwc(self.Z))
+        self._recon = self._quantized(self.runner.decode_hwc(self.Z))
         self._error = (x.permute(1, 2, 0) - self._recon).contiguous()
         self.DELTA = np.zeros_like(self._gim)
         self.USER_MASK = np.zeros_like(self.USER_MASK)
@@ -244,7 +223,7 @@ class EditSession:
         )
         self._snapshot()
         self.Z = torch.randn(self.Z.shape, generator=gen, device=gen.device).to(self.device)
-        xh = self._decode_hwc(self.Z)
+        xh = self.runner.decode_hwc(self.Z)
         self._recon = self._quantized(xh)
         self._error = (torch.from_numpy(self.IM).to(self.device).permute(1, 2, 0) - self._recon).contiguous()
         self.sample_flag = True
@@ -256,43 +235,37 @@ class EditSession:
         [0, 255]. The box is [y1, y2) rows x [x1, x2) cols in 64-space.
         sigma>0 = soft brush: the patch loss is feathered by the reference's
         `gk` Gaussian localizer (`NPE.py:167-175`)."""
-        rgb_hwc = torch.as_tensor(to_tanh(np.float32(rgb)), device=self.device).expand(
-            self._recon.shape
-        )
+        rgb_tanh = to_tanh(np.float32(rgb))
+        if rgb_tanh.shape != (3,):
+            raise ValueError(f"rgb must hold 3 values, got {np.shape(rgb)}")
         self._snapshot()
         # Accumulate the user mask under the brush (the reference's sketched
         # `USER_MASK[y1:y2,x1:x2]+=0.05`, `NPE.py:221`); soft strokes
         # accumulate the same feathered profile the loss sees.
         prof = _soft_box_profile(self.USER_MASK.shape, x1, y1, x2, y2, sigma)
         self.USER_MASK = np.minimum(self.USER_MASK + USER_MASK_RATE * prof, 1.0)
-        g = self._patch_grad(self.Z, x1, y1, x2, y2, float(sigma), rgb_hwc)
-        with torch.no_grad():
-            z2 = self.Z - PAINT_WEIGHT * g * (1.0 + (x2 - x1))
-            xh = self._decode_hwc(z2)
-            im = self._composite(xh)
-            self.Z = z2
-            self.IM = _chw(im)
-            self.DELTA = _chw(xh - self._recon)
+        self.Z, self.IM, self.DELTA = self.runner.paint(
+            self.Z, self._recon, self._error, self.USER_MASK, (x1, y1, x2, y2), float(sigma), rgb_tanh,
+            not self.sample_flag)
         return self.IM
 
     def scroll_patch(self, x1, y1, x2, y2, direction, sigma=0.0):
         """Mouse-wheel lighten/darken (`NPE.py:305-314`)."""
         self._snapshot()
-        g = self._patch_grad(self.Z, x1, y1, x2, y2, float(sigma))
-        with torch.no_grad():
-            self.Z = self.Z + float(np.sign(direction)) * SCROLL_WEIGHT * g * (1.0 + (x2 - x1))
-            self.IM = _chw(self._decode_hwc(self.Z))
+        self.Z, self.IM = self.runner.scroll(self.Z, (x1, y1, x2, y2), float(sigma), float(np.sign(direction)))
         return self.IM
 
-    @torch.no_grad()
     def set_latents(self, z_grid):
         """Direct latent painting (`NPE.py:277-302`): caller supplies the
         pooled latent grid; we re-composite."""
+        z = np.float32(z_grid).reshape(-1)
+        if z.shape != tuple(self.Z.shape):
+            raise ValueError(f"z_grid holds {z.size} latents, the model {self.Z.numel()}")
         self._snapshot()
-        self.Z = torch.from_numpy(np.float32(z_grid).reshape(-1)).to(self.device)
-        self.IM = _chw(self._composite(self._decode_hwc(self.Z)))
+        self.Z = torch.from_numpy(z).to(self.device)
+        self.IM = self.runner.composite(self.Z, self._recon, self._error, self.USER_MASK, not self.sample_flag)
         return self.IM
 
     @torch.no_grad()
     def decode_current(self):
-        return _chw(self._decode_hwc(self.Z))
+        return _chw(self.runner.decode_hwc(self.Z))

@@ -61,86 +61,27 @@ inside its step), besides the buffers, which hold one more train state than
 the eager chunk keeps.
 """
 
-import contextlib
-import gc
 import weakref
 
 import torch
 
-from npe_tpu_torch.ops.kernels import edit_tail, mdblock, rgb_beta_head, rgb_beta_tail, staging
 from npe_tpu_torch.training.train_step import make_train_steps
-
-# Every launch count of the kernel wrappers: (wrapper, attribute).
-COUNTERS = tuple((fn, attr) for fn in (edit_tail.edit_tail, mdblock.mdblock_fused, rgb_beta_head.rgb_beta_head,
-                                       rgb_beta_tail.rgb_beta_tail, staging.stage_chunk)
-                 for attr in ("launches", "launches_bf16") if hasattr(fn, attr))
+from npe_tpu_torch.utils import graphs
+# The capture machinery lives in utils/graphs.py; its names stay importable here.
+from npe_tpu_torch.utils.graphs import COUNTERS, _on, add_counts, capture, read_counts  # noqa: F401
 
 
-def read_counts():
-    return [getattr(fn, attr) for fn, attr in COUNTERS]
+class Program(graphs.Program):
+    """`graphs.Program` as the trainer's steps were made and measured: its
+    eager calls enter this module's `_on`, and it captures in torch's default
+    mode, "global" (None). The trainer captures on the training thread; its
+    asynchronous checkpoint thread is the case "thread_local" is for, and
+    moving the trainer to it is left to a change of the trainer."""
 
+    capture_error_mode = None
 
-def add_counts(delta):
-    for (fn, attr), n in zip(COUNTERS, delta):
-        setattr(fn, attr, getattr(fn, attr) + n)
-
-
-def capture(body, stream, pool):
-    """A CUDA graph of `body` captured on `stream` into `pool`, and the
-    launches the capture counted, which it takes back off the counters.
-    Python's cyclic garbage collector is off while it captures: a collection
-    there that frees another graph, or the memory of its pool, calls
-    cudaFree, which invalidates the capture."""
-    before = read_counts()
-    graph = torch.cuda.CUDAGraph()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            body()
-    finally:
-        if collecting:
-            gc.enable()
-        recorded = [n - b for n, b in zip(read_counts(), before)]
-        add_counts([-n for n in recorded])
-    return graph, recorded
-
-
-@contextlib.contextmanager
-def _on(stream):
-    """Work on `stream`, ordered after and before the current stream's."""
-    current = torch.cuda.current_stream(stream.device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        yield
-    current.wait_stream(stream)
-
-
-class Program:
-    """`body`, a function of no arguments over fixed tensors, as a CUDA graph
-    on the card: run eagerly at the first call (on `stream`, the capture's),
-    captured at the second and replayed then and at every later call; each
-    replay adds the launches the capture recorded to the counters. On the
-    CPU (`stream` None) every call runs `body`. `calls` and `captures` count
-    the calls and the captures (at most one)."""
-
-    def __init__(self, body, stream=None, pool=None):
-        self.body, self.stream, self.pool = body, stream, pool
-        self.calls, self.captures, self.graph, self.recorded = 0, 0, None, None
-
-    def __call__(self):
-        self.calls += 1
-        if self.stream is None:
-            self.body()
-        elif self.calls == 1:
-            with _on(self.stream):
-                self.body()
-        else:
-            if self.graph is None:
-                self.captures += 1
-                self.graph, self.recorded = capture(self.body, self.stream, self.pool)
-            self.graph.replay()
-            add_counts(self.recorded)
+    def _stream(self):
+        return _on(self.stream)
 
 
 def flatten(tree, prefix=()):

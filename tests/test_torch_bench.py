@@ -154,6 +154,31 @@ def test_stroke_script_and_stroke_times_on_a_cpu_session():
     assert len(times) == 3 and all(t > 0 for t in times) and len(session._undo) == 4
 
 
+def test_bench_torch_edit_paths():
+    """Both paths by default, the captured one first (the session's path and
+    the headline); either alone; a path it does not know, or one named twice,
+    is refused."""
+    a = bench_torch_edit.parse([])
+    assert a.paths == ["captured", "eager"] and a.dtypes == ["float32", "bfloat16"] and len(a.forms) == 5
+    assert bench_torch_edit.parse(["--path", "eager"]).paths == ["eager"]
+    assert bench_torch_edit.parse(["--path", "eager,captured", "--models", "IANv1"]).paths == ["eager", "captured"]
+    for bad in (["--path", "graph"], ["--path", "captured,captured"], ["--path", ""]):
+        with pytest.raises(SystemExit):
+            bench_torch_edit.parse(bad)
+
+
+def test_bench_torch_edit_times_each_path_of_a_cpu_session(monkeypatch):
+    """`time_path` over a CPU session (the card's synchronise stubbed): the
+    keys of a result's path; the profiler's device figures are None without a
+    card."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    session = EditSession(tp.TINY_TORCH, variables=tp.port_variables(tp.TINY_JAX), dim=(4, 4), device="cpu",
+                          eager=True)
+    got = bench_torch_edit.time_path(session, np.zeros((3, 64, 64), np.float32), 2, 2)
+    assert len(got["runs_p50_ms"]) == 2 and got["p50_ms"] > 0 and got["p95_ms"] >= got["p50_ms"] * 0.5
+    assert (got["device_ms_per_stroke"], got["idle_share"], got["host_launches_per_stroke"]) == (None, None, None)
+
+
 def test_bench_torch_stages_arguments():
     a = bench_torch_stages.parse([])
     # the reference's defaults: full IAN in bf16 at batch 128; the port's default forms
