@@ -11,7 +11,11 @@ For one model (and head / MDBLOCK form and wire) it measures:
   * the server's own per-op EMA of group time (wall time around the upload,
     the model and the download of one group; serving.py `_serve`);
   * the transport floor: p50 / p95 of one tiny host-to-device and
-    device-to-host copy pair, what any request pays before the model runs.
+    device-to-host copy pair, what any request pays before the model runs;
+  * for each path (`--path`: the captured server, the server's own path,
+    and an eager twin, `InferenceServer(eager=True)`), the buckets whose
+    programs were made, each one's first call (on the captured path the
+    eager call and the capture) and the peak device memory the server added.
 
 A host-bound p50 moves 1.3-2.5x between calls, so every figure is measured
 `--repeats` times on one server and the median is reported beside each run's
@@ -21,7 +25,9 @@ it prints come from this code too.
 
 Usage: python3 bench_torch_serving.py [--model IAN_simple] [--n 100] [--load 256]
            [--repeats 3] [--wire float32|uint8] [--head-mode M] [--mdblock-mode M]
-Prints one JSON line. Exits nonzero without a CUDA device.
+           [--path captured,eager]
+Prints one JSON line: the first path's figures at the top level, every
+path's under "paths". Exits nonzero without a CUDA device.
 """
 
 import argparse
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 WAIT = 600  # seconds: the longest a request may take, the kernels' first build included
+PATHS = ("captured", "eager")
 
 
 def pctl(xs, q):
@@ -106,13 +113,27 @@ def median_of(runs):
             for k in runs[0]}
 
 
+def run_path(server, n, load, repeats):
+    """`repeats` runs of `measure` on one server: their median, every run,
+    the server's counters, the buckets of each op whose programs were made
+    and each program's first call, ms."""
+    runs = [measure(server, n, load) for _ in range(repeats)]
+    buckets, first = {"encode": [], "decode": []}, {}
+    for (op, specs), sig in server.programs.signatures.items():
+        buckets[op].append(specs[0][0][0])
+        first[f"{op} {specs[0][0][0]}"] = sig.first_call_ms
+    return {"median": median_of(runs), "runs": runs, "stats": dict(server.stats),
+            "buckets": {op: sorted(b) for op, b in buckets.items()}, "first_call_ms": first,
+            "captures": sum(server.programs.captures().values())}
+
+
 def nvidia_smi():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
-def main(argv=None):
+def parse(argv):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="IAN_simple")
     p.add_argument("--n", type=int, default=100, help="sequential requests per op and run")
@@ -122,7 +143,17 @@ def main(argv=None):
     p.add_argument("--wire", default="float32", choices=["float32", "uint8"])
     p.add_argument("--head-mode", default=None)
     p.add_argument("--mdblock-mode", default=None)
+    p.add_argument("--path", default=",".join(PATHS),
+                   help="comma-separated: captured (the server's path), eager; the first gives the headline")
     a = p.parse_args(argv)
+    a.paths = a.path.split(",")
+    if sorted(set(a.paths) - set(PATHS)) or len(set(a.paths)) != len(a.paths):
+        p.error(f"--path takes {PATHS}, each once, got {a.path!r}")
+    return a
+
+
+def main(argv=None):
+    a = parse(argv)
     if not torch.cuda.is_available():
         print("bench_torch_serving: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -131,16 +162,25 @@ def main(argv=None):
 
     from npe_tpu_torch.serving import InferenceServer
 
-    server = InferenceServer(config=a.model, max_batch=a.max_batch, wire=a.wire, head_mode=a.head_mode,
-                             mdblock_mode=a.mdblock_mode)
-    try:
-        runs = [measure(server, a.n, a.load) for _ in range(a.repeats)]
-        stats = dict(server.stats)
-    finally:
-        server.close()
+    variables = None
+    paths = {}
+    for path in a.paths:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        server = InferenceServer(config=a.model, variables=variables, max_batch=a.max_batch, wire=a.wire,
+                                 head_mode=a.head_mode, mdblock_mode=a.mdblock_mode, eager=path == "eager")
+        variables = server.variables  # every path serves the same seeded weights
+        try:
+            paths[path] = run_path(server, a.n, a.load, a.repeats)
+        finally:
+            server.close()
+        torch.cuda.synchronize()
+        paths[path]["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        print(f"{a.model} {path}: decode p50 {paths[path]['median']['decode_p50_ms']:.3f} ms", file=sys.stderr)
     print(json.dumps({"model": a.model, "wire": a.wire, "head_mode": a.head_mode, "mdblock_mode": a.mdblock_mode,
                       "max_batch": a.max_batch, "n": a.n, "load_requests": a.load, "repeats": a.repeats,
-                      "median": median_of(runs), "runs": runs, "stats": stats,
+                      "path": a.paths[0], **paths[a.paths[0]], "paths": paths,
                       "device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}))
     return 0
 

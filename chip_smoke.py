@@ -14,14 +14,26 @@ steps run eagerly on the card (bit for bit under deterministic algorithms,
 each program captured once while the brush moves), holds the kernels'
 launch counts of each edit script to the device kernels that torch.profiler
 records in the same run, and times the edit step captured and eager, the
-kernels and encode+decode. Then serving on the same weights: an
-`InferenceServer` per model and form (IAN_simple on either wire, the uint8
-one through the `staging` kernel; IANv1 with either head kernel; full IAN
-with the fused MDBLOCKs), 64 concurrent 1-image requests per op, a request
-split at `max_batch` and an encode/decode burst, each held against
-`api.IAN` on the card; a `ModelHost` of the three models over HTTP; the web
-editor over HTTP held exactly against a direct `EditSession`; and the
-serving times (bench_torch_serving.py's functions). Then the trainer:
+kernels and encode+decode. The editor's load, sample and decode run as two
+more captured programs. `api.IAN`'s four methods run as one captured program
+per input shape (`utils/graphs.ProgramCache`): for every model, form and
+dtype the API script (the box moved and resized, the colour and latents
+changed) is held bit for bit against `eager=True` under deterministic
+algorithms, one capture a signature, its launches held to the profiler's
+kernels; the inference-mode trap runs in a process of its own
+(`--trap`). Then serving on the same weights: an `InferenceServer` per
+model and form (IAN_simple on either wire, the uint8 one through the
+`staging` kernel; IANv1 with either head kernel; full IAN with the fused
+MDBLOCKs), each group padded to its bucket and run as a captured program,
+first held bit for bit against an eager twin on requests of 1 to 20 images
+(one capture a bucket), then 64 concurrent 1-image requests per op, a
+request split at `max_batch` and an encode/decode burst under the profiler,
+each held against `api.IAN` on the card; a `ModelHost` of the three models
+over HTTP, whose first calls run at once on three dispatcher threads (their
+captures take turns);
+the web editor over HTTP held exactly against a direct `EditSession`; and
+the serving times, captured beside eager (bench_torch_serving.py's
+functions), with each program's first call and each server's peak memory. Then the trainer:
 `training.train.train` on IAN_simple at full width (batch 128, the procedural
 dataset, two epochs and a resumed third, with the dataset resident on the card
 and with per-chunk uploads, each chunk staged by the `staging` kernel, the
@@ -143,6 +155,18 @@ HEAD_SCALES = [2, 3, 4]
 # throughput leg, timed runs a case (their median is reported), and the
 # longest any served future or HTTP request may take
 SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_TIMED, SERVE_LOAD, SERVE_REPEATS, SERVE_WAIT = 64, 16, 50, 256, 3, 600
+# the API scripts: the brush's boxes (moved and resized), the decodes a script
+# runs (sample_at twice, a gradient's forward each), the outputs by name, and
+# the timed calls a method at batch 1 and at batch 64
+API_BOXES = ((8, 8, 24, 24), (20, 30, 36, 50), (0, 40, 12, 64))
+API_DECODES = 2 + 2 * len(API_BOXES)
+API_OUTPUTS = ("encode_images b1", "encode_images b64", "sample_at b1", "sample_at b64") + tuple(
+    f"{m} box {i}" for i in range(len(API_BOXES)) for m in ("imgrad", "imgradRGB"))
+API_TIMED, API_TIMED_B64 = 20, 5
+# the served script of the captured-vs-eager checks: one sequential request of
+# each size, each its own group: buckets 1, 4, 8, 16, and 20 split into 16 + 4
+SERVED_SIZES = (1, 3, 5, 16, 20)
+SERVED_BUCKETS = (1, 4, 8, 16)
 # Full IAN's three MDBLOCKs: (name, channels, map size, scales)
 MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2, 3)),
                   ("dec_conv4a", 128, 32, (0, 2, 3)))
@@ -198,14 +222,31 @@ def witnessed(kernels):
 
 def profiled(fn):
     """fn() under torch.profiler, the card synchronised after it: (its
-    result, `witnessed` of the device kernels the profiler recorded)."""
+    result, `witnessed` of the device kernels the profiler recorded). The
+    recorded kernels by name are kept in LAST_PROFILE for a failure's
+    message. The first few device records of a window can be missing from
+    the profiler's results: late in this script a served script's first
+    upload, and then its first staging kernel, were (the kernel ran: the
+    results were exact; one run in two). So each window opens with
+    PROFILER_LEAD small kernels of its own, which count for nothing, and
+    waits for them."""
     from torch.autograd import DeviceType
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
+        lead = torch.zeros(PROFILER_LEAD, device="cuda")
+        for i in range(PROFILER_LEAD):
+            lead[i:i + 1].add_(1)
+        torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
-    return out, witnessed({e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+    LAST_PROFILE.clear()
+    LAST_PROFILE.update({e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+    return out, witnessed(LAST_PROFILE)
+
+
+LAST_PROFILE = {}
+PROFILER_LEAD = 16
 
 
 def check_witnessed(label, launches, seen):
@@ -213,6 +254,8 @@ def check_witnessed(label, launches, seen):
     recorded in it: a replay counts what its capture recorded, and this holds
     that count to the kernels the card ran."""
     counted = {name: n for name, n in launches.items() if n}
+    if seen != counted:
+        log(f"  [main] {label}: the profiler recorded, by kernel name: {json.dumps(LAST_PROFILE)}")
     assert seen == counted, f"{label}: the card ran {seen}, the wrappers counted {counted}"
     log(f"  [main] {label}: the device kernels the profiler recorded match the wrappers' counts {counted}")
 
@@ -460,9 +503,11 @@ def captures_of(session):
 def edit_captured_vs_eager(label, config, variables, image, z_grid, **options):
     """The whole script on the card through a captured session and through
     the runner's bodies called eagerly (`eager=True`), from the same weights
-    and image, under deterministic algorithms: Z, IM, DELTA and RECON equal
-    bit for bit; each program captured once while the brush moved, resized
-    and switched sigma, the eager session's never."""
+    and image, under deterministic algorithms: Z, IM, DELTA, RECON and
+    decode_current equal bit for bit; each program captured once (infer,
+    sample and decode_current through the encode and decode programs) while
+    the brush moved, resized and switched sigma, the eager session's
+    never."""
     from npe_tpu_torch.editor.engine import EditSession
 
     with deterministic_algorithms():
@@ -471,17 +516,21 @@ def edit_captured_vs_eager(label, config, variables, image, z_grid, **options):
             sessions[path] = EditSession(config, variables=variables, device="cuda", eager=path == "eager", **options)
             painted[path] = run_session_script(sessions[path], image, z_grid)[2]
     cap, eag = sessions["captured"], sessions["eager"]
-    pairs = (("Z after the strokes", painted["captured"][0], painted["eager"][0]),
+    with deterministic_algorithms():
+        shown = {path: s.decode_current() for path, s in sessions.items()}
+    pairs = (("decode_current", shown["captured"], shown["eager"]),
+             ("Z after the strokes", painted["captured"][0], painted["eager"][0]),
              ("IM after the strokes", painted["captured"][1], painted["eager"][1]),
              ("RECON", painted["captured"][2], painted["eager"][2]),
              ("DELTA", cap.DELTA, eag.DELTA), ("Z at the end", cap.Z.cpu().numpy(), eag.Z.cpu().numpy()),
              ("IM at the end", cap.IM, eag.IM))
     for name, a, b in pairs:
         assert np.array_equal(a, b), f"{label}: {name}, captured vs eager, differs by {max_err(a, b)}"
-    assert captures_of(cap) == {"paint": 1, "scroll": 1, "composite": 1}, captures_of(cap)
+    assert captures_of(cap) == {"paint": 1, "scroll": 1, "composite": 1, "encode": 1, "decode": 1}, captures_of(cap)
     assert not any(captures_of(eag).values()), captures_of(eag)
     log(f"[main] {label}: captured session vs the runner's bodies called eagerly, whole script under "
-        f"deterministic algorithms: Z, IM, DELTA and RECON equal bit for bit; captures {captures_of(cap)}")
+        f"deterministic algorithms: Z, IM, DELTA, RECON and decode_current equal bit for bit; captures "
+        f"{captures_of(cap)}")
 
 
 def compare_sessions(label, card, cpu, card_painted, cpu_painted):
@@ -512,6 +561,195 @@ def compare_api(label, ian_card, ian_cpu, rng):
     rgb = np.broadcast_to(np.float32([0.5, -0.5, 0.2])[None, :, None, None], (1, 3, 64, 64))
     check_close(f"{label}: imgradRGB card vs cpu", ian_card.imgradRGB(8, 8, 24, 24, rgb, z1),
                 ian_cpu.imgradRGB(8, 8, 24, 24, rgb, z1))
+
+
+# --- api.IAN's programs: captured against eager, launches, times ---------------
+
+
+def api_inputs(seed, n=64, zdim=100):
+    """Images and latents for the API scripts, and one RGB target a box."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1, 1, (n, 3, 64, 64)).astype(np.float32)
+    z = rng.randn(n, zdim).astype(np.float32)
+    rgbs = [np.broadcast_to(rng.uniform(-1, 1, 3).astype(np.float32)[None, :, None, None], (1, 3, 64, 64))
+            for _ in API_BOXES]
+    return x, z, rgbs
+
+
+def api_script(ian, x, z, rgbs):
+    """The API's four methods: encode_images and sample_at at batch 1 and
+    64, then imgrad and imgradRGB at batch 1 under each box of API_BOXES
+    (moved and resized), each with another colour and other latents: six
+    signatures, each captured once whatever the box, colour or latents.
+    Returns every output, in API_OUTPUTS' order."""
+    outs = [ian.encode_images(x[:1]), ian.encode_images(x), ian.sample_at(z[:1]), ian.sample_at(z)]
+    for i, (box, rgb) in enumerate(zip(API_BOXES, rgbs)):
+        outs += [ian.imgrad(*box, z[i:i + 1]), ian.imgradRGB(*box, rgb, z[i:i + 1])]
+    return outs
+
+
+def api_captures(ian):
+    """{program: sorted captures of its signatures}."""
+    out = {}
+    for (name, _), n in ian.programs.captures().items():
+        out.setdefault(name, []).append(n)
+    return {name: sorted(v) for name, v in out.items()}
+
+
+def drive_api(label, config, variables, counters, expect, seed, dtype=None, **forms):
+    """api.IAN on the card, captured (its path) and eager (`eager=True`), on
+    the same weights and inputs under deterministic algorithms: the captured
+    script twice, its first run making the six programs (an eager call and
+    a capture each), its second, on other images, latents and colours, all
+    replays, under the profiler, the counts
+    set to 0 just before and read just after, held to the device kernels it
+    recorded and to `expect` ({kernel: launches a decode}; API_DECODES
+    decodes a script); every output of both runs equal to the eager twin's
+    bit for bit; each of the six signatures captured once, the eager twin's
+    never. Returns the replayed script's launches."""
+    from npe_tpu_torch.api import IAN
+
+    with deterministic_algorithms():
+        cap = IAN(config, variables=variables, device="cuda", dtype=dtype, **forms)
+        eag = IAN(config, variables=variables, device="cuda", dtype=dtype, eager=True, **forms)
+        x, z, rgbs = api_inputs(seed, zdim=cap.get_zdim())
+        other = api_inputs(seed + 100, zdim=cap.get_zdim())
+        first = api_script(cap, x, z, rgbs)
+        counters.zero()
+        replayed, seen = profiled(lambda: api_script(cap, *other))
+        launches = counters.read()
+        want = api_script(eag, x, z, rgbs)
+        want_other = api_script(eag, *other)
+    for run, got, twin in (("first run", first, want), ("replayed", replayed, want_other)):
+        for what, g, w in zip(API_OUTPUTS, got, twin):
+            assert g.dtype == np.float32 and np.isfinite(g).all(), f"{label} api: {what} is not finite float32"
+            assert np.array_equal(g, w), f"{label} api, {run}: {what}, captured vs eager, differs by {max_err(g, w)}"
+    check_witnessed(f"{label} api, replayed", launches, seen)
+    for name, n in launches.items():
+        assert n == API_DECODES * expect.get(name, 0), f"{label} api: {name} launched {n} times"
+    assert all(np.abs(g).max() > 0 for g in first[4:]), f"{label} api: a gradient is zero"
+    caps = api_captures(cap)
+    assert caps == {"encode": [1, 1], "sample": [1, 1], "imgrad": [1], "imgrad_rgb": [1]}, caps
+    assert not any(n for v in api_captures(eag).values() for n in v), api_captures(eag)
+    log(f"[api] {label}: captured api.IAN vs eager, {len(API_OUTPUTS)} outputs of the first run and of the "
+        f"replayed one equal bit for bit under deterministic algorithms while the box moved and resized and the "
+        f"colour and latents changed; captures {caps}; launches of the replayed script {launches}")
+    return launches
+
+
+def time_api(label, config, variables, smi, dtype=None, **forms):
+    """api.IAN captured beside eager, one fresh IAN each: p50 / p95 of
+    imgrad and imgradRGB at batch 1 and of encode_images and sample_at at
+    batch 1 and 64 (host clock; each call ends in a download), each
+    program's first call (on the captured path the eager call and the
+    capture), and the peak device memory the IAN adds (its buffers, pool and
+    workspaces)."""
+    from npe_tpu_torch.api import IAN
+
+    out = {}
+    for path in ("captured", "eager"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ian = IAN(config, variables=variables, device="cuda", dtype=dtype, eager=path == "eager", **forms)
+        x, z, rgbs = api_inputs(31, zdim=ian.get_zdim())
+        calls = (("imgrad b1", lambda: ian.imgrad(8, 8, 24, 24, z[:1]), API_TIMED),  # noqa: B023
+                 ("imgradRGB b1", lambda: ian.imgradRGB(8, 8, 24, 24, rgbs[0], z[:1]), API_TIMED),  # noqa: B023
+                 ("encode_images b1", lambda: ian.encode_images(x[:1]), API_TIMED),  # noqa: B023
+                 ("encode_images b64", lambda: ian.encode_images(x), API_TIMED_B64),  # noqa: B023
+                 ("sample_at b1", lambda: ian.sample_at(z[:1]), API_TIMED),  # noqa: B023
+                 ("sample_at b64", lambda: ian.sample_at(z), API_TIMED_B64))  # noqa: B023
+        res = {}
+        for what, call, n in calls:
+            t0 = time.perf_counter()
+            call()
+            first = (time.perf_counter() - t0) * 1e3
+            ms = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                call()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            p50, p95 = np.percentile(ms, [50, 95])
+            res[what] = {"p50_ms": float(p50), "p95_ms": float(p95), "first_call_ms": first, "calls": n}
+        res["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out[path] = res
+        del ian
+    line = ", ".join(f"{what} {out['captured'][what]['p50_ms']:.4f} / {out['eager'][what]['p50_ms']:.4f} ms "
+                     f"(first call {out['captured'][what]['first_call_ms']:.1f} / {out['eager'][what]['first_call_ms']:.1f})"
+                     for what, _, _ in calls)
+    log(f"[time] {label} api.IAN p50 captured / eager: {line}; peak device memory the IAN adds "
+        f"{out['captured']['peak_mb']:.1f} / {out['eager']['peak_mb']:.1f} MiB ({smi})")
+    return out
+
+
+def inference_mode_trap():
+    """The inference-mode trap, in a process of its own (run by the `--trap` argument),
+    where no constant has been built yet: three servers (IANv1 with the head
+    in either kernel form, full IAN with the fused head and the fused
+    MDBLOCKs) capture their graphs under the dispatcher's inference_mode
+    first, building the head's and the s2d constants there; then api.IAN's
+    captured imgrad and imgradRGB with the same forms, against the CPU's on
+    the same weights within the golden tolerance. Returns 0, or raises."""
+    from npe_tpu_torch.api import IAN
+    from npe_tpu_torch.models import get_config
+    from npe_tpu_torch.ops import conv, mdcl
+    from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
+    from npe_tpu_torch.serving import InferenceServer
+    from npe_tpu_torch.utils.checkpoints import from_reference, to_reference, unit_gain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    caches = {"ops/conv.py _s2d_gather": conv._s2d_gather, "ops/mdcl.py _placement": mdcl._placement,
+              "ops/kernels/rgb_beta_head.py _placement": rh._placement}
+    assert not any(c.cache_info().currsize for c in caches.values()), "a constant was built before the trap"
+    cases = (("IANv1 fused head", "IANv1", {"head_mode": "fused"}),
+             ("IANv1 hybrid head", "IANv1", {"head_mode": "hybrid"}),
+             ("IAN fused head and MDBLOCKs", "IAN", {"head_mode": "fused", "mdblock_mode": "fused"}))
+    weights = {}
+    for config in ("IANv1", "IAN"):
+        seeded = get_config(config).init(torch.Generator().manual_seed(0), "cpu")
+        weights[config] = unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1)
+    x = np.random.RandomState(5).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    for label, config, forms in cases:
+        server = InferenceServer(config, variables=from_reference(weights[config], "cuda"), max_batch=4,
+                                 device="cuda", **forms)
+        try:
+            z = server.encode(x).result(timeout=SERVE_WAIT)
+            y = server.decode(z).result(timeout=SERVE_WAIT)
+            assert np.isfinite(y).all() and server.programs.captures() and all(server.programs.captures().values())
+        finally:
+            server.close()
+    built = {name: c.cache_info().currsize for name, c in caches.items()}
+    print(f"[trap] three servers captured under inference_mode first; constants built there: {built}", flush=True)
+    assert built["ops/conv.py _s2d_gather"], built
+    rgb = np.broadcast_to(np.float32([0.5, -0.5, 0.2])[None, :, None, None], (1, 3, 64, 64))
+    for label, config, forms in cases:
+        card = IAN(config, variables=from_reference(weights[config], "cuda"), device="cuda", **forms)
+        cpu = IAN(config, variables=from_reference(weights[config], "cpu"), device="cpu")
+        z1 = np.random.RandomState(6).randn(1, card.get_zdim()).astype(np.float32)
+        for what, got, want in (("imgrad", card.imgrad(8, 8, 24, 24, z1), cpu.imgrad(8, 8, 24, 24, z1)),
+                                ("imgradRGB", card.imgradRGB(8, 8, 24, 24, rgb, z1),
+                                 cpu.imgradRGB(8, 8, 24, 24, rgb, z1))):
+            assert np.abs(got).max() > 0
+            check_close(f"[trap] {label}: captured {what} after the servers' inference_mode captures, card vs cpu",
+                        got, want)
+        assert all(card.programs.captures().values()), card.programs.captures()
+    print("[trap] ok", flush=True)
+    return 0
+
+
+def check_trap(root):
+    """`inference_mode_trap` in a new process, with a time limit; its lines
+    are logged."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"), "--trap"], cwd=root,
+                          capture_output=True, text=True, timeout=DP_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    assert proc.returncode == 0 and "[trap] ok" in proc.stdout, proc.stderr[-4000:]
+    log(f"[api] the inference-mode trap in a process of its own: servers captured under inference_mode first, then "
+        f"api.IAN's captured gradients with the fused head, the hybrid head and the fused MDBLOCKs match the "
+        f"CPU ({time.perf_counter() - t0:.1f} s)")
 
 
 def time_strokes(label, session, image, smi, n=TIMED_STROKES):
@@ -558,6 +796,32 @@ def time_edit_paths(label, session, image, smi, n, top):
     assert not any(captures_of(eager).values()) and captures_of(session)["paint"] == 1, captures_of(session)
     log(f"[time] {label}: captured p50 {out['captured']['p50_ms']:.4f} ms against eager {out['eager']['p50_ms']:.4f} "
         f"({out['eager']['p50_ms'] / out['captured']['p50_ms']:.2f}x) ({smi})")
+    return out
+
+
+def editor_first_calls(label, config, variables, image, z_grid, smi, **forms):
+    """A fresh captured session: each editor step's first call (on the card
+    the eager call and the capture of its programs) beside its second (a
+    replay), host clock: infer (encode and decode), paint_stroke,
+    scroll_patch, set_latents and sample (whose decode infer captured)."""
+    from npe_tpu_torch.editor.engine import EditSession
+
+    s = EditSession(config, variables=variables, dim=z_grid.shape, device="cuda", **forms)
+    strokes = stroke_script()
+    steps = (("infer", lambda i: s.infer(image)), ("paint_stroke", lambda i: s.paint_stroke(*strokes[i])),
+             ("scroll_patch", lambda i: s.scroll_patch(20, 20, 36, 36, +1, 0.5)),
+             ("set_latents", lambda i: s.set_latents(z_grid * (i + 1))), ("sample", lambda i: s.sample(11 + i)))
+    out = {}
+    for what, step in steps:
+        ms = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            step(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[what] = {"first_ms": ms[0], "second_ms": ms[1]}
+    assert all(p.captures == 1 for p in s.runner.programs.values()), captures_of(s)
+    log(f"[time] {label} editor, first call / second call, ms: "
+        + ", ".join(f"{what} {t['first_ms']:.1f} / {t['second_ms']:.3f}" for what, t in out.items()) + f" ({smi})")
     return out
 
 
@@ -1234,14 +1498,82 @@ def start_http(httpd):
 
 def count_group_calls(server):
     """Count the server's model calls by op: each runs one group part of at
-    most max_batch images, and launches each kernel of its path once."""
-    calls = {"encode": 0, "decode": 0}
+    most max_batch images at its bucket, and launches each kernel of its path
+    once. `calls["buckets"][op]` gathers the buckets the calls ran at."""
+    calls = {"encode": 0, "decode": 0, "buckets": {"encode": set(), "decode": set()}}
     for op, fn in list(server._kernels.items()):
         def counted(x, op=op, fn=fn):
             calls[op] += 1
+            calls["buckets"][op].add(server.bucket(len(x)))
             return fn(x)
         server._kernels[op] = counted
     return calls
+
+
+def buckets_of(server, op):
+    """{bucket: captures} of the server's programs of `op`."""
+    return {key[1][0][0][0]: n for key, n in server.programs.captures(op).items()}
+
+
+def first_calls_of(programs):
+    """{"name batch": ms} of each signature's first call (on the card the
+    eager call and the capture, upload and download included)."""
+    return {f"{key[0]} {key[1][0][0][0]}": sig.first_call_ms for key, sig in programs.signatures.items()}
+
+
+def served_script(server, x_nhwc):
+    """One sequential request of each of SERVED_SIZES, each its own group:
+    encodes, then decodes of their latents. Returns every result."""
+    zs = [server.encode(x_nhwc[:n]).result(timeout=SERVE_WAIT) for n in SERVED_SIZES]
+    return zs + [server.decode(z).result(timeout=SERVE_WAIT) for z in zs]
+
+
+def serve_captured_vs_eager(label, config, variables, inputs, wire, counters, expect, dtype=None, **forms):
+    """The served script through a captured server and an eager one
+    (`eager=True`) on the same weights, under deterministic algorithms: the
+    captured server runs it twice, the first run making a program for each
+    bucket it reaches (an eager call and a capture each), the second, on
+    other images, all replays, under the profiler, with the counts set to 0 just before and
+    read just after, held to the device kernels it recorded and to `expect`
+    ({name: (op whose calls launch it, launches a call)}); every result of
+    both runs equal to the eager server's bit for bit; the captured server's
+    programs one capture for each bucket, the eager one's none. Returns the
+    replayed script's launches."""
+    from npe_tpu_torch.serving import InferenceServer
+
+    outs, caps = {}, {}
+    with deterministic_algorithms():
+        for path in ("captured", "eager"):
+            server = InferenceServer(config, variables=variables, max_batch=SERVE_MAX_BATCH, wire=wire,
+                                     device="cuda", dtype=dtype, eager=path == "eager", **forms)
+            try:
+                outs[path] = served_script(server, inputs)
+                if path == "captured":
+                    calls = count_group_calls(server)
+                    counters.zero()
+                    outs["replayed"], seen = profiled(lambda: served_script(server, inputs[::-1]))  # noqa: B023
+                    launches = counters.read()
+                else:
+                    outs["eager, other images"] = served_script(server, inputs[::-1])
+                caps[path] = {op: buckets_of(server, op) for op in ("encode", "decode")}
+            finally:
+                server.close()
+    for run, twin in (("captured", "eager"), ("replayed", "eager, other images")):
+        for i, (g, w) in enumerate(zip(outs[run], outs[twin])):
+            what = f"{'encode' if i < len(SERVED_SIZES) else 'decode'} of {SERVED_SIZES[i % len(SERVED_SIZES)]}"
+            assert g.dtype == np.float32 and np.isfinite(g).all(), f"{label}: served {what} is not finite float32"
+            assert np.array_equal(g, w), f"{label}: served {what} ({run}), captured vs eager, differs by " \
+                                         f"{max_err(g, w)}"
+    check_witnessed(f"{label} served script, replayed", launches, seen)
+    for name, n in launches.items():
+        want = calls[expect[name][0]] * expect[name][1] if name in expect else 0
+        assert n == want, f"{label} served script: {name} launched {n} times, not {want}"
+    assert caps["captured"] == {op: dict.fromkeys(SERVED_BUCKETS, 1) for op in caps["captured"]}, caps
+    assert caps["eager"] == {op: dict.fromkeys(SERVED_BUCKETS, 0) for op in caps["eager"]}, caps
+    log(f"[serve] {label}: captured server vs eager, requests of {SERVED_SIZES} images, every result equal bit "
+        f"for bit under deterministic algorithms; one capture a bucket and op, {caps['captured']['encode']}; "
+        f"launches {launches}")
+    return launches
 
 
 def serve_requests(server, x_nhwc):
@@ -1295,7 +1627,8 @@ def serve_case(label, server, counters, expect, inputs, total):
     """`serve_requests` on one server with the counts set to 0 just before
     and read just after: each kernel of `expect` ({name: (op whose calls
     launch it, launches a call)}) launched that many times a model call, every
-    other none. Adds the launches into `total`; returns the results."""
+    other none; one capture for each bucket the groups reached. Adds the
+    launches into `total`; returns the results."""
     calls = count_group_calls(server)
     counters.zero()
     t0 = time.perf_counter()
@@ -1304,6 +1637,9 @@ def serve_case(label, server, counters, expect, inputs, total):
     launches = counters.read()
     log(f"[serve] {label}: {2 * SERVE_REQUESTS + 2 + 8} requests in {time.perf_counter() - t0:.3f} s, "
         f"{server.stats['batches']} groups, model calls {calls}; launches {launches}")
+    for op in ("encode", "decode"):
+        caps = buckets_of(server, op)
+        assert caps == dict.fromkeys(calls["buckets"][op], 1), f"{label}: {op} captures {caps}, buckets {calls}"
     for name, n in launches.items():
         want = calls[expect[name][0]] * expect[name][1] if name in expect else 0
         assert n == want, f"{label}: {name} launched {n} times, not {want}"
@@ -1336,12 +1672,12 @@ def drive_serving_bf16(variables, counters, smi, seed=18):
               {"mdblock_bf16": ("decode", 3), "rgb_beta_tail_bf16": ("decode", 1)}))
     total = {name: 0 for name in counters.forms}
     times = {}
+    served_forms(variables, counters, x, x_grid, total, torch.bfloat16)
     for label, config, wire, forms, expect in cases:
-        server = InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH, wire=wire,
-                                 device="cuda", dtype=torch.bfloat16, **forms)
+        inputs = x_grid if wire == "uint8" else x
+        server, base = new_server(config, variables[config], wire, torch.bfloat16, forms)
         try:
             assert all(t.dtype == torch.bfloat16 for t in server.variables.values())
-            inputs = x_grid if wire == "uint8" else x
             out = serve_case(label, server, counters, expect, inputs, total)
             ian32 = IAN(config, variables=variables[config], device="cuda", **forms)
             nchw = np.ascontiguousarray(inputs.transpose(0, 3, 1, 2))
@@ -1355,9 +1691,74 @@ def drive_serving_bf16(variables, counters, smi, seed=18):
             log(f"[serve] {label} times, one run: encode p50 {t['encode_p50_ms']:.4f} / p95 {t['encode_p95_ms']:.4f} "
                 f"ms, decode p50 {t['decode_p50_ms']:.4f} / p95 {t['decode_p95_ms']:.4f} ms ({SERVE_TIMED} "
                 f"sequential 1-image requests each) ({smi})")
+            t.update(server_memory(server, base))
         finally:
             server.close()
+        t.update(time_eager_server(label, config, variables[config], wire, torch.bfloat16, forms, smi))
     return total, times
+
+
+# every model and form a server runs: (label, config, forms, {kernel: (op, launches a call)}) in float32
+SERVED_FORMS = (("IAN_simple", "IAN_simple", {}, {}),
+                ("IANv1 hybrid head", "IANv1", {"head_mode": "hybrid"}, {"rgb_beta_tail": ("decode", 1)}),
+                ("IANv1 fused head", "IANv1", {"head_mode": "fused"}, {"rgb_beta_head": ("decode", 1)}),
+                ("IAN per-op MDBLOCKs", "IAN", {"mdblock_mode": "plain"}, {"rgb_beta_tail": ("decode", 1)}),
+                ("IAN fused MDBLOCKs", "IAN", {"mdblock_mode": "fused"},
+                 {"mdblock": ("decode", 3), "rgb_beta_tail": ("decode", 1)}))
+
+
+def served_forms(variables, counters, x, x_grid, total, dtype=None):
+    """`serve_captured_vs_eager` for every model and form on both wires in
+    `dtype`: the uint8 wire's encode launches the (float32) staging kernel
+    once a call, the decode's kernels take the dtype's form. Adds the
+    replayed scripts' launches into `total`."""
+    suffix = "_bf16" if dtype is not None else ""
+    for label, config, forms, expect in SERVED_FORMS:
+        for wire, inputs in (("float32", x), ("uint8", x_grid)):
+            want = {name + suffix: v for name, v in expect.items()}
+            if wire == "uint8":
+                want["staging"] = ("encode", 1)
+            launches = serve_captured_vs_eager(f"{label}{' bf16' if dtype else ''}, {wire} wire", config,
+                                               variables[config], inputs, wire, counters, want, dtype, **forms)
+            for name, n in launches.items():
+                total[name] += n
+
+
+def new_server(config, variables, wire, dtype, forms, eager=False):
+    """An InferenceServer on the card at SERVE_MAX_BATCH, and the device
+    memory allocated before it (the peak counter reset)."""
+    from npe_tpu_torch.serving import InferenceServer
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return InferenceServer(config, variables=variables, max_batch=SERVE_MAX_BATCH, wire=wire, device="cuda",
+                           dtype=dtype, eager=eager, **forms), base
+
+
+def server_memory(server, base):
+    """The peak device memory a server added above `base`, and its programs'
+    first calls."""
+    torch.cuda.synchronize()
+    return {"peak_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+            "first_call_ms": first_calls_of(server.programs)}
+
+
+def time_eager_server(label, config, variables, wire, dtype, forms, smi):
+    """One run of bench_torch_serving.py's single-request times on an eager
+    twin of a server (`eager=True`): {"eager": its figures and peak memory}."""
+    import bench_torch_serving as bench
+
+    server, base = new_server(config, variables, wire, dtype, forms, eager=True)
+    try:
+        t = bench.measure(server, SERVE_TIMED, 0)
+        t.update(server_memory(server, base))
+    finally:
+        server.close()
+    log(f"[serve] {label} eager twin, one run: encode p50 {t['encode_p50_ms']:.4f} / p95 {t['encode_p95_ms']:.4f} ms, "
+        f"decode p50 {t['decode_p50_ms']:.4f} / p95 {t['decode_p95_ms']:.4f} ms; peak device memory "
+        f"{t['peak_mb']:.1f} MiB ({smi})")
+    return {"eager": t}
 
 
 def drive_serving(variables, counters, smi, seed=17):
@@ -1384,11 +1785,11 @@ def drive_serving(variables, counters, smi, seed=17):
               {"mdblock": ("decode", 3), "rgb_beta_tail": ("decode", 1)}))
     total = {name: 0 for name in counters.forms}
     times = {}
+    served_forms(variables, counters, x, x_grid, total)
     for label, config, wire, forms, expect in cases:
-        server = InferenceServer(config, variables=variables[config], max_batch=SERVE_MAX_BATCH, wire=wire,
-                                 device="cuda", **forms)
+        inputs = x_grid if wire == "uint8" else x
+        server, base = new_server(config, variables[config], wire, None, forms)
         try:
-            inputs = x_grid if wire == "uint8" else x
             out = serve_case(label, server, counters, expect, inputs, total)
             check_served(label, out, IAN(config, variables=variables[config], device="cuda", **forms), inputs, wire)
             runs = [bench.measure(server, SERVE_TIMED, SERVE_LOAD) for _ in range(SERVE_REPEATS)]
@@ -1401,8 +1802,11 @@ def drive_serving(variables, counters, smi, seed=17):
                 f"on average; EMA of a group encode "
                 f"{t['encode_ema_ms']:.4f} / decode {t['decode_ema_ms']:.4f} ms; transport floor p50 "
                 f"{t['transport_floor_p50_ms']:.4f} ms ({smi})")
+            t.update(server_memory(server, base))
+            log(f"[serve] {label}: peak device memory {t['peak_mb']:.1f} MiB; first calls, ms: {t['first_call_ms']}")
         finally:
             server.close()
+        t.update(time_eager_server(label, config, variables[config], wire, None, forms, smi))
 
     # three models in one process over HTTP: the answers equal the direct calls
     with cudnn_deterministic():
@@ -1411,10 +1815,11 @@ def drive_serving(variables, counters, smi, seed=17):
 
 
 def check_model_host(variables, x):
-    """A ModelHost of the three models over HTTP on the card: /healthz,
-    /models, /stats, encode and decode through /<model>/... and the default
-    route equal to the same servers' direct answers, a 404 for an unknown
-    model."""
+    """A ModelHost of the three models over HTTP on the card: their first
+    encodes sent at once, so the three dispatchers run their first calls at
+    the same time on three threads, and their captures take turns; /healthz, /models, /stats, encode and decode through
+    /<model>/... and the default route equal to the same servers' direct
+    answers, a 404 for an unknown model."""
     import urllib.error
 
     from npe_tpu_torch.serving import InferenceServer, ModelHost, serve_http
@@ -1425,6 +1830,13 @@ def check_model_host(variables, x):
                                          device="cuda"))
     url, stop = start_http(serve_http(host, port=0))
     try:
+        configs = sorted(host.servers)
+        with concurrent.futures.ThreadPoolExecutor(len(configs)) as pool:
+            firsts = list(pool.map(lambda c: http_json(f"{url}/{c}/encode", {"data": x[:2].tolist()}), configs))
+        assert all(np.isfinite(np.asarray(f["result"], np.float32)).all() for f in firsts)
+        caps = {c: buckets_of(host.get(c), "encode") for c in configs}
+        assert caps == {c: {2: 1} for c in configs}, caps
+        log(f"[serve] HTTP: the three models' first encodes at once on three dispatcher threads, captured: {caps}")
         assert http_json(url + "/healthz") == {"ok": True}
         assert http_json(url + "/models") == {"models": sorted(host.servers), "default": "IAN_simple"}
         for config, route in (("IAN_simple", ""), ("IAN_simple", "/IAN_simple"), ("IANv1", "/IANv1"),
@@ -2053,7 +2465,7 @@ def main():
         assert launches == counters.read()  # the CPU launches nothing
         compare_sessions(label, card, cpu, card_painted, cpu_painted)
         painted[label] = card_painted
-        want = {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1}
+        want = {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1, "encode": 1, "decode": 1}
         assert captures_of(card) == want, (label, captures_of(card))
         fork = card.fork()
         fork.infer(image)
@@ -2119,6 +2531,19 @@ def main():
     compare_api("IAN, card fused vs cpu per-op",
                 IAN("IAN", variables=card_ian.variables, device="cuda", mdblock_mode="fused"),
                 IAN("IAN", variables=cpu_ian.variables, device="cpu"), rng)
+    # the API's programs captured against eager, every model and form, each
+    # script's launches held to the device kernels the profiler recorded
+    api_launches = {name: 0 for name in counters.forms}
+    api_forms = (("IAN_simple", "IAN_simple", card.variables, {}, {}),
+                 ("IANv1 hybrid head", "IANv1", card_v1.variables, {"head_mode": "hybrid"}, {"rgb_beta_tail": 1}),
+                 ("IANv1 fused head", "IANv1", card_v1.variables, {"head_mode": "fused"}, {"rgb_beta_head": 1}),
+                 ("IAN per-op MDBLOCKs", "IAN", card_ian.variables, {}, {"rgb_beta_tail": 1}),
+                 ("IAN fused MDBLOCKs", "IAN", card_ian.variables, {"mdblock_mode": "fused"},
+                  {"mdblock": 3, "rgb_beta_tail": 1}))
+    for i, (label, config, variables, forms, expect) in enumerate(api_forms):
+        launches = drive_api(label, config, variables, counters, expect, 40 + i, **forms)
+        api_launches = {name: n + launches[name] for name, n in api_launches.items()}
+    check_trap(root)
 
     log(f"[phase] 5b starts at {time.perf_counter() - started:.1f} s")
     # 5b. Serving: InferenceServer, ModelHost over HTTP and the web editor on
@@ -2196,12 +2621,17 @@ def main():
             f"launches {launches}; captures {captures_of(session)}")
         check_witnessed(f"{label} bf16 session", launches, seen)
         expect_launches(f"{label} session", launches, expect, decodes, steps)
-        assert captures_of(session) == {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1}
+        assert captures_of(session) == {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1,
+                                        "encode": 1, "decode": 1}
         z32_painted, im32_painted, _ = painted[label]
         assert session.Z.dtype == torch.float32 and got[1].dtype == np.float32 and np.isfinite(session.IM).all()
         mean_close(f"[bf16] {label} Z after the strokes, bf16 vs float32", got[0], z32_painted, Z_BOUND)
         mean_close(f"[bf16] {label} IM after the strokes, bf16 vs float32", got[1], im32_painted, IMAGE_BOUND)
         bf16_sessions[label] = session
+        per_decode = {name: 3 if what == "3 x decodes" else 1 for name, what in expect.items()}
+        launches = drive_api(f"{label} bf16", config, variables_of[config], counters, per_decode, 60 + len(bf16_sessions),
+                             dtype=torch.bfloat16, **forms)
+        api_launches = {name: n + launches[name] for name, n in api_launches.items()}
         edit_captured_vs_eager(f"{label} bf16", config, variables_of[config], image, z_grid, dtype="bfloat16",
                                **forms)
     bf16_serving, serve_times["bf16"] = drive_serving_bf16(variables_of, counters, smi)
@@ -2210,6 +2640,7 @@ def main():
                                                                                                  bf16_serving)
     main_launches.update({name: bf16_launches[name] for name in bf16_kernels})
     serving_launches.update({name: bf16_serving[name] for name in bf16_kernels})
+    serving_launches["staging"] += bf16_serving["staging"]  # the float32 kernel on the bf16 uint8 wires
     log(f"[bf16] launches on the bf16 API and session paths {bf16_launches}, on the bf16 serving paths "
         f"{bf16_serving}; phase 5c took {time.perf_counter() - t0:.1f} s")
 
@@ -2271,6 +2702,12 @@ def main():
                                    ("IAN fused MDBLOCKs", fused_ian, TIMED_STROKES // 2, 14)):
         strokes[label] = time_edit_paths(label, session, image, smi, n, top)
     log(f"[phase] 7's strokes done at {time.perf_counter() - started:.1f} s")
+    # the API's methods and the editor's first calls, captured beside eager
+    api_times, first_calls = {}, {}
+    for label, config, variables, forms, _ in api_forms:
+        api_times[label] = time_api(label, config, variables, smi, **forms)
+        first_calls[label] = editor_first_calls(label, config, variables, image, z_grid, smi, **forms)
+    log(f"[phase] 7's API times done at {time.perf_counter() - started:.1f} s")
 
     # what the head's weight packing costs on every decode (two a stroke)
     for as_taps, form in ((False, "hybrid"), (True, "fused")):
@@ -2495,6 +2932,8 @@ def main():
         bf16_times["strokes"][label] = time_edit_paths(f"{label} bf16", session, image, smi, n, 6)
     del x256
     log(f"[phase] 7b's strokes done at {time.perf_counter() - started:.1f} s")
+    bf16_times["api"] = {label: time_api(f"{label} bf16", config, variables_of[config], smi, dtype=torch.bfloat16,
+                                         **forms) for label, config, forms, _, _ in bf16_paths}
 
     # the staging kernel at the trainer's two chunk sizes (IAN_simple's 64
     # batches of 128; IAN's and IANv1's 64 of 16), rows gathered out of a
@@ -2555,6 +2994,7 @@ def main():
     for entry in entries:
         entry["dp_launches"] = dp_launches.get(entry["name"], 0)
         entry.update(route="cuda", launches=main_launches[entry["name"]],
+                     api_launches=api_launches[entry["name"]],
                      serving_launches=serving_launches[entry["name"]],
                      training_bf16_launches=training_launches[entry["name"]],
                      training_captured_launches=captured_launches[entry["name"]],
@@ -2567,7 +3007,8 @@ def main():
                     "ian_encode_decode_imgs_per_s_b128": rates["IAN per-op MDBLOCKs"],
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
                     "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,
-                    "serving": serve_times, "bf16": bf16_times, "data_parallel": dp_times,
+                    "serving": serve_times, "api": api_times, "editor_first_calls": first_calls,
+                    "bf16": bf16_times, "data_parallel": dp_times,
                     "wall_s": time.perf_counter() - started}))
     log(f"[time] chip_smoke.py wall time {time.perf_counter() - started:.1f} s ({smi})")
     log(nvidia_smi())
@@ -2577,4 +3018,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(inference_mode_trap() if sys.argv[1:] == ["--trap"] else main())

@@ -1,18 +1,19 @@
 """The editor's steps as captured programs: the counterpart of npe_tpu's
-jitted `_paint_step`, `_scroll_step` and `_composite_step`
-(`npe_tpu/editor/engine.py`). On the card each step is one CUDA graph
-(`utils/graphs.Program`), replayed for every brush event; the brush box,
-`sigma`, the colour, the composite flag and the scroll direction are values
-in device buffers, so moving or resizing the brush never re-captures.
+jitted `_paint_step`, `_scroll_step`, `_composite_step`, `_encode` and
+`_decode_fn` (`npe_tpu/editor/engine.py`). On the card each step is one CUDA
+graph (`utils/graphs.Program`), replayed for every brush event, load and
+sample; the brush box, `sigma`, the colour, the composite flag and the
+scroll direction are values in device buffers, so moving or resizing the
+brush never re-captures.
 
 An `EditRunner` belongs to one module, one set of variables, one dtype, one
 set of `decode_options` and one device; `EditSession` makes one and its forks
 share it, as npe_tpu's forks share their compiled programs. It holds static
 buffers: z (float32), RECON, ERROR, and `inputs`, which holds USER_MASK, the
 box c1, r1, c2, r2, `sigma`, the composite flag (`composite_on`), the scroll
-direction and the rgb target (tanh units); and `out`, the new z, IM (CHW) and
-DELTA (CHW) packed. Each body computes what npe_tpu's function of the same name
-computes, from the buffers:
+direction and the rgb target (tanh units); `image`, a CHW image to encode;
+and `out`, the new z, IM (CHW) and DELTA (CHW) packed. Each body computes what
+npe_tpu's function of the same name computes, from the buffers:
 
 * paint: the gradient of the patch loss with respect to z through the
   decoder, z - 0.05 g (1 + (c2 - c1)), the decode, and
@@ -20,7 +21,10 @@ computes, from the buffers:
   every paint step whatever the flag, as in npe_tpu;
 * scroll: the gradient of the patch's mean brightness, z + direction 0.1 g
   (1 + (c2 - c1)), the decode;
-* composite: the decode of z and the same `torch.where` tail.
+* composite: the decode of z and the same `torch.where` tail;
+* encode: the latents of `image` (`infer`, `reset`, `update_gim`);
+* decode: the decode of z (`infer`, `sample`, `decode_current`); the session
+  quantises RECON to uint8 on the host from it, as npe_tpu does.
 
 A call, whatever its kind: the host's values go into one pinned staging
 tensor and reach `inputs` in one copy; z, RECON and ERROR come in by
@@ -59,7 +63,7 @@ The traps, and what is done about each:
   back to eager steps or to the CPU.
 
 On the CPU, or with `eager=True` on the card, each call runs the same bodies
-on the same buffers directly. The three graphs share one memory pool: they
+on the same buffers directly. The five graphs share one memory pool: they
 never run at once, and every tensor they allocate dies inside its step.
 """
 
@@ -81,7 +85,7 @@ SCROLL_WEIGHT = 0.1
 MASK_SIGMA = 0.7
 # The scalars of `inputs`, in order, after USER_MASK.
 SCALARS = ("c1", "r1", "c2", "r2", "sigma", "composite_on", "direction")
-KINDS = ("paint", "scroll", "composite")
+KINDS = ("paint", "scroll", "composite", "encode", "decode")
 
 
 class EditRunner:
@@ -105,6 +109,9 @@ class EditRunner:
         for name, t in zip(SCALARS, self.inputs[hw:hw + len(SCALARS)].unbind()):
             setattr(self, name, t)
         self.rgb = self.inputs[hw + len(SCALARS):]
+        self.image = torch.empty((3, self.h, self.w), device=self.device)
+        self.image_staging = torch.empty((3, self.h, self.w), dtype=torch.float32, pin_memory=cuda)
+        self.image_uploaded = torch.cuda.Event() if cuda else None
         self.z = torch.empty(self.zdim, device=self.device)
         self.recon = torch.empty((self.h, self.w, 3), device=self.device)
         self.error = torch.empty_like(self.recon)
@@ -120,7 +127,8 @@ class EditRunner:
         # later collection that could fall inside another capture
         me = weakref.ref(self)
         bodies = {"paint": lambda: me()._paint(), "scroll": lambda: me()._scroll(),
-                  "composite": lambda: me()._composite()}
+                  "composite": lambda: me()._composite(), "encode": lambda: me()._encode(),
+                  "decode": lambda: me()._decode()}
         self.programs = {kind: Program(bodies[kind], stream, pool, pure=True) for kind in KINDS}
 
     # --- the bodies (fixed tensors in, `out` written) -------------------------
@@ -172,6 +180,14 @@ class EditRunner:
         with torch.no_grad():
             self._write(self.z, self._shown(self.decode_hwc(self.z)))
 
+    def _encode(self):
+        with torch.no_grad():
+            self._write(self.module.encode(self.variables, self.image[None].to(self.dtype))[0].float())
+
+    def _decode(self):
+        with torch.no_grad():
+            self._write(self.z, self.decode_hwc(self.z))
+
     # --- calls --------------------------------------------------------------
 
     def _call(self, kind, images, z, recon=None, error=None, user_mask=None, box=(0, 0, 0, 0), sigma=0.0,
@@ -181,12 +197,13 @@ class EditRunner:
         first `images` CHW images of `out` as numpy arrays of their own)."""
         hw = self.h * self.w
         with self.lock:
-            staged = self._staged
-            if user_mask is not None:
-                staged[:hw] = np.asarray(user_mask, np.float32).reshape(hw)
-            staged[hw:hw + len(SCALARS)] = (*box, sigma, float(composite), direction)
-            staged[hw + len(SCALARS):] = rgb
-            self.inputs.copy_(self.staging, non_blocking=True)
+            if kind != "decode":  # the one kind that reads none of `inputs`
+                staged = self._staged
+                if user_mask is not None:
+                    staged[:hw] = np.asarray(user_mask, np.float32).reshape(hw)
+                staged[hw:hw + len(SCALARS)] = (*box, sigma, float(composite), direction)
+                staged[hw + len(SCALARS):] = rgb
+                self.inputs.copy_(self.staging, non_blocking=True)
             pairs = [(d, s) for d, s in ((self.z, z), (self.recon, recon), (self.error, error)) if s is not None]
             torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
             self.programs[kind]()
@@ -214,3 +231,20 @@ class EditRunner:
     def composite(self, z, recon, error, user_mask, composite):
         """The shown image of z: IM."""
         return self._call("composite", 1, z, recon, error, user_mask, composite=composite)[1][0]
+
+    def encode(self, image):
+        """The latents of a CHW image in tanh units, as a float32 tensor of
+        the caller's own."""
+        with self.lock:
+            if self.image_uploaded is not None:
+                self.image_uploaded.synchronize()  # the last upload has left the staging buffer
+            self.image_staging.numpy()[...] = image
+            self.image.copy_(self.image_staging, non_blocking=True)
+            if self.image_uploaded is not None:
+                self.image_uploaded.record()
+            self.programs["encode"]()
+            return self.out[:self.zdim].clone()
+
+    def decode(self, z):
+        """The decode of z: a CHW float32 numpy array of its own."""
+        return self._call("decode", 1, z)[1][0]

@@ -7,13 +7,14 @@ through the `edit_tail` wrapper, which launches the hand-written CUDA kernel
 for GPU tensors and runs its plain version for CPU tensors. Latents and the
 RECON / ERROR images stay on the device between events.
 
-`paint_stroke`, `scroll_patch` and `set_latents` run through the session's
-`captured.EditRunner`: on the card each is one replayed CUDA graph, npe_tpu's
-jitted `_paint_step`, `_scroll_step` and `_composite_step`, with one upload
-of the brush's values and one download of the images; on the CPU (or with
-`eager=True`) the same bodies run directly. `infer`, `sample` and
-`decode_current` are one-off steps with a host-side uint8 quantisation, and
-run eagerly.
+Every step runs through the session's `captured.EditRunner`: on the card
+`paint_stroke`, `scroll_patch` and `set_latents` are each one replayed CUDA
+graph, npe_tpu's jitted `_paint_step`, `_scroll_step` and `_composite_step`,
+with one upload of the brush's values and one download of the images; the
+encode and decode of `infer` (and so `reset` and `update_gim`), `sample` and
+`decode_current` are two more, npe_tpu's `_encode` and `_decode_fn`, around
+the host-side uint8 quantisation of RECON. On the CPU (or with `eager=True`)
+the same bodies run directly.
 
 Image convention at the session boundary: CHW float32 in [-1, 1] (tanh
 range), as numpy, like the model API. `*_uint8()` helpers convert for display.
@@ -150,11 +151,13 @@ class EditSession:
     def im_uint8(self):
         return np.uint8(np.clip(from_tanh(self.IM), 0, 255))
 
-    def _quantized(self, xh_hwc):
-        """Reference RECON passes through uint8 (`NPE.py:261`): quantize to
-        the uint8 grid but stay in tanh units."""
-        q = to_tanh(np.float32(np.uint8(np.clip(from_tanh(xh_hwc.cpu().numpy()), 0, 255))))
-        return torch.from_numpy(q).to(self.device)
+    def _set_recon(self, xh_chw, target_chw):
+        """RECON from a decode, ERROR = target - RECON (HWC on the device).
+        Reference RECON passes through uint8 (`NPE.py:261`): quantize to the
+        uint8 grid but stay in tanh units."""
+        q = to_tanh(np.float32(np.uint8(np.clip(from_tanh(xh_chw.transpose(1, 2, 0)), 0, 255))))
+        self._recon = torch.from_numpy(np.ascontiguousarray(q)).to(self.device)
+        self._error = torch.from_numpy(np.ascontiguousarray(target_chw.transpose(1, 2, 0) - q)).to(self.device)
 
     # --- undo ----------------------------------------------------------------
 
@@ -188,15 +191,12 @@ class EditSession:
 
     # --- operations (reference `NPE.py` callbacks) ---------------------------
 
-    @torch.no_grad()
     def infer(self, image_chw_tanh):
         """Load a ground-truth image, encode, reconstruct (`NPE.py:239-274`)."""
         self._gim = np.float32(image_chw_tanh)
         self.IM = self._gim.copy()
-        x = torch.from_numpy(self._gim).to(self.device)
-        self.Z = self.module.encode(self.variables, x[None].to(self.dtype))[0].float()
-        self._recon = self._quantized(self.runner.decode_hwc(self.Z))
-        self._error = (x.permute(1, 2, 0) - self._recon).contiguous()
+        self.Z = self.runner.encode(self._gim)
+        self._set_recon(self.runner.decode(self.Z), self._gim)
         self.DELTA = np.zeros_like(self._gim)
         self.USER_MASK = np.zeros_like(self.USER_MASK)
         self.sample_flag = False
@@ -212,7 +212,6 @@ class EditSession:
         self._gim = np.float32(self.IM)
         return self.reset()
 
-    @torch.no_grad()
     def sample(self, gen_or_seed=0):
         """Z ~ N(0,1) from a torch.Generator (or a seed for a new CPU one),
         decode (`NPE.py:317-327`)."""
@@ -223,11 +222,10 @@ class EditSession:
         )
         self._snapshot()
         self.Z = torch.randn(self.Z.shape, generator=gen, device=gen.device).to(self.device)
-        xh = self.runner.decode_hwc(self.Z)
-        self._recon = self._quantized(xh)
-        self._error = (torch.from_numpy(self.IM).to(self.device).permute(1, 2, 0) - self._recon).contiguous()
+        xh = self.runner.decode(self.Z)
+        self._set_recon(xh, self.IM)
         self.sample_flag = True
-        self.IM = _chw(xh)
+        self.IM = xh
         return self.IM
 
     def paint_stroke(self, x1, y1, x2, y2, rgb, sigma=0.0):
@@ -266,6 +264,5 @@ class EditSession:
         self.IM = self.runner.composite(self.Z, self._recon, self._error, self.USER_MASK, not self.sample_flag)
         return self.IM
 
-    @torch.no_grad()
     def decode_current(self):
-        return _chw(self.runner.decode_hwc(self.Z))
+        return self.runner.decode(self.Z)

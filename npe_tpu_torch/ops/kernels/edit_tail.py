@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from npe_tpu_torch.ops.filters import gaussian_kernel_1d, reflect_index
-from npe_tpu_torch.ops.kernels import build
+from npe_tpu_torch.ops.kernels import add_launches, build
 
 SOURCE = "npe_tpu_torch/csrc/edit_tail.cu"
 REPLACES = "npe_tpu/ops/pallas/editor_kernels.py:76"
@@ -158,7 +158,7 @@ def edit_tail(xh, recon, error, user_mask=None, sigma=0.7):
             )
         if rc != 0:
             raise RuntimeError(f"edit_tail kernel launch failed with CUDA error {rc}")
-        edit_tail.launches += 1
+        add_launches(edit_tail)
     else:
         raise ValueError(f"edit_tail runs on cpu or cuda tensors, got {xh.device}")
     return out[0] if single else out

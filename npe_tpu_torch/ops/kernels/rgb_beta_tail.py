@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from npe_tpu_torch.ops.beta import beta_mean
 from npe_tpu_torch.ops.conv import pack_kernel_s2d, s2d_block_taps
-from npe_tpu_torch.ops.kernels import build
+from npe_tpu_torch.ops.kernels import add_launches, build
 
 SOURCE = "npe_tpu_torch/csrc/rgb_beta_tail.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:394"
@@ -126,10 +126,7 @@ def check_tensors(fn, tensors, shapes, float32=()):
 def count_launch(fn, dtype):
     """One more launch of `fn`'s kernel in the form for `dtype`: float32
     launches count in `fn.launches`, bfloat16 ones in `fn.launches_bf16`."""
-    if dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
+    add_launches(fn, "launches_bf16" if dtype == torch.bfloat16 else "launches")
 
 
 def tail_smem_bytes(w, rows=1):

@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from npe_tpu_torch.ops.kernels import build
+from npe_tpu_torch.ops.kernels import add_launches, build
 
 SOURCE = "npe_tpu_torch/csrc/staging.cu"
 REPLACES = "npe_tpu/ops/pallas/staging.py:40"
@@ -117,7 +117,7 @@ def stage_chunk(chunk_u8, perm=None):
         )
     if rc != 0:
         raise RuntimeError(f"staging kernel launch failed with CUDA error {rc}")
-    stage_chunk.launches += 1
+    add_launches(stage_chunk)
     return out
 
 

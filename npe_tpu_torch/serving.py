@@ -6,8 +6,19 @@ results fanned back out to the callers' futures.
 
 Design: requests enqueue (op, array, Future, deadline, slo_deadline); one
 dispatcher thread drains the queue, groups requests of one op, runs the
-group (split at `max_batch`) and resolves the futures. There is no compile
-step, so a group runs at its own size: nothing is padded.
+group (split at `max_batch`) and resolves the futures.
+
+Programs: as npe_tpu runs each op as one jitted program of a fixed shape,
+each op runs as one program per batch size (`utils/graphs.ProgramCache`): on
+the card a CUDA graph of the upload's consumer, the model and the output's
+layout, captured by the dispatcher thread at the first group of that size
+and replayed by every later one. npe_tpu pads every group to `max_batch`;
+here a group (each part of a split) is padded with zero rows to its bucket,
+the smallest power of two that holds it, at most `max_batch`, so an op
+captures at most ceil(log2(max_batch)) + 1 graphs, and a lone request does
+not pay for `max_batch` images. Rows are independent at inference; the pad
+rows are dropped before the futures resolve. `eager=True` runs the same
+bodies without graphs on the card; the CPU never has graphs.
 
 Robustness, as in npe_tpu:
   * strict FIFO across ops: a request of the other op parks at the front of
@@ -23,7 +34,9 @@ Robustness, as in npe_tpu:
 
 Latency SLOs: a request may carry `slo` seconds. The dispatcher keeps an EMA
 of each op's group time and stops aggregating when now + that estimate would
-breach the tightest member's SLO.
+breach the tightest member's SLO. Only warm groups feed it: a group whose
+parts all ran a program made before (npe_tpu waits for a warm call too); a
+group that captured, however fast, does not.
 
 Multi-model hosting: `ModelHost` runs several named InferenceServers in one
 process, one dispatcher thread each, on one device; HTTP routes
@@ -31,13 +44,13 @@ process, one dispatcher thread each, on one device; HTTP routes
 
 Public contract (npe_tpu's, so its HTTP clients carry over): `encode` takes
 (n, 64, 64, 3) NHWC images in [-1, 1] and `decode` returns NHWC. The port's
-models run NCHW: the server transposes on the host before the upload and on
-the device before the download.
+models run NCHW: the programs transpose on the device after the upload and
+before the download.
 
 Wire format: with `wire="uint8"` images cross the host<->device link as
 uint8 (a quarter of the float32 bytes). Encode inputs are quantised to the
 [0, 255] grid on the caller's thread, uploaded as uint8 and brought to
-[-1, 1] on the device by the `staging` kernel
+[-1, 1] on the device by the `staging` kernel, inside the encode's program
 (`ops/kernels/staging.stage_uint8_to_tanh`; its plain version on the CPU).
 Decode outputs are quantised to uint8 on the device and brought back to
 [-1, 1] on the host. Lossless for inputs that came from uint8 images, else
@@ -68,6 +81,7 @@ from npe_tpu_torch.ops.kernels.staging import stage_uint8_to_tanh
 from npe_tpu_torch.utils import checkpoints
 from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
+from npe_tpu_torch.utils.graphs import ProgramCache
 from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
 
 WIRES = ("float32", "uint8")
@@ -87,13 +101,16 @@ class InferenceServer:
         device="cuda",
         head_mode=None,
         mdblock_mode=None,
+        eager=False,
     ):
         """variables: port variables on `device`; drawn from
         torch.Generator(seed) when None. head_mode / mdblock_mode: the forms
         every decode takes, as `api.IAN` passes them (None leaves the
         model's default). dtype: torch.bfloat16 (or "bfloat16") serves in
         bf16, the weights drawn or loaded in float32 and cast once; None or
-        float32 serves in float32; any other dtype raises ValueError."""
+        float32 serves in float32; any other dtype raises ValueError. eager:
+        on the card, run the ops' bodies without CUDA graphs (for
+        comparisons and timings)."""
         self.dtype = resolve_dtype(dtype)
         if wire not in WIRES:
             raise ValueError(f"wire must be 'float32' or 'uint8', got {wire!r}")
@@ -110,9 +127,12 @@ class InferenceServer:
         self.max_batch = max_batch
         self.linger = linger_ms / 1000.0
         self.wire = wire
+        self.programs = ProgramCache(self.device, eager)
+        self.programs.define("encode", self._encode_body)
+        self.programs.define("decode", self._decode_body)
         self._kernels = {"encode": self._encode, "decode": self._decode}
-        # per-op EMA of group wall time; None until the op is warm (the first
-        # call on the card builds the kernels, which must not poison it)
+        # per-op EMA of group wall time; None until a warm group of the op
+        # (the first group of a size runs eagerly and captures)
         self._kernel_ema = {"encode": None, "decode": None}
         self._q = queue.Queue()
         self._pending = deque()  # parked items, strictly older than the queue
@@ -158,19 +178,29 @@ class InferenceServer:
 
     # --- the device work of one group ----------------------------------------
 
-    def _encode(self, x_nhwc):
-        x = torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2))).to(self.device)
+    def bucket(self, n):
+        """The batch a group part of n rows runs at: the smallest power of
+        two that holds it, at most max_batch."""
+        return min(self.max_batch, 1 << (n - 1).bit_length())
+
+    def _encode_body(self, x_nhwc):
+        x = x_nhwc.permute(0, 3, 1, 2).contiguous()
         if self.wire == "uint8":
             x = stage_uint8_to_tanh(x)  # uint8 bytes uploaded; the range changes on the device
-        return self.module.encode(self.variables, x.to(self.dtype)).float().cpu().numpy()
+        return self.module.encode(self.variables, x.to(self.dtype)).float()
 
-    def _decode(self, z):
-        z = torch.from_numpy(z).to(self.device).to(self.dtype)
-        y = self.module.decode(self.variables, z, **self.decode_options).float().permute(0, 2, 3, 1)
+    def _decode_body(self, z):
+        y = self.module.decode(self.variables, z.to(self.dtype), **self.decode_options).float().permute(0, 2, 3, 1)
         if self.wire == "uint8":
             y = torch.clamp(torch.round(from_tanh(y)), 0.0, 255.0).to(torch.uint8)
-            return to_tanh(np.float32(y.contiguous().cpu().numpy()))
-        return y.contiguous().cpu().numpy()
+        return y.contiguous()
+
+    def _encode(self, x_nhwc):
+        return self.programs("encode", x_nhwc, pad_to=self.bucket(len(x_nhwc)))
+
+    def _decode(self, z):
+        y = self.programs("decode", z, pad_to=self.bucket(len(z)))
+        return to_tanh(np.float32(y)) if self.wire == "uint8" else y
 
     # --- internals -----------------------------------------------------------
 
@@ -286,6 +316,7 @@ class InferenceServer:
                 # inside the try: requests of unlike shapes fail their group,
                 # not the dispatcher
                 batch = np.concatenate([arr for _, arr, _, _, _ in items])
+                cold = self.programs.first_calls
                 t0 = time.perf_counter()
                 parts = [
                     self._kernels[op](batch[s : s + self.max_batch])
@@ -293,13 +324,10 @@ class InferenceServer:
                 ]
                 result = np.concatenate(parts)
                 dt = (time.perf_counter() - t0) / max(1, len(parts))
-                ema = self._kernel_ema.get(op)
-                if ema is not None:
-                    self._kernel_ema[op] = 0.7 * ema + 0.3 * dt
-                elif dt <= 1.0:
-                    # seed the estimate; a >1 s first sample is the kernels'
-                    # build on first use and would poison it
-                    self._kernel_ema[op] = dt
+                if self.programs.first_calls == cold:
+                    # a warm group: every part replayed a program made before
+                    ema = self._kernel_ema.get(op)
+                    self._kernel_ema[op] = dt if ema is None else 0.7 * ema + 0.3 * dt
             except Exception as e:  # a failing group: deliver to its futures
                 self.stats["errors"] += len(items)
                 for _, _, fut, _, _ in items:

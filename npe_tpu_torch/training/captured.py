@@ -51,6 +51,9 @@ The traps, and what is done about each:
   another capture runs calls cudaFree, which invalidates that capture. The
   runner holds no reference cycle, so it and its graphs go when its chunk
   function goes, and `capture` keeps the cyclic collector off.
+* The capture mode is "thread_local" (`Program`'s): a capture refuses the
+  unsafe CUDA calls of its own thread only, so the trainer's asynchronous
+  checkpoint thread, or another thread of the process, cannot invalidate it.
 * Failure raises. A capture or a replay that fails raises; nothing falls
   back to eager steps.
 
@@ -66,22 +69,8 @@ import weakref
 import torch
 
 from npe_tpu_torch.training.train_step import make_train_steps
-from npe_tpu_torch.utils import graphs
 # The capture machinery lives in utils/graphs.py; its names stay importable here.
-from npe_tpu_torch.utils.graphs import COUNTERS, _on, add_counts, capture, read_counts  # noqa: F401
-
-
-class Program(graphs.Program):
-    """`graphs.Program` as the trainer's steps were made and measured: its
-    eager calls enter this module's `_on`, and it captures in torch's default
-    mode, "global" (None). The trainer captures on the training thread; its
-    asynchronous checkpoint thread is the case "thread_local" is for, and
-    moving the trainer to it is left to a change of the trainer."""
-
-    capture_error_mode = None
-
-    def _stream(self):
-        return _on(self.stream)
+from npe_tpu_torch.utils.graphs import COUNTERS, Program, add_counts, capture, read_counts  # noqa: F401
 
 
 def flatten(tree, prefix=()):

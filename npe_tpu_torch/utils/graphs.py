@@ -1,39 +1,48 @@
 """Captured programs: a function over fixed tensors as one CUDA graph, the
 port's counterpart of a jitted `npe_tpu` program. The trainer's G and D
-steps (`training/captured.py`) and the editor's stroke, scroll and latent
-composite (`editor/captured.py`) run through `Program`.
+steps (`training/captured.py`) and the editor's steps (`editor/captured.py`)
+run through `Program`; `ProgramCache`, the counterpart of `jax.jit` for pure
+functions of their inputs, keeps one `Program` per input signature, and runs
+`api.IAN`'s four methods and the server's encode and decode.
 
 Launch counters. The kernel wrappers count a launch when Python calls them.
 An eager call launches what it counts. A capture launches nothing, so it
-puts the counts back as they were before it and keeps what it added
+takes back what its own thread counted while it ran (`ops.kernels.tallying`:
+other threads' eager launches meanwhile stay counted) and keeps it
 (`recorded`); a replay launches the captured kernels without calling the
 wrappers, so every replay adds `recorded`. The counts are thus the launches
 the card ran, provided the graph holds the kernels the capture counted;
 `chip_smoke.py` holds them against the device kernels that torch.profiler
 records in the same run.
 
-The capture mode. `Program.capture_error_mode` is "thread_local": a capture
-refuses the unsafe CUDA calls (a synchronise, a cudaMalloc) of its own
-thread only. Under torch's default, "global", such a call on any other
-thread of the process invalidates a capture under way, and the editor
-captures on the web editor's request threads beside others
-(`editor/captured.py`). The trainer's programs keep "global"
-(`training/captured.py`).
+The capture mode is "thread_local": a capture refuses the unsafe CUDA calls
+(a synchronise, a cudaMalloc) of its own thread only. Under torch's default,
+"global", such a call on any other thread of the process invalidates a
+capture under way, and a process captures on several threads: the web
+editor's request threads, a `ModelHost`'s dispatchers (one a model), API
+callers and the trainer beside its asynchronous checkpoint thread. Their
+captures take turns (one process-wide lock); their eager calls do not wait.
 
-Freeing inside a capture. A graph, or its pool's memory, freed while another
+Freeing inside a capture. A graph, or its pool's memory, freed while a
 capture runs calls cudaFree, which invalidates that capture. `capture` keeps
-Python's cyclic collector off while it captures, and the objects that own
-programs hold no reference cycle, so they free their graphs when they go.
+Python's cyclic collector off while it captures (captures take turns, so
+the collector is off from the start of each to its end), and the objects
+that own programs hold no reference cycle, so they free their graphs when
+they go.
 
 Failure raises. A capture or a replay that fails raises; nothing falls back
 to eager calls.
 """
 import contextlib
 import gc
+import threading
+import time
+import weakref
 
+import numpy as np
 import torch
 
-from npe_tpu_torch.ops.kernels import edit_tail, mdblock, rgb_beta_head, rgb_beta_tail, staging
+from npe_tpu_torch.ops.kernels import add_launches, edit_tail, mdblock, rgb_beta_head, rgb_beta_tail, staging, tallying
 
 # Every launch count of the kernel wrappers: (wrapper, attribute).
 COUNTERS = tuple((fn, attr) for fn in (edit_tail.edit_tail, mdblock.mdblock_fused, rgb_beta_head.rgb_beta_head,
@@ -47,29 +56,38 @@ def read_counts():
 
 def add_counts(delta):
     for (fn, attr), n in zip(COUNTERS, delta):
-        setattr(fn, attr, getattr(fn, attr) + n)
+        add_launches(fn, attr, n)
 
 
-def capture(body, stream, pool, capture_error_mode=None):
-    """A CUDA graph of `body` captured on `stream` into `pool`, and the
-    launches the capture counted, which it takes back off the counters.
-    Python's cyclic garbage collector is off while it captures: a collection
-    there that frees another graph, or the memory of its pool, calls
-    cudaFree, which invalidates the capture. `capture_error_mode` is
-    `torch.cuda.graph`'s; None leaves torch's default, "global"."""
-    before = read_counts()
-    graph = torch.cuda.CUDAGraph()
-    mode = {} if capture_error_mode is None else {"capture_error_mode": capture_error_mode}
+_capturing = threading.Lock()  # one capture at a time in the process
+
+
+@contextlib.contextmanager
+def _collector_off():
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream, **mode):
-            body()
+        yield
     finally:
         if collecting:
             gc.enable()
-        recorded = [n - b for n, b in zip(read_counts(), before)]
-        add_counts([-n for n in recorded])
+
+
+def capture(body, stream, pool):
+    """A CUDA graph of `body` captured on `stream` into `pool` in
+    "thread_local" mode, and the launches the capture counted on this
+    thread, which it takes back off the counters (also when it fails).
+    Captures take turns, and Python's cyclic garbage collector is off while
+    one runs: a collection there that frees another graph, or the memory of
+    its pool, calls cudaFree, which invalidates the capture."""
+    graph = torch.cuda.CUDAGraph()
+    with _capturing, _collector_off(), tallying() as tally:
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                body()
+        finally:
+            recorded = [tally.get(c, 0) for c in COUNTERS]
+            add_counts([-n for n in recorded])
     return graph, recorded
 
 
@@ -98,22 +116,15 @@ class Program:
     call. So each call runs its body once on the card, and each kind is
     captured at its first call.
 
-    `calls` and `captures` count the calls and the captures (at most one).
-    `capture_error_mode` goes to `capture` (see the module docstring)."""
-
-    capture_error_mode = "thread_local"
+    `calls` and `captures` count the calls and the captures (at most one)."""
 
     def __init__(self, body, stream=None, pool=None, pure=False):
         self.body, self.stream, self.pool, self.pure = body, stream, pool, pure
         self.calls, self.captures, self.graph, self.recorded = 0, 0, None, None
 
-    def _stream(self):
-        """The context of an eager call on the card."""
-        return _on(self.stream)
-
     def _capture(self):
         self.captures += 1
-        self.graph, self.recorded = capture(self.body, self.stream, self.pool, self.capture_error_mode)
+        self.graph, self.recorded = capture(self.body, self.stream, self.pool)
 
     def __call__(self):
         self.calls += 1
@@ -121,7 +132,7 @@ class Program:
             self.body()
             return
         if self.graph is None and self.calls == 1:
-            with self._stream():
+            with _on(self.stream):
                 self.body()
             if self.pure:
                 self._capture()
@@ -130,3 +141,158 @@ class Program:
             self._capture()
         self.graph.replay()
         add_counts(self.recorded)
+
+
+# byte alignment of each tensor in a signature's packed buffers (cudaMalloc's)
+ALIGN = 256
+
+
+def _layout(specs):
+    """Byte offsets of tensors of `specs` [(shape, dtype)] packed back to back
+    into one buffer, each at a multiple of ALIGN, and the buffer's size."""
+    offsets, total = [], 0
+    for shape, dtype in specs:
+        offsets.append(total)
+        total += -(-int(np.prod(shape, dtype=np.int64)) * dtype.itemsize // ALIGN) * ALIGN
+    return offsets, total
+
+
+def _views(buffer, specs, offsets):
+    """Typed views of `specs` into the uint8 `buffer` at `offsets`."""
+    return [buffer[o:o + int(np.prod(s, dtype=np.int64)) * d.itemsize].view(d).view(s)
+            for (s, d), o in zip(specs, offsets)]
+
+
+class Signature:
+    """One input signature of a `ProgramCache` function: the static inputs,
+    packed into one device buffer (one copy uploads them from one pinned
+    staging buffer), the static outputs, packed into another (one copy
+    downloads them into a pinned buffer), and the `Program` whose body runs
+    the function on them. `first_call_ms` is the host time of the call that
+    made it (on the card the eager call and the capture, upload and download
+    included)."""
+
+    def __init__(self, device, specs, program):
+        offsets, total = _layout(specs)
+        with torch.inference_mode(False):  # buffers that a gradient body may read as leaves
+            self.buffer = torch.empty(total, dtype=torch.uint8, device=device)
+            self.inputs = _views(self.buffer, specs, offsets)
+        self.staging = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+        self.staged = [v.numpy() for v in _views(self.staging, specs, offsets)]
+        self.outputs = self.host_outputs = None
+        self.program, self.first_call_ms = program, None
+
+    def keep(self, outs):
+        """Static outputs shaped as `outs` (the first call's results); the
+        first call makes them, outside any capture."""
+        specs = [(tuple(o.shape), o.dtype) for o in outs]
+        offsets, total = _layout(specs)
+        device = outs[0].device
+        with torch.inference_mode(False):
+            self.out_buffer = torch.empty(total, dtype=torch.uint8, device=device)
+            self.outputs = _views(self.out_buffer, specs, offsets)
+        self.out_staging = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+        self.host_outputs = [v.numpy() for v in _views(self.out_staging, specs, offsets)]
+
+
+class ProgramCache:
+    """The counterpart of `jax.jit` for an owner's pure functions of tensors:
+    one `Signature` (static buffers and a pure `Program`, captured once) per
+    function and input signature, the inputs' shapes and dtypes, as `jax.jit`
+    keeps one program per shape. A new signature's first call runs
+    the function eagerly on the capture's stream and gives the result, then
+    captures it ("thread_local", as every `Program`); every later call of
+    that signature uploads its inputs, replays the graph and copies the
+    outputs out. Values never make a new signature: a moved brush box, a new
+    colour or new latents are inputs.
+
+    `define(name, fn)` names a function; fn takes the static inputs as
+    tensors on `device`, in the caller's order, and returns a tensor or a
+    tuple of tensors of numpy dtypes, which die or are copied out inside the
+    call. fn is a bound method of the owner, held by a weak reference: an
+    owner that holds its cache forms no reference cycle, and its graphs go
+    with it (see the module docstring). `cache(name, *args)` runs it: args
+    are host arrays, staged into the pinned buffer and uploaded in one copy;
+    `pad_to` pads their first axis with zero rows to that length,
+    and the outputs' first axis is cut back to the rows given. Returns the
+    outputs as numpy arrays of their own, one output bare, after one download
+    and one synchronise (so the staging buffers are free again). A lock
+    makes a call atomic, so threads may share a cache; the caller's current
+    stream orders it.
+
+    All signatures share one memory pool: they never run at once, and every
+    tensor a function allocates dies inside its call. On the CPU, and with
+    `eager=True` on the card, the same bodies run directly on the same
+    buffers. `first_calls` counts the calls that made a signature (on the
+    card, an eager call and a capture each); a failing first call raises and
+    leaves no signature. Nothing falls back to eager calls."""
+
+    def __init__(self, device, eager=False):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" and not eager else None
+        self.pool = torch.cuda.graph_pool_handle() if self.stream is not None else None
+        self.functions, self.signatures = {}, {}
+        self.lock = threading.Lock()
+        self.first_calls = 0
+
+    def define(self, name, fn):
+        self.functions[name] = weakref.WeakMethod(fn)
+
+    def captures(self, name=None):
+        """{signature key: captures (0 or 1)} of `name`'s signatures (all
+        functions' with None)."""
+        return {key: s.program.captures for key, s in self.signatures.items() if name in (None, key[0])}
+
+    def _body(self, key):
+        sig = self.signatures[key]
+        outs = self.functions[key[0]]()(*sig.inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        if sig.outputs is None:
+            sig.keep(outs)
+        for dst, src in zip(sig.outputs, outs):
+            dst.copy_(src)
+
+    def __call__(self, name, *args, pad_to=None):
+        args = [np.asarray(a) for a in args]
+        rows = None
+        specs = []
+        for a in args:
+            shape = a.shape
+            if pad_to is not None:
+                rows = shape[0] if rows is None else rows
+                if shape[0] != rows or rows > pad_to:
+                    raise ValueError(f"{name}: {shape[0]} rows where {rows} at most {pad_to} were expected")
+                shape = (pad_to,) + shape[1:]
+            specs.append((tuple(shape), torch.from_numpy(np.empty(0, a.dtype)).dtype))
+        key = (name, tuple(specs))
+        with self.lock:
+            t0 = time.perf_counter()
+            sig = self.signatures.get(key)
+            if sig is None:
+                me = weakref.ref(self)
+                sig = Signature(self.device, specs, Program(lambda: me()._body(key), self.stream, self.pool, pure=True))
+                self.signatures[key] = sig
+            for view, a in zip(sig.staged, args):
+                if rows is None:
+                    view[...] = a
+                else:
+                    view[:rows] = a
+                    view[rows:] = 0
+            sig.buffer.copy_(sig.staging, non_blocking=True)
+            cold = sig.program.calls == 0
+            try:
+                sig.program()
+            except BaseException:
+                if cold:
+                    del self.signatures[key]
+                raise
+            finally:
+                self.first_calls += cold
+            cut = slice(None) if rows is None else slice(0, rows)
+            sig.out_staging.copy_(sig.out_buffer, non_blocking=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            outs = tuple(o[cut].copy() for o in sig.host_outputs)
+            if cold:
+                sig.first_call_ms = (time.perf_counter() - t0) * 1e3
+        return outs[0] if len(outs) == 1 else outs

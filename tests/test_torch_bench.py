@@ -14,6 +14,7 @@ import torch
 import bench_stages
 import bench_torch
 import bench_torch_edit
+import bench_torch_serving
 import bench_torch_stages
 import bench_torch_train
 import torch_parity as tp
@@ -28,6 +29,7 @@ tp.torch_threads()
     (bench_torch_edit, ["--models", "IAN_simple", "--strokes", "1", "--repeats", "1"]),
     (bench_torch_stages, ["--batch", "1", "--iters", "1", "--rounds", "1"]),
     (bench_torch_train, ["--batch", "4", "--pairs", "1", "--rounds", "1"]),
+    (bench_torch_serving, ["--n", "1", "--repeats", "1", "--load", "0"]),
 ])
 def test_exits_nonzero_without_cuda(bench, argv, capsys):
     if torch.cuda.is_available():
@@ -177,6 +179,39 @@ def test_bench_torch_edit_times_each_path_of_a_cpu_session(monkeypatch):
     got = bench_torch_edit.time_path(session, np.zeros((3, 64, 64), np.float32), 2, 2)
     assert len(got["runs_p50_ms"]) == 2 and got["p50_ms"] > 0 and got["p95_ms"] >= got["p50_ms"] * 0.5
     assert (got["device_ms_per_stroke"], got["idle_share"], got["host_launches_per_stroke"]) == (None, None, None)
+
+
+def test_bench_torch_serving_paths():
+    """Both paths by default, the captured one first (the server's path and
+    the headline); either alone; a path it does not know, or one named
+    twice, is refused."""
+    assert bench_torch_serving.parse([]).paths == ["captured", "eager"]
+    assert bench_torch_serving.parse(["--path", "eager"]).paths == ["eager"]
+    assert bench_torch_serving.parse(["--path", "eager,captured"]).paths == ["eager", "captured"]
+    for bad in (["--path", "graph"], ["--path", "captured,captured"], ["--path", ""]):
+        with pytest.raises(SystemExit):
+            bench_torch_serving.parse(bad)
+
+
+@pytest.mark.parametrize("eager", [False, True])
+def test_bench_torch_serving_times_each_path_of_a_cpu_server(eager):
+    """`run_path` over a CPU server: the figures of every run and their
+    median, the buckets whose programs were made and each one's first call;
+    no capture without a card."""
+    from npe_tpu_torch.serving import InferenceServer
+
+    server = InferenceServer(tp.TINY_TORCH, variables=tp.port_variables(tp.TINY_JAX), device="cpu", max_batch=4,
+                             eager=eager)
+    try:
+        got = bench_torch_serving.run_path(server, 2, 3, 2)
+    finally:
+        server.close()
+    assert len(got["runs"]) == 2 and got["median"]["decode_p50_ms"] > 0 and got["median"]["load_req_per_s"] > 0
+    assert got["buckets"]["decode"] == [1] and 1 in got["buckets"]["encode"]
+    assert set(got["buckets"]["encode"]) <= {1, 2, 4} and got["captures"] == 0
+    assert sorted(got["first_call_ms"]) == sorted(f"{op} {b}" for op, bs in got["buckets"].items() for b in bs)
+    assert all(ms > 0 for ms in got["first_call_ms"].values())
+    assert got["stats"]["errors"] == 0
 
 
 def test_bench_torch_stages_arguments():

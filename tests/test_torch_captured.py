@@ -24,6 +24,7 @@ from npe_tpu_torch.training import captured as C
 from npe_tpu_torch.training import train as TT
 from npe_tpu_torch.training import train_step as TTS
 from npe_tpu_torch.utils import checkpoints as tckpt
+from npe_tpu_torch.utils import graphs
 
 tp.torch_threads()
 
@@ -199,7 +200,7 @@ class _FakeGraph:
 
 
 @contextlib.contextmanager
-def _fake_capture(graph, pool=None, stream=None):
+def _fake_capture(graph, pool=None, stream=None, capture_error_mode="global"):
     yield
 
 
@@ -211,7 +212,7 @@ def test_capture_adds_no_launches_and_every_replay_adds_the_captured_ones(monkey
     A capture that fails raises and leaves the counts as they were."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
-    monkeypatch.setattr(C, "_on", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(graphs, "_on", lambda stream: contextlib.nullcontext())
     runs = []
 
     def body():

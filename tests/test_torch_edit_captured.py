@@ -109,7 +109,9 @@ def test_the_whole_script_matches_npe_tpu(jax_side, form):
     ts.undo()
     _assert_same_state(tp, ts, js)
     assert torch.equal(ts.Z, z_scrolled)
-    assert {k: p.calls for k, p in ts.runner.programs.items()} == {"paint": 16, "scroll": 1, "composite": 1}
+    # the decodes: infer's, sample's and decode_current's
+    assert {k: p.calls for k, p in ts.runner.programs.items()} == {"paint": 16, "scroll": 1, "composite": 1,
+                                                                   "encode": 1, "decode": 3}
     assert all(p.captures == 0 and p.graph is None for p in ts.runner.programs.values())  # no graph on the CPU
 
 
@@ -266,11 +268,12 @@ def test_a_step_reads_no_device_value_to_the_host(form, kind):
     runner.inputs.copy_(torch.linspace(0, 1, runner.inputs.numel()))
     for name, value in zip(EC.SCALARS, (10.0, 12.0, 30.0, 25.0, 0.5, 1.0, -1.0)):
         getattr(runner, name).fill_(value)
-    for t in (runner.z, runner.recon, runner.error):
+    for t in (runner.z, runner.recon, runner.error, runner.image):
         t.copy_(torch.randn(t.shape, generator=torch.Generator().manual_seed(2)))
     with pytest.MonkeyPatch.context() as mp, no_host_reads(mp):
         getattr(runner, f"_{kind}")()
-    written = runner.zdim + (2 if kind == "paint" else 1) * 3 * runner.h * runner.w  # z, IM (and DELTA)
+    images = {"paint": 2, "encode": 0}.get(kind, 1)
+    written = runner.zdim + images * 3 * runner.h * runner.w  # z, IM (and DELTA)
     assert torch.isfinite(runner.out[:written]).all()
 
 
@@ -345,20 +348,21 @@ def test_a_pure_program_captures_after_its_eager_first_call_and_replays_later(mo
 
 
 def test_the_editor_captures_thread_local_and_the_trainer_in_the_default_mode(monkeypatch):
-    """The editor's programs capture with capture_error_mode "thread_local";
-    the trainer's pass none, so torch's default, "global", holds."""
+    """The editor's programs capture with capture_error_mode "thread_local",
+    and so, since the trainer's own subclass went, do the trainer's (its
+    asynchronous checkpoint thread is the case that mode is for)."""
     from npe_tpu_torch.training import captured as trainer
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
     monkeypatch.setattr(graphs, "_on", lambda stream: contextlib.nullcontext())
-    monkeypatch.setattr(trainer, "_on", lambda stream: contextlib.nullcontext())
     _fake_capture.modes = []
+    assert trainer.Program is graphs.Program
     for program in (graphs.Program(lambda: None, stream=object(), pure=True),
                     trainer.Program(lambda: None, stream=object())):
         program()
         program()
-    assert _fake_capture.modes == ["thread_local", "global"]
+    assert _fake_capture.modes == ["thread_local", "thread_local"]
 
 
 def test_chip_smoke_reads_each_wrappers_launches_from_the_device_kernels_names():

@@ -211,7 +211,10 @@ def test_slo_shortens_linger(make_server):
     """A tight-SLO request dispatches well before the linger window expires;
     requests without an SLO still aggregate into one batch."""
     s = make_server(max_batch=2, linger_ms=4000.0)
-    # the first call's sample seeds the group-time EMA the SLO cap needs
+    # the first group of a size makes its program and leaves the group-time
+    # EMA unseeded; the second, warm, seeds the estimate the SLO cap needs
+    s.decode(np.zeros((2, ZDIM), np.float32)).result(timeout=WAIT)
+    assert s._kernel_ema["decode"] is None
     s.decode(np.zeros((2, ZDIM), np.float32)).result(timeout=WAIT)
     assert s._kernel_ema["decode"] is not None
     t0 = time.perf_counter()
@@ -456,9 +459,9 @@ def test_request_counts_survive_many_threads(make_server):
 
     On the CPU a row decoded alone takes another GEMM path than a row of a
     larger group and differs from it in the last bits (up to about 1e-5
-    after the tanh), so a row is held to the decode of its input in a group
-    of the same size, not to another request's row from a group of another
-    size."""
+    after the tanh), so a row is held to the decode of its input in a full
+    group of the bucket its group was padded to, not to another request's
+    row from a group of another bucket."""
     s = make_server(max_batch=16, linger_ms=1.0)
     n_threads, per_thread = 16, 12
     futs = [[] for _ in range(n_threads)]
@@ -503,9 +506,80 @@ def test_request_counts_survive_many_threads(make_server):
             k = next((k for k, (_, row) in enumerate(mine) if np.array_equal(row, o[0])), None)
             assert k is not None, f"request {i}'s row is no row its group decoded from input {i}"
             n, _ = mine.pop(k)
-            if (i, n) not in refs:
+            bucket = s.bucket(n)  # the batch the group ran at, padded
+            if (i, bucket) not in refs:
                 with torch.inference_mode():
-                    refs[i, n] = decode(np.full((n, ZDIM), i, np.float32))[:1]
-            np.testing.assert_allclose(o, refs[i, n], rtol=1e-5, atol=1e-6)
+                    refs[i, bucket] = decode(np.full((bucket, ZDIM), i, np.float32))[:1]
+            np.testing.assert_allclose(o, refs[i, bucket], rtol=1e-5, atol=1e-6)
     assert not any(decoded.values())  # and no decoded row went unclaimed
     assert not np.allclose(outs[0][0], outs[1][0])
+
+
+# --- the programs: one a bucket, padded groups, the group-time estimate ---------
+
+
+@pytest.mark.parametrize("max_batch,buckets", [(16, [1, 2, 4, 4, 8, 8, 8, 8, 16, 16, 16, 16, 16, 16, 16, 16]),
+                                               (12, [1, 2, 4, 4, 8, 8, 8, 8, 12, 12, 12, 12]), (1, [1])])
+def test_a_group_runs_at_the_smallest_power_of_two_that_holds_it(make_server, max_batch, buckets):
+    """At most ceil(log2(max_batch)) + 1 buckets an op."""
+    s = make_server(max_batch=max_batch)
+    assert [s.bucket(n) for n in range(1, max_batch + 1)] == buckets
+    assert len(set(buckets)) <= int(np.ceil(np.log2(max_batch))) + 1
+
+
+@pytest.mark.parametrize("wire", ["float32", "uint8"])
+def test_served_rows_match_npe_tpus_padded_server(make_server, jax_vars, wire):
+    """Groups padded to their buckets against npe_tpu's server, which pads
+    every group to max_batch, on the same requests: a group of a 1-image and
+    a 2-image request (3 rows, bucket 4), and a 12-image request split at
+    max_batch 8 (8 + 4). Encodes within the golden tolerance, decodes too
+    (under the uint8 wire, by the uint8 step rule); the pad rows never reach
+    a future, and one program a bucket and op."""
+    from npe_tpu.serving import InferenceServer as JaxServer
+
+    rng = np.random.RandomState(12)
+    x = rng.uniform(-1, 1, (15, 64, 64, 3)).astype(np.float32)
+    if wire == "uint8":
+        x = to_tanh(np.float32(rng.randint(0, 256, x.shape)))
+    groups = [[slice(0, 1), slice(1, 3)], [slice(3, 15)]]  # each group waited for before the next
+    s = make_server(max_batch=8, linger_ms=300.0, wire=wire)
+    js = JaxServer(config=tp.TINY_JAX, variables=jax_vars, max_batch=8, linger_ms=300.0, wire=wire)
+    try:
+        got, want = {}, {}
+        for server, out in ((s, got), (js, want)):
+            zs = [f.result(timeout=WAIT) for group in groups for f in [server.encode(x[k]) for k in group]]
+            ys = [f.result(timeout=WAIT) for group in ((zs[0], zs[1]), (zs[2],))
+                  for f in [server.decode(z) for z in group]]
+            out["z"], out["y"] = np.concatenate(zs), np.concatenate(ys)
+    finally:
+        js.close()
+    assert got["z"].shape == (15, ZDIM) and got["y"].shape == (15, 64, 64, 3)
+    tp.assert_close(got["z"], want["z"])
+    if wire == "float32":
+        tp.assert_close(got["y"], want["y"])
+    else:
+        tp.assert_recon_close(got["y"], want["y"])
+    assert s.stats["batches"] == 4 and s.stats["errors"] == 0  # two groups an op
+    for op in ("encode", "decode"):
+        assert sorted(key[1][0][0][0] for key in s.programs.signatures if key[0] == op) == [4, 8]
+
+
+def test_the_group_time_estimate_is_never_seeded_by_a_call_that_made_a_program(make_server):
+    """Only a group whose every part ran a program made before (a warm
+    group, npe_tpu's warm call) feeds the EMA: the first group of a bucket,
+    however fast, and a split group with one new part leave it as it was."""
+    s = make_server(max_batch=8, linger_ms=1.0)
+    z = np.random.RandomState(13).randn(12, ZDIM).astype(np.float32)
+    decode = lambda n: s.decode(z[:n]).result(timeout=WAIT)  # noqa: E731
+    decode(1)
+    assert s._kernel_ema["decode"] is None and s.programs.first_calls == 1
+    decode(1)
+    seeded = s._kernel_ema["decode"]
+    assert seeded is not None
+    decode(3)  # bucket 4's first group
+    assert s._kernel_ema["decode"] == seeded
+    decode(9)  # 8 + 1: bucket 8 new, bucket 1 warm
+    assert s._kernel_ema["decode"] == seeded and s.programs.first_calls == 3
+    decode(12)  # 8 + 4: both warm
+    assert s._kernel_ema["decode"] != seeded
+    assert s._kernel_ema["encode"] is None
