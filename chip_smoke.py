@@ -45,7 +45,14 @@ float32 on the same weights and batch (IAN_simple at batch 128 within
 npe_tpu's bf16 trajectory bounds; IANv1 and full IAN through the tail's bf16
 form alone), `train()` on IAN_simple from a `native:` raw file in bf16 with
 encoder-FID validation, a profiler trace and a resumed epoch that reads the
-FID basis back, and the sample CLI; and the training times, float32 and bf16
+FID basis back, and the sample CLI (the checkpoints' grid, validation and
+encoder-FID and the CLI's grid run as captured programs, `training/programs.py`);
+then (phase 6c, `[eval]` lines) those programs of each model (IAN_simple,
+IANv1 with the hybrid head, full IAN with the per-op MDBLOCKs) at npe_tpu's
+shapes, captured against an eager owner bit for bit under deterministic
+algorithms, on new inputs and after a second set of weights is loaded, one
+capture a signature, the replayed launches held to the profiler's kernels,
+and one checkpoint's evaluation timed captured and eager; and the training times, float32 and bf16
 in turns, eager and captured (with bench_torch_train.py's function), with
 the trainer's three data paths. Then bfloat16: the bf16 forms
 of `rgb_beta_tail`, `rgb_beta_head` and `mdblock_fused` held against their
@@ -167,6 +174,11 @@ API_TIMED, API_TIMED_B64 = 20, 5
 # each size, each its own group: buckets 1, 4, 8, 16, and 20 split into 16 + 4
 SERVED_SIZES = (1, 3, 5, 16, 20)
 SERVED_BUCKETS = (1, 4, 8, 16)
+# the [eval] phase (training/programs.py): the checkpoint grid's programs and
+# rows (27 and 21 samples, 6 endpoints), the encoder-FID's batch and images,
+# train()'s validation examples, and the checkpoints timed after the first
+EVAL_GRID = (("decode_pre_iaf", 27), ("encode_pre_iaf", 6), ("decode_pre_iaf", 21))
+EVAL_FID_BATCH, EVAL_FID_IMAGES, EVAL_VALID_EXAMPLES, EVAL_TIMED = 64, 256, 1024, 3
 # Full IAN's three MDBLOCKs: (name, channels, map size, scales)
 MDBLOCK_SHAPES = (("dec_conv2a", 512, 8, (0, 2)), ("dec_conv3a", 256, 16, (0, 2, 3)),
                   ("dec_conv4a", 128, 32, (0, 2, 3)))
@@ -1437,6 +1449,192 @@ def profile_steps(label, run, n_steps, top):
     return busy / n_steps, 1 - busy / wall, conv / busy
 
 
+# --- [eval]: the checkpoints' and the sample CLI's programs (training/programs.py) ---
+
+
+def eval_calls(module):
+    """[(program, rows)] of the [eval] script, at the shapes npe_tpu's
+    programs take: the grid's, validation's `recon_mse` at the config's batch,
+    the encoder-FID's features and sample-path decode at its batch, and the
+    sample CLI's other functions (`decode`, `iaf`) at that batch too."""
+    from npe_tpu_torch.training.programs import sample_program
+
+    return list(EVAL_GRID) + [("recon_mse", module.cfg["batch_size"]), ("features", EVAL_FID_BATCH),
+                              (sample_program(module), EVAL_FID_BATCH), ("decode", EVAL_FID_BATCH),
+                              ("iaf", EVAL_FID_BATCH)]
+
+
+def eval_inputs(calls, seed, zdim):
+    """An input a call: procedural faces in [-1, 1] for the programs that
+    take images (on the card for `recon_mse` and `features`, as the trainer
+    gives them its validation slices and its samples; host arrays else, as it
+    gives the grid's endpoints), seeded normals else (host arrays, as the
+    grid's latents and the FID's CPU-generator draws)."""
+    from npe_tpu_torch.data import SyntheticFaces
+    from npe_tpu_torch.utils.ranges import to_tanh
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i, (name, n) in enumerate(calls):
+        if name in ("encode_pre_iaf", "recon_mse", "features"):
+            x = to_tanh(np.float32(SyntheticFaces(n, seed=100 * seed + i).get_data(np.arange(n))))
+            out.append(torch.from_numpy(x).cuda() if name != "encode_pre_iaf" else x)
+        else:
+            out.append(rng.randn(n, zdim).astype(np.float32))
+    return out
+
+
+def eval_script(owner, calls, inputs):
+    """Every call of `calls` on its input; the outputs, tensors on the card."""
+    return [owner(name, x) for (name, _), x in zip(calls, inputs)]
+
+
+def seeded_variables(module, seed):
+    """Seeded unit-gain weights on the card (the sessions' rule)."""
+    from npe_tpu_torch.utils.checkpoints import from_reference, to_reference, unit_gain
+
+    seeded = module.init(torch.Generator().manual_seed(seed), "cpu")
+    return from_reference(unit_gain(to_reference(seeded), iaf_logsigma_gain=0.1), "cuda")
+
+
+def drive_eval(label, module, variables, second, counters, tail):
+    """An `EvalPrograms` on the card, captured (the trainer's and the CLIs'
+    path) and eager (`eager=True`), on the same weights and inputs under
+    deterministic algorithms: the script three times, first making every
+    signature (an eager call and a capture each), then on other inputs, all
+    replays, under the profiler with the counts set to 0 just before and read
+    just after, held to the device kernels it recorded (`tail`: the model
+    decodes through rgb_beta_tail, once a decode), then on third inputs after
+    `second` is loaded into both owners; every output of every run equal to
+    the eager twin's bit for bit; each signature captured once, the eager
+    twin's never. Returns the replayed script's launches."""
+    from npe_tpu_torch.training.programs import EvalPrograms
+
+    calls = eval_calls(module)
+    zdim = module.cfg["num_latents"]
+    with deterministic_algorithms():
+        cap, eag = (EvalPrograms(module, "cuda", eager=e) for e in (False, True))
+        for run, weights, seed in (("capturing", variables, 0), ("replayed", variables, 1),
+                                   ("second weights", second, 2)):
+            inputs = eval_inputs(calls, seed, zdim)
+            for owner in (cap, eag):
+                owner.load(weights)
+            if run == "replayed":
+                counters.zero()
+                got, seen = profiled(lambda: eval_script(cap, calls, inputs))  # noqa: B023
+                launches = counters.read()
+            else:
+                got = eval_script(cap, calls, inputs)
+            want = eval_script(eag, calls, inputs)
+            for (name, n), g, w in zip(calls, got, want):
+                assert g.dtype == torch.float32 and bool(torch.isfinite(g).all()), f"{label} eval: {name} {n}"
+                assert torch.equal(g, w), (f"{label} eval, {run}: {name} at {n} rows, captured vs eager, differs "
+                                           f"by {max_err(g.cpu(), w.cpu())}")
+    check_witnessed(f"{label} eval, replayed", launches, seen)
+    decodes = sum(name in ("decode_pre_iaf", "decode", "recon_mse") for name, _ in calls)
+    want = dict({name: 0 for name in counters.forms}, rgb_beta_tail=decodes if tail else 0)
+    assert launches == want, f"{label} eval: launches {launches}, not {want}"
+    caps = {f"{key[0]} {key[1][0][0][0]}": n for key, n in cap.programs.captures().items()}
+    assert sorted(caps) == sorted({f"{name} {n}" for name, n in calls}) and set(caps.values()) == {1}, caps
+    assert not any(eag.programs.captures().values())
+    log(f"[eval] {label}: captured programs vs eager, {len(calls)} outputs of the capturing run, of the replayed "
+        f"one on other inputs and of a run on a second set of weights equal bit for bit under deterministic "
+        f"algorithms; captures {caps}; launches of the replayed script {launches}")
+    return launches
+
+
+def eval_checkpoint(module, variables, valid, real, current, basis, png):
+    """One checkpoint's evaluation as `train()` runs it: the current weights
+    loaded into `current`, the grid (written to `png`), validation with
+    max_chunks=1 over `valid`, the encoder-FID of `real` against the `basis`
+    owner; host clock by part, ending in a synchronise."""
+    from npe_tpu_torch.training.eval_grids import sample_and_interp_grid
+    from npe_tpu_torch.training.evaluate import validation_pixel_accuracy
+    from npe_tpu_torch.training.quality import encoder_fid
+
+    marks = [time.perf_counter()]
+    current.load(variables)
+    sample_and_interp_grid(module, variables, valid, png, seed=5, programs=current)
+    marks.append(time.perf_counter())
+    ev = validation_pixel_accuracy(module, variables, valid, module.cfg, max_chunks=1, programs=current)
+    marks.append(time.perf_counter())
+    fid = encoder_fid(module, variables, real, num=len(real), seed=0, programs=current, feature_programs=basis)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    assert np.isfinite(ev["mse"]) and np.isfinite(fid), (ev, fid)
+    parts = {f"{what}_ms": (b - a) * 1e3 for what, a, b in zip(("grid", "validation", "fid"), marks, marks[1:])}
+    return dict(parts, checkpoint_ms=(marks[-1] - marks[0]) * 1e3, mse=ev["mse"], encoder_fid=fid)
+
+
+def time_eval(label, module, variables, smi, valid, tmp):
+    """`eval_checkpoint` captured (two owners, as the trainer's) beside eager
+    (`eager=True`): the first checkpoint (every program's eager first call and
+    capture), then the median of EVAL_TIMED more, by part; each program's
+    first call; the peak device memory the two owners add over the first
+    checkpoint (two copies of the weights, the graphs' pool, the
+    workspaces)."""
+    from npe_tpu_torch.data import data_loader
+    from npe_tpu_torch.training.programs import EvalPrograms
+
+    fid_bs = min(module.cfg["batch_size"], EVAL_FID_IMAGES)
+    real = next(iter(data_loader(dict(module.cfg, batch_size=fid_bs, batches_per_chunk=EVAL_FID_IMAGES // fid_bs),
+                                 valid, offset=0)))
+    out = {}
+    for path in ("captured", "eager"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        current, basis = (EvalPrograms(module, "cuda", eager=path == "eager") for _ in range(2))
+        basis.load(variables)
+        args = (module, variables, valid, real, current, basis, os.path.join(tmp, f"{path}.png"))
+        first = eval_checkpoint(*args)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        timed = [eval_checkpoint(*args) for _ in range(EVAL_TIMED)]
+        res = {k: float(np.median([t[k] for t in timed])) for k in ("grid_ms", "validation_ms", "fid_ms",
+                                                                     "checkpoint_ms")}
+        res.update(first_checkpoint_ms=first["checkpoint_ms"], peak_mib=peak, mse=first["mse"],
+                   encoder_fid=first["encoder_fid"], signatures=current.programs.first_calls + basis.programs.first_calls,
+                   first_calls_ms={**first_calls_of(current.programs),
+                                   **{f"basis {k}": v for k, v in first_calls_of(basis.programs).items()}})
+        out[path] = res
+        del current, basis, args
+    c, e = out["captured"], out["eager"]
+    log(f"[time] {label} one checkpoint's evaluation (grid, validation max_chunks=1 at batch "
+        f"{module.cfg['batch_size']}, encoder-FID over {len(real)}), captured / eager: {c['checkpoint_ms']:.2f} / "
+        f"{e['checkpoint_ms']:.2f} ms (grid {c['grid_ms']:.2f} / {e['grid_ms']:.2f}, validation "
+        f"{c['validation_ms']:.2f} / {e['validation_ms']:.2f}, FID {c['fid_ms']:.2f} / {e['fid_ms']:.2f}); first "
+        f"checkpoint {c['first_checkpoint_ms']:.1f} / {e['first_checkpoint_ms']:.1f} ms; peak device memory the two "
+        f"owners add {c['peak_mib']:.1f} / {e['peak_mib']:.1f} MiB; mse {c['mse']:.6f} / {e['mse']:.6f}, "
+        f"encoder_fid {c['encoder_fid']:.4f} / {e['encoder_fid']:.4f} ({smi})")
+    log(f"[time] {label} evaluation programs' first calls, captured (the eager call and the capture), ms: "
+        f"{ {k: round(v, 1) for k, v in c['first_calls_ms'].items()} }")
+    return out
+
+
+def drive_evaluation(variables, counters, smi):
+    """The [eval] phase: `drive_eval` for IAN_simple, IANv1 (hybrid head) and
+    full IAN (per-op MDBLOCKs), the trainer's forms, at full width, float32,
+    on the phase's unit-gain weights and a second seeded set; then
+    `time_eval` for each. Returns (the checks' launches, summed; the times)."""
+    from npe_tpu_torch.data.datasets import NpzImageDataset, SyntheticFaces
+    from npe_tpu_torch.models import get_config
+
+    launches = {name: 0 for name in counters.forms}
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # train()'s validation set in memory, as a user's validation .npz
+        path = os.path.join(tmp, "valid.npz")
+        np.savez(path, SyntheticFaces(EVAL_VALID_EXAMPLES).get_data(np.arange(EVAL_VALID_EXAMPLES)).astype(np.uint8))
+        valid = NpzImageDataset(path)
+        for label, config, tail in (("IAN_simple", "IAN_simple", False), ("IANv1 hybrid head", "IANv1", True),
+                                    ("IAN per-op MDBLOCKs", "IAN", True)):
+            module = get_config(config)
+            got = drive_eval(label, module, variables[config], seeded_variables(module, 1), counters, tail)
+            launches = {name: n + got[name] for name, n in launches.items()}
+            times[label] = time_eval(label, module, variables[config], smi, valid, tmp)
+    return launches, times
+
+
 # --- serving: InferenceServer, ModelHost over HTTP, the web editor -----------
 
 
@@ -2692,6 +2890,18 @@ def main():
     log(f"[train] launches on the bf16 training paths {training_launches}; phase 6b took "
         f"{time.perf_counter() - t0:.1f} s")
 
+    log(f"[phase] 6c starts at {time.perf_counter() - started:.1f} s")
+    # 6c. [eval]: the checkpoints' and the sample CLI's programs of each model,
+    # captured against eager, their launches held to the profiler's kernels,
+    # and one checkpoint's evaluation timed captured and eager
+    t0 = time.perf_counter()
+    eval_launches, eval_times = drive_evaluation(
+        {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}, counters, smi)
+    assert eval_launches == dict({name: 0 for name in counters.forms}, rgb_beta_tail=10), eval_launches
+    eval_times["phase_s"] = time.perf_counter() - t0
+    log(f"[eval] launches on the evaluation programs' replayed scripts {eval_launches}; phase 6c took "
+        f"{eval_times['phase_s']:.1f} s")
+
     log(f"[phase] 7 starts at {time.perf_counter() - started:.1f} s")
     # 7. Times: each session's strokes captured (its path) and eager
     strokes = {}
@@ -2998,6 +3208,7 @@ def main():
                      serving_launches=serving_launches[entry["name"]],
                      training_bf16_launches=training_launches[entry["name"]],
                      training_captured_launches=captured_launches[entry["name"]],
+                     eval_launches=eval_launches[entry["name"]],
                      max_abs_err=worst[entry["name"]], library_ms=None)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"strokes": strokes, "paint_stroke_p50_ms": strokes["IAN_simple"]["captured"]["p50_ms"],
@@ -3008,6 +3219,7 @@ def main():
                     "ian_fused_encode_decode_imgs_per_s_b128": rates["IAN fused MDBLOCKs"],
                     "training": training, "rgb_beta_tail_launches_per_g_and_d_step": tail_step_launches,
                     "serving": serve_times, "api": api_times, "editor_first_calls": first_calls,
+                    "evaluation": eval_times,
                     "bf16": bf16_times, "data_parallel": dp_times,
                     "wall_s": time.perf_counter() - started}))
     log(f"[time] chip_smoke.py wall time {time.perf_counter() - started:.1f} s ({smi})")

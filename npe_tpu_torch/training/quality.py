@@ -16,26 +16,24 @@ prints one JSON line {"metric": "encoder_fid", "value": ..., "num": ...}.
 import numpy as np
 import torch
 
-from npe_tpu_torch.ops.conv import global_avg_pool
+from npe_tpu_torch.training.programs import EvalPrograms, sample_program
 
 
-def _device_of(variables):
-    return next(iter(variables.values())).device
-
-
-def batched_features(module, variables, images_nchw, batch_size=64):
+def batched_features(module, variables, images_nchw, batch_size=64, programs=None):
     """GlobalPool(enc_conv4) features of (N, 3, 64, 64) images in [-1, 1]
     (numpy or a tensor), as an (N', 1024) float64 numpy array, N' the whole
     batches of `batch_size` in N: trailing images that do not fill one are
-    dropped, as npe_tpu drops them. Runs on the device of `variables`."""
+    dropped, as npe_tpu drops them. Each batch is one run of the `features`
+    program of `programs`, an `EvalPrograms` that holds `variables` (None
+    makes one on their device for the call)."""
     n = (len(images_nchw) // batch_size) * batch_size
     if n == 0:
         raise ValueError(f"{len(images_nchw)} images make no batch of {batch_size}")
-    x = torch.as_tensor(images_nchw[:n]).to(_device_of(variables), torch.float32)
-    with torch.inference_mode():
-        feats = [global_avg_pool(module.backbone(variables, x[i : i + batch_size], False, None)[-1])
-                 for i in range(0, n, batch_size)]
-        return torch.cat(feats).cpu().numpy().astype(np.float64)
+    if programs is None:
+        programs = EvalPrograms.of(module, variables)
+    x = torch.as_tensor(images_nchw[:n]).to(programs.device, torch.float32)
+    feats = [programs("features", x[i : i + batch_size]) for i in range(0, n, batch_size)]
+    return torch.cat(feats).cpu().numpy().astype(np.float64)
 
 
 def feature_stats(features):
@@ -66,25 +64,26 @@ def frechet_distance(mu1, cov1, mu2, cov2, eps=1e-6):
     return max(d2, 0.0)
 
 
-def model_samples(module, variables, num, batch_size=64, seed=0):
+def model_samples(module, variables, num, batch_size=64, seed=0, programs=None):
     """`num` decodes of N(0, 1) latents drawn from an explicit CPU
     torch.Generator seeded with `seed` (so the latents do not depend on the
-    device), through the model's sample path: the pre-IAF decode for IAF
-    models, as the trainer feeds Z (reference `train_IAN.py:479`).
-    Returns an (num, 3, 64, 64) float32 tensor on the device of `variables`."""
-    decode = module.decode_pre_iaf if getattr(module, "HAS_IAF", False) else module.decode
+    device), through the model's sample path (`programs.sample_program`: the
+    pre-IAF decode for IAF models, as the trainer feeds Z, reference
+    `train_IAN.py:479`), each batch one run of that program of `programs`,
+    an `EvalPrograms` that holds `variables` (None makes one on their device
+    for the call). Returns an (num, 3, 64, 64) float32 tensor on the device
+    of `variables`."""
+    if programs is None:
+        programs = EvalPrograms.of(module, variables)
     gen = torch.Generator().manual_seed(seed)
     zdim = module.cfg["num_latents"]
-    device = _device_of(variables)
-    outs = []
-    with torch.inference_mode():
-        for _ in range(-(-num // batch_size)):
-            z = torch.randn((batch_size, zdim), generator=gen).to(device)
-            outs.append(decode(variables, z))
-        return torch.cat(outs)[:num]
+    name = sample_program(module)
+    outs = [programs(name, torch.randn((batch_size, zdim), generator=gen)) for _ in range(-(-num // batch_size))]
+    return torch.cat(outs)[:num]
 
 
-def encoder_fid(module, variables, real_images_nchw, num=None, batch_size=64, seed=0, feature_variables=None):
+def encoder_fid(module, variables, real_images_nchw, num=None, batch_size=64, seed=0, feature_variables=None,
+                programs=None, feature_programs=None):
     """Frechet distance between encoder features of `real_images_nchw`
     (N, 3, 64, 64) in [-1, 1] and as many model samples.
 
@@ -92,12 +91,19 @@ def encoder_fid(module, variables, real_images_nchw, num=None, batch_size=64, se
     pass a reference checkpoint's variables so the metric is comparable
     across checkpoints of a run (with None, features come from the *current*
     `variables`, and a per-epoch curve conflates encoder drift with
-    sample-quality change)."""
+    sample-quality change). The samples run on `programs`, an `EvalPrograms`
+    that holds `variables`, the features on `feature_programs`, one that
+    holds the feature space's weights (the trainer keeps both across
+    checkpoints); None makes each for the call."""
     num = num or len(real_images_nchw)
     batch_size = max(1, min(batch_size, num))  # small sets: one short batch
-    fv = variables if feature_variables is None else feature_variables
-    real = batched_features(module, fv, real_images_nchw[:num], batch_size)
-    gen = batched_features(module, fv, model_samples(module, variables, num, batch_size, seed), batch_size)
+    if programs is None:
+        programs = EvalPrograms.of(module, variables)
+    if feature_programs is None:
+        feature_programs = programs if feature_variables is None else EvalPrograms.of(module, feature_variables)
+    real = batched_features(module, None, real_images_nchw[:num], batch_size, feature_programs)
+    samples = model_samples(module, None, num, batch_size, seed, programs)
+    gen = batched_features(module, None, samples, batch_size, feature_programs)
     return frechet_distance(*feature_stats(real), *feature_stats(gen))
 
 

@@ -3,9 +3,10 @@
 
 The four inference functions -- `sample` (decode from a pre-IAF latent),
 `sampleZ` (decode from a post-IAF latent), `Zfn` (encode to pre-IAF),
-`Z_IAF_fn` (the flow alone) (`sample_IAN.py:86-94`) -- and a CLI that loads
-weights and writes the 6x9 sample/interpolation grid to
-pics/<model>_sample<epoch>.png (a PNG from `utils/png.py`; no PIL).
+`Z_IAF_fn` (the flow alone) (`sample_IAN.py:86-94`), captured programs on
+the card -- and a CLI that loads weights and writes the 6x9
+sample/interpolation grid to pics/<model>_sample<epoch>.png (a PNG from
+`utils/png.py`; no PIL) through the same programs.
 
 CLI: python -m npe_tpu_torch.training.sample IAN_simple --epoch 10
 """
@@ -18,27 +19,30 @@ import torch
 from npe_tpu_torch.data import get_dataset
 from npe_tpu_torch.models import get_config
 from npe_tpu_torch.training.eval_grids import sample_and_interp_grid
+from npe_tpu_torch.training.programs import EvalPrograms, device_of
 from npe_tpu_torch.utils import checkpoints
 from npe_tpu_torch.utils.device import resolve_device
 
 
 def make_inference_functions(module):
-    """The reference's tfuncs dict (`sample_IAN.py:86-100`): plain functions
-    of (variables, tensor) under `torch.inference_mode`."""
+    """The reference's tfuncs dict (`sample_IAN.py:86-100`): functions of
+    (variables, tensor) that return a tensor on the variables' device, run as
+    one owner's programs (`training/programs.py`, npe_tpu's jitted
+    functions), the owner made by the first call on that call's device. Each
+    call loads the variables it is given, then runs its program."""
+    owner = []
 
-    def inference(fn):
+    def program(name):
         def run(v, t):
-            with torch.inference_mode():
-                return fn(v, t)
+            if not owner:
+                owner.append(EvalPrograms(module, device_of(v)))
+            owner[0].load(v)
+            return owner[0](name, t)
 
         return run
 
-    return {
-        "sample": inference(module.decode_pre_iaf),
-        "sampleZ": inference(module.decode),
-        "Zfn": inference(module.encode_pre_iaf),
-        "Z_IAF_fn": inference(lambda v, z: module.iaf(v, z)[0]),
-    }
+    return {"sample": program("decode_pre_iaf"), "sampleZ": program("decode"), "Zfn": program("encode_pre_iaf"),
+            "Z_IAF_fn": program("iaf")}
 
 
 def main(argv=None):
@@ -61,7 +65,8 @@ def main(argv=None):
     dataset = get_dataset(a.dataset)
     os.makedirs("pics", exist_ok=True)
     out = f"pics/{name}_sample{a.epoch}.png"
-    sample_and_interp_grid(module, variables, dataset, out, seed=a.seed)
+    sample_and_interp_grid(module, variables, dataset, out, seed=a.seed,
+                           programs=EvalPrograms.of(module, variables))
     print("wrote", out)
     return out
 

@@ -22,7 +22,10 @@ and the chunk's metrics come to the host in one copy. The state a chunk
 returns is updated in place by the next, so an asynchronous checkpoint
 writes a copy of it, and the encoder-FID basis is a copy. With a validation
 set each checkpoint also reports the encoder-FID (`training/quality.py`) in
-a frozen feature space; `profile_dir` traces the first chunk
+a frozen feature space; the checkpoints' grids, validation and encoder-FID
+run as captured programs (`training/programs.py`, npe_tpu's jitted
+evaluation functions), which a run captures at its first checkpoint;
+`profile_dir` traces the first chunk
 (`utils/profiling.py`): its first G and first D step run eagerly, the second
 of each is captured (the trace shows `cudaStreamBeginCapture` /
 `cudaGraphInstantiate` on the host and no kernels of its own) and replayed,
@@ -68,6 +71,7 @@ from npe_tpu_torch.parallel.multihost import init_multihost
 from npe_tpu_torch.training import train_step as TS
 from npe_tpu_torch.training.eval_grids import sample_and_interp_grid
 from npe_tpu_torch.training.evaluate import validation_pixel_accuracy
+from npe_tpu_torch.training.programs import EvalPrograms
 from npe_tpu_torch.training.quality import encoder_fid
 from npe_tpu_torch.utils import checkpoints, profiling
 from npe_tpu_torch.utils.device import resolve_device
@@ -267,12 +271,20 @@ def train(
     # <name>_fid_basis.npz so that a resume keeps the same feature space
     # (otherwise every resume would rebase the FID curve on whatever the
     # encoder looks like at its first checkpoint).
+    # The checkpoints' grids, validation and encoder-FID run as captured
+    # programs (`training/programs.py`) of two owners made once a run on rank
+    # 0: one holds the current weights, loaded once a checkpoint; the other
+    # the FID basis, loaded once, whose buffers the chunks' in-place updates
+    # never reach.
     fid_basis_fname = os.path.join(out_dir, name + "_fid_basis.npz")
-    fid_feature_vars = None
+    eval_programs = EvalPrograms(module, device) if lead else None
+    fid_programs = None
     fid_basis = fid_feature_weights or (fid_basis_fname if os.path.isfile(fid_basis_fname) else None)
-    if fid_basis:
-        fid_feature_vars = module.init(torch.Generator().manual_seed(seed), device)
-        meta = checkpoints.load_weights(fid_basis, fid_feature_vars)
+    if fid_basis and lead:
+        basis = module.init(torch.Generator().manual_seed(seed), device)
+        meta = checkpoints.load_weights(fid_basis, basis)
+        fid_programs = EvalPrograms.of(module, basis)
+        del basis
         logging.info("encoder-FID feature basis from %s (epoch %s)", fid_basis, meta.get("epoch"))
 
     ckptr = checkpoints.AsyncCheckpointer() if async_checkpoint and lead else None
@@ -360,11 +372,13 @@ def train(
                 dist.barrier(group=waiting)  # rank 0 writes the checkpoint, the grids and the validation
                 continue
             variables = TS.variables_of(whole)
+            if checkpoint_grids or valid_dataset is not None:
+                eval_programs.load(variables)
             if checkpoint_grids:
                 os.makedirs(pics_dir, exist_ok=True)
                 sample_and_interp_grid(
                     module, variables, dataset, os.path.join(pics_dir, f"{name}_{epoch}.png"),
-                    seed=epoch * 42 + 5,
+                    seed=epoch * 42 + 5, programs=eval_programs,
                 )
             meta = {"epoch": epoch, "itr": itr, "ts": time.time(), "learning_rate": lr}
             # A full state is about three times the weights, so state_every>1
@@ -406,7 +420,8 @@ def train(
             else:
                 _do_save(whole)
             if valid_dataset is not None:
-                ev = validation_pixel_accuracy(module, variables, valid_dataset, cfg, max_chunks=1)
+                ev = validation_pixel_accuracy(module, variables, valid_dataset, cfg, max_chunks=1,
+                                               programs=eval_programs)
                 # the FID batch clamped to the validation set, so that a small
                 # set still yields one chunk (evaluate.py clamps the same way)
                 n_fid = min(256, valid_dataset.num_examples)
@@ -418,13 +433,14 @@ def train(
                 else:
                     # The FIRST validation checkpoint freezes the feature space
                     # (quality.py: FIDs from a drifting encoder conflate encoder
-                    # movement with sample quality). A copy: the next chunk
-                    # updates the state's tensors in place.
-                    if fid_feature_vars is None:
-                        fid_feature_vars = {k: v.clone() for k, v in variables.items()}
-                        checkpoints.save_weights(fid_basis_fname, fid_feature_vars, {"epoch": epoch})
+                    # movement with sample quality), in the basis owner's
+                    # buffers, a copy: the next chunk updates the state's
+                    # tensors in place.
+                    if fid_programs is None:
+                        fid_programs = EvalPrograms.of(module, variables)
+                        checkpoints.save_weights(fid_basis_fname, fid_programs.variables, {"epoch": epoch})
                     ev["encoder_fid"] = encoder_fid(module, variables, real, num=min(n_fid, len(real)), seed=epoch,
-                                                    feature_variables=fid_feature_vars)
+                                                    programs=eval_programs, feature_programs=fid_programs)
                 logging.info("validation: pixel_acc=%.4f mse=%.4f encoder_fid=%.3f", ev["test_error"], ev["mse"],
                              ev["encoder_fid"])
                 mlog.log(epoch=epoch, itr=itr, validation=ev)

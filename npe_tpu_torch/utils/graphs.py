@@ -3,7 +3,8 @@ port's counterpart of a jitted `npe_tpu` program. The trainer's G and D
 steps (`training/captured.py`) and the editor's steps (`editor/captured.py`)
 run through `Program`; `ProgramCache`, the counterpart of `jax.jit` for pure
 functions of their inputs, keeps one `Program` per input signature, and runs
-`api.IAN`'s four methods and the server's encode and decode.
+`api.IAN`'s four methods, the server's encode and decode, and the sampling
+and evaluation programs of `training/programs.py`.
 
 Launch counters. The kernel wrappers count a launch when Python calls them.
 An eager call launches what it counts. A capture launches nothing, so it
@@ -170,7 +171,9 @@ class Signature:
     downloads them into a pinned buffer), and the `Program` whose body runs
     the function on them. `first_call_ms` is the host time of the call that
     made it (on the card the eager call and the capture, upload and download
-    included)."""
+    included). `uploaded` marks the end of the last upload from the staging
+    buffer on the card, which a call that downloads nothing does not wait
+    for."""
 
     def __init__(self, device, specs, program):
         offsets, total = _layout(specs)
@@ -179,6 +182,7 @@ class Signature:
             self.inputs = _views(self.buffer, specs, offsets)
         self.staging = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
         self.staged = [v.numpy() for v in _views(self.staging, specs, offsets)]
+        self.uploaded = torch.cuda.Event() if device.type == "cuda" else None
         self.outputs = self.host_outputs = None
         self.program, self.first_call_ms = program, None
 
@@ -212,13 +216,16 @@ class ProgramCache:
     call. fn is a bound method of the owner, held by a weak reference: an
     owner that holds its cache forms no reference cycle, and its graphs go
     with it (see the module docstring). `cache(name, *args)` runs it: args
-    are host arrays, staged into the pinned buffer and uploaded in one copy;
-    `pad_to` pads their first axis with zero rows to that length,
-    and the outputs' first axis is cut back to the rows given. Returns the
-    outputs as numpy arrays of their own, one output bare, after one download
-    and one synchronise (so the staging buffers are free again). A lock
-    makes a call atomic, so threads may share a cache; the caller's current
-    stream orders it.
+    are host arrays (a CPU tensor is one), staged into the pinned buffer and
+    uploaded in one copy, or tensors on the cache's device, each copied into
+    its buffer there; `pad_to` pads their first axis with
+    zero rows to that length, and the outputs' first axis is cut back to the
+    rows given. Returns the outputs as numpy arrays of their own, one output
+    bare, after one download and one synchronise; with `download=False`, as
+    new tensors on the cache's device, without a synchronise (a later call
+    waits for this one's upload before it stages again). A lock makes a call
+    atomic, so threads may share a cache; the caller's current stream orders
+    it.
 
     All signatures share one memory pool: they never run at once, and every
     tensor a function allocates dies inside its call. On the CPU, and with
@@ -228,7 +235,7 @@ class ProgramCache:
     leaves no signature. Nothing falls back to eager calls."""
 
     def __init__(self, device, eager=False):
-        self.device = torch.device(device)
+        self.device = torch.empty(0, device=device).device  # "cuda" as the card's index
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" and not eager else None
         self.pool = torch.cuda.graph_pool_handle() if self.stream is not None else None
         self.functions, self.signatures = {}, {}
@@ -252,19 +259,30 @@ class ProgramCache:
         for dst, src in zip(sig.outputs, outs):
             dst.copy_(src)
 
-    def __call__(self, name, *args, pad_to=None):
-        args = [np.asarray(a) for a in args]
+    def _input(self, a):
+        """A tensor on this cache's device as it is, anything else as a host
+        array (a CPU tensor as its array; one on another device raises)."""
+        if isinstance(a, torch.Tensor):
+            a = a.detach()
+            if a.device == self.device:
+                return a
+        return np.asarray(a)
+
+    def __call__(self, name, *args, pad_to=None, download=True):
+        args = [self._input(a) for a in args]
         rows = None
         specs = []
         for a in args:
-            shape = a.shape
+            shape = tuple(a.shape)
             if pad_to is not None:
                 rows = shape[0] if rows is None else rows
                 if shape[0] != rows or rows > pad_to:
                     raise ValueError(f"{name}: {shape[0]} rows where {rows} at most {pad_to} were expected")
                 shape = (pad_to,) + shape[1:]
-            specs.append((tuple(shape), torch.from_numpy(np.empty(0, a.dtype)).dtype))
+            dtype = a.dtype if isinstance(a, torch.Tensor) else torch.from_numpy(np.empty(0, a.dtype)).dtype
+            specs.append((shape, dtype))
         key = (name, tuple(specs))
+        cut = ... if rows is None else slice(0, rows)
         with self.lock:
             t0 = time.perf_counter()
             sig = self.signatures.get(key)
@@ -272,13 +290,26 @@ class ProgramCache:
                 me = weakref.ref(self)
                 sig = Signature(self.device, specs, Program(lambda: me()._body(key), self.stream, self.pool, pure=True))
                 self.signatures[key] = sig
-            for view, a in zip(sig.staged, args):
-                if rows is None:
-                    view[...] = a
-                else:
-                    view[:rows] = a
-                    view[rows:] = 0
-            sig.buffer.copy_(sig.staging, non_blocking=True)
+            staged = [(view, a) for view, a in zip(sig.staged, args) if not isinstance(a, torch.Tensor)]
+            if staged:
+                if sig.uploaded is not None:
+                    sig.uploaded.synchronize()  # the staging buffer is free again
+                for view, a in staged:
+                    if rows is None:
+                        view[...] = a
+                    else:
+                        view[:rows] = a
+                        view[rows:] = 0
+                sig.buffer.copy_(sig.staging, non_blocking=True)
+                if sig.uploaded is not None:
+                    sig.uploaded.record()
+            with torch.no_grad():
+                for view, a in zip(sig.inputs, args):
+                    if isinstance(a, torch.Tensor) and rows is None:
+                        view.copy_(a)
+                    elif isinstance(a, torch.Tensor):
+                        view[:rows].copy_(a)
+                        view[rows:].zero_()
             cold = sig.program.calls == 0
             try:
                 sig.program()
@@ -288,11 +319,14 @@ class ProgramCache:
                 raise
             finally:
                 self.first_calls += cold
-            cut = slice(None) if rows is None else slice(0, rows)
-            sig.out_staging.copy_(sig.out_buffer, non_blocking=True)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            outs = tuple(o[cut].copy() for o in sig.host_outputs)
+            if download:
+                sig.out_staging.copy_(sig.out_buffer, non_blocking=True)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                outs = tuple(o[cut].copy() for o in sig.host_outputs)
+            else:
+                with torch.no_grad():
+                    outs = tuple(o[cut].clone() for o in sig.outputs)
             if cold:
                 sig.first_call_ms = (time.perf_counter() - t0) * 1e3
         return outs[0] if len(outs) == 1 else outs
