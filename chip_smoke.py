@@ -75,6 +75,7 @@ it exits nonzero at once.
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import re
@@ -103,6 +104,20 @@ HEAD_TOL = 5e-5
 # order than the plain version's per-tap cuBLAS products, twice in a row, and
 # its check's outputs have a std of 2 to 4 and reach +-25: 1e-5 of the largest.
 MDBLOCK_TOL = 2e-4
+# x's gradient of mdblock_fused (the backward kernels) against their plain
+# version `mdblock_backward_reference` on the kernels' own y and h1: float32
+# sums of up to 9216 products in another order, twice in a row, 1e-5 of the
+# largest value (as tests/test_torch_cuda.py holds the forward)
+MDBLOCK_BWD_TOL = 1e-5
+# A slope (lrelu'(a) of a1 or a2) that the kernels read from their own y and
+# h1 parts from the plain forward's where the two round a pre-activation to
+# opposite sides of zero; such elements are rare (the forward's error is
+# about 1e-6 of a pre-activation in float32, 1e-5 in bf16: 3e-5 of a map
+# at most on the card, at batch 128 in bf16; a slope read from a wrong layout
+# would part at about half), at most this share of a map or MDBLOCK_FLIPS_ANYWAY,
+# and the gradient of every pixel within their reach is held to the
+# reference alone (`check_mdblock_backward`)
+MDBLOCK_FLIP_SHARE, MDBLOCK_FLIPS_ANYWAY = 1e-3, 8
 # Card vs CPU: the golden tolerance of the JAX package's tests. The float32
 # sums run in other orders on the two devices (TF32 is off).
 RTOL, ATOL = 1e-3, 1e-4
@@ -167,6 +182,7 @@ SERVE_REQUESTS, SERVE_MAX_BATCH, SERVE_TIMED, SERVE_LOAD, SERVE_REPEATS, SERVE_W
 # the timed calls a method at batch 1 and at batch 64
 API_BOXES = ((8, 8, 24, 24), (20, 30, 36, 50), (0, 40, 12, 64))
 API_DECODES = 2 + 2 * len(API_BOXES)
+API_GRADIENTS = 2 * len(API_BOXES)  # imgrad and imgradRGB under each box
 API_OUTPUTS = ("encode_images b1", "encode_images b64", "sample_at b1", "sample_at b64") + tuple(
     f"{m} box {i}" for i in range(len(API_BOXES)) for m in ("imgrad", "imgradRGB"))
 API_TIMED, API_TIMED_B64 = 20, 5
@@ -191,7 +207,8 @@ def log(*args):
 class Counts:
     """The kernels' launch counts by form: name -> (wrapper, attribute); a
     wrapper counts its float32 form's launches in `launches` and its bf16
-    form's in `launches_bf16`."""
+    form's in `launches_bf16` (the MDBLOCK's backward kernels in
+    `launches_bwd` and `launches_bwd_bf16`)."""
 
     def __init__(self, forms):
         self.forms = forms
@@ -207,12 +224,17 @@ class Counts:
 # the port's kernels by name, as torch.profiler records them on the card:
 # name -> (the `Counts` name of its float32 form, of its bf16 form, kernels of
 # that name a wrapper launch runs). A wrapper launch runs its named kernel
-# once (the float32 MDBLOCK runs mdcl_kernel twice, once an MDCL); the head's
-# own tail (rgb_beta_tail_kernel<..., true>) and the slice sums are left out.
+# once (the float32 MDBLOCK runs mdcl_kernel twice, once an MDCL; the MDBLOCK
+# backward's first launch forms g_r: bwd_prologue_kernel in float32,
+# bwd_prologue_bf16_kernel in bf16); the head's own tail
+# (rgb_beta_tail_kernel<..., true>), the slice sums and the backward's
+# mdcl_bwd_kernel are left out.
 DEVICE_KERNELS = {"edit_tail_kernel": ("edit_tail", None, 1),
                   "rgb_beta_tail_kernel": ("rgb_beta_tail", "rgb_beta_tail_bf16", 1),
                   "head_trunk_kernel": ("rgb_beta_head", "rgb_beta_head_bf16", 1),
                   "mdcl_kernel": ("mdblock", None, 2), "prologue_kernel": (None, "mdblock_bf16", 1),
+                  "bwd_prologue_kernel": ("mdblock_bwd", None, 1),
+                  "bwd_prologue_bf16_kernel": (None, "mdblock_bwd_bf16", 1),
                   "stage_kernel": ("staging", None, 1)}
 
 
@@ -371,24 +393,175 @@ def mdblock_inputs(batch, channels, size, scales, seed, device):
     return [torch.from_numpy(a).to(device) for a in (x, *taps, aff)]
 
 
-def mdblock_bound_ms(batch, channels, size, scales, route="3xtf32"):
+def mdblock_bound_ms(batch, channels, size, scales, route="3xtf32", backward=False):
     """Least time for one MDBLOCK: x and both tap tensors and the affines
     read once, the output written once; two MDCLs of H*W*T*C^2 multiply-adds,
     and about ten float32 operations per element for the three affines,
     lrelus and the residual. route "3xtf32", the float32 kernel's: each
     multiply-add is three TF32 products on the tensor cores (two operations
     each); "fp32": one float32 multiply-add outside them; "bf16", the bf16
-    form's: x, the taps and the output 2 bytes an element, one bf16 product."""
+    form's: x, the taps and the output 2 bytes an element, one bf16 product.
+    `backward`: x's gradient, the same multiply-adds (MDCL2^T, MDCL1^T); g,
+    x, y and h1 read once, dx written once, about twelve elementwise
+    operations per element (three slopes, three scales, g_r twice, the sum)."""
     n_taps = 9 * (1 + sum(s > 0 for s in scales))
     px = batch * size * size
     elt = 2 if route == "bf16" else 4
-    nbytes = elt * (2 * px * channels + 2 * n_taps * channels * channels) + 4 * 6 * channels
+    maps = 5 if backward else 2
+    nbytes = elt * (maps * px * channels + 2 * n_taps * channels * channels) + 4 * 6 * channels
     macs = 2 * px * n_taps * channels * channels
-    other = 10 * px * channels
+    other = (12 if backward else 10) * px * channels
     if route != "3xtf32":
         return kernel_bound_ms(nbytes, 2 * macs, other, "bfloat16" if route == "bf16" else "float32")
     # the elementwise operations in TF32-rate units, so that one peak divides both
     return roofline_ms(nbytes, 3 * 2 * macs + other * TF32_OPS_PER_S / FP32_OPS_PER_S, TF32_OPS_PER_S)
+
+
+def time_mdblock_backward(variables, name, channels, size, scales, batch, seed, smi, dtype=torch.float32):
+    """x's gradient of one MDBLOCK as device time (CUDA graph): the backward
+    kernels alone (on the y and h1 a forward kept), the plain version's VJP
+    as the backward ran it before the kernels (the plain forward again, then
+    its VJP), and the yardstick, the per-op block's backward from the
+    weights (`variables`, the block `name`; cuDNN and cuBLAS): its forward
+    and backward under autograd less its forward alone (a graph captures
+    the backward on the stream of its forward, so both are captured); the
+    fused form's forward and backward under autograd beside it; the
+    backward's bound. Returns {"ms", "plain_ms", "per_op_ms", "fused_fwd_bwd_ms",
+    "per_op_fwd_bwd_ms", "bound_ms", "bound_by"}."""
+    from npe_tpu_torch.models import common
+    from npe_tpu_torch.ops.kernels import mdblock as mk
+    from npe_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda")
+    x, t1, t2, aff = mdblock_inputs(batch, channels, size, scales, seed, dev)
+    bf16 = dtype == torch.bfloat16
+    x, t1, t2 = (t.to(dtype) for t in (x, t1, t2))
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(seed), device=dev).to(dtype)
+    xg = x.clone().requires_grad_(True)
+    out = mk.mdblock_fused(xg, t1, t2, aff, scales)  # kept alive: y is one of its saved tensors
+    h1, y = out.grad_fn.saved_tensors[4:]
+    launch = mk._launch_bwd_bf16 if bf16 else mk._launch_bwd_float32
+    assert launch(g, x, y, h1, t1, t2, aff, scales)[1] == 0
+    reps = dict(iters=5, reps=4) if batch == 128 else dict(iters=20)
+    k_ms = graph_ms(lambda: launch(g, x, y, h1, t1, t2, aff, scales), **reps)
+    plain = functools.partial(mk.mdblock_taps_reference, scales=scales)
+    p_ms = graph_ms(lambda: mk.vjp_of_plain(plain, (True, False, False, False), (x, t1, t2, aff), g), **reps)
+    def block(h):
+        return common.mdblock(variables, None, name, h, scales, common.LRELU, False, mode="plain")
+
+    def forward_backward(fn):
+        """fn's forward and x's gradient; the leaf is made inside, so that a
+        capture holds its whole graph (a leaf made outside ties the backward
+        to the stream it was made on)."""
+        def run():
+            leaf = x.detach().requires_grad_(True)
+            return torch.autograd.grad(fn(leaf), leaf, g)
+        return run
+
+    fb_ms = graph_ms(forward_backward(lambda h: mk.mdblock_fused(h, t1, t2, aff, scales)), **reps)
+    o_fb_ms = graph_ms(forward_backward(block), **reps)
+    with torch.no_grad():
+        o_f_ms = graph_ms(lambda: block(x), **reps)
+    bound = mdblock_bound_ms(batch, channels, size, scales, "bf16" if bf16 else "3xtf32", backward=True)
+    log(f"[time] mdblock_bwd{'_bf16' if bf16 else ''} {size}x{size}x{channels} batch {batch}, x's gradient, device "
+        f"time (CUDA graph): kernels {k_ms:.5f} ms, plain VJP (forward again, then its VJP) {p_ms:.5f} ms, the "
+        f"per-op block's backward from the weights {o_fb_ms - o_f_ms:.5f} ms (forward and backward {o_fb_ms:.5f}, "
+        f"forward {o_f_ms:.5f}), the fused block's forward and backward {fb_ms:.5f} ms, bound {bound[0]:.6f} ms "
+        f"({bound[1]}) ({smi})")
+    return {"ms": k_ms, "plain_ms": p_ms, "per_op_ms": o_fb_ms - o_f_ms, "fused_fwd_bwd_ms": fb_ms,
+            "per_op_fwd_bwd_ms": o_fb_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def mdblock_backward_entry(name, source, times):
+    """The `kernels` entry of a backward form from its batch-1 times
+    (`time_mdblock_backward`) at full IAN's three shapes: one stroke's
+    gradient runs each once, so the entry is their sum; no single library
+    call computes the block's gradient (the per-op one is a composition)."""
+    from npe_tpu_torch.ops.kernels import mdblock as mk
+
+    per_shape = [dict(t, shape=shape) for (shape, batch), t in times.items() if batch == 1]
+    return {"name": name, "source": source, "replaces": mk.REPLACES_BWD,
+            **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms", "per_op_ms")},
+            "bound_by": max(per_shape, key=lambda e: e["bound_ms"])["bound_by"], "per_shape": per_shape}
+
+
+def slope_flips(x, taps1, taps2, affines, scales, y, h1):
+    """Where the slopes the backward kernels read from their own y and h1
+    part from the plain forward's (an a1 or a2 that the two round to opposite
+    sides of zero): (flipped a1, flipped a2, the (N, C, H, W) mask of every
+    element within the flipped a1s' reach: dx at a pixel depends on a1 within
+    one MDCL's radius R of it, through MDCL1^T, over every channel). A
+    flipped a2 changes g_r = s2 lrelu'(a2) g by 0.8 s2 g at its element;
+    under the cotangent of sum(y^2), g = 2 y, and y is within the forward's
+    error of zero there, so it changes dx by as little and is left in."""
+    from npe_tpu_torch.ops.kernels import mdblock as mk
+
+    y_plain, h1_plain = mk.mdblock_forward_parts(x, taps1, taps2, affines, scales)
+    f1, f2 = (h1 > 0) != (h1_plain > 0), (y > 0) != (y_plain > 0)
+    r = max(mk.dilations(scales))
+    near = F.max_pool2d(f1.any(1, keepdim=True).float(), 2 * r + 1, 1, r) > 0
+    return int(f1.sum()), int(f2.sum()), near.expand_as(x)
+
+
+def check_mdblock_backward(label, x, taps1, taps2, affines, scales):
+    """x's gradient of sum(out^2) through mdblock_fused, the backward kernels
+    (`launches_bwd` / `launches_bwd_bf16` count one), held to
+    `mdblock_backward_reference` on the same cotangent and the kernels' own y
+    and h1 (kept by the forward) on every element: float32 within
+    MDBLOCK_BWD_TOL of the largest value, bf16 within BF16_POINTS + 1 steps
+    (the same rounding points, sums in another order); and to the plain
+    version's VJP on every element outside the reach of a slope of a1 that
+    parts from the plain forward's (`slope_flips`, each kind at most
+    MDBLOCK_FLIP_SHARE of the map or MDBLOCK_FLIPS_ANYWAY) by the rules the
+    VJP was held to when it was the backward: float32 at RTOL and ATOL of
+    the largest value, bf16 within BF16_POINTS + 1 steps (the VJP's three
+    rounding points, each MDCL^T's sum and dx, and one for a gradient; the
+    kernels feed the float32 g_r and g_m1 to wgmma as bf16 pairs, which add
+    none). Returns the largest difference from the reference."""
+    from npe_tpu_torch.ops.kernels import mdblock as mk
+
+    bf16 = x.dtype == torch.bfloat16
+    attr = "launches_bwd_bf16" if bf16 else "launches_bwd"
+    xg = x.clone().requires_grad_(True)
+    out = mk.mdblock_fused(xg, taps1, taps2, affines, scales)
+    kept = out.grad_fn.saved_tensors
+    assert len(kept) == 6, f"{label}: the forward kept {len(kept)} tensors, not x, the taps, the affines, h1, y"
+    h1, y = (kept[4].permute(0, 3, 1, 2) if bf16 else kept[4]), kept[5]
+    before = getattr(mk.mdblock_fused, attr)
+    (got,) = torch.autograd.grad((out.float() ** 2).sum(), xg)
+    torch.cuda.synchronize()
+    assert getattr(mk.mdblock_fused, attr) == before + 1, f"{label}: the backward kernels did not launch once"
+    g = (2 * out.detach().float()).to(x.dtype)  # the cotangent autograd gave the backward
+    ref = mk.mdblock_backward_reference(g, x, y, h1, taps1, taps2, affines, scales)
+    xp = x.clone().requires_grad_(True)
+    (vjp,) = torch.autograd.grad((mk.mdblock_taps_reference(xp, taps1, taps2, affines, scales).float() ** 2).sum(),
+                                 xp)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype and bool(torch.isfinite(got).all()), label
+    e = float((got.double() - ref.double()).abs().max())
+    if bf16:
+        within_steps(f"[kernel] {label} x's gradient vs mdblock_backward_reference", got, ref, BF16_POINTS + 1)
+    else:
+        tol = MDBLOCK_BWD_TOL * float(ref.abs().max())
+        log(f"[kernel] {label} x's gradient vs mdblock_backward_reference: max abs err {e:.3e} (tol {tol:.3e}, "
+            f"{MDBLOCK_BWD_TOL} of the largest)")
+        assert e <= tol, f"{label}: x's gradient disagrees with mdblock_backward_reference: {e}"
+    flips1, flips2, near = slope_flips(x, taps1, taps2, affines, scales, y, h1)
+    assert max(flips1, flips2) <= max(MDBLOCK_FLIPS_ANYWAY, MDBLOCK_FLIP_SHARE * x.numel()), (
+        f"{label}: slopes part at {flips1}, {flips2}")
+    far = ~near
+    what = (f"x's gradient vs the plain VJP outside the reach of the slopes of a1 that part from the plain "
+            f"forward's ({flips1}; {int(near.sum())} of {x.numel()} elements within reach; {flips2} of a2, under "
+            f"this cotangent at y within the forward's error of zero, left in)")
+    if bf16:
+        within_steps(f"[kernel] {label} {what}", got[far], vjp[far], BF16_POINTS + 1)
+    else:
+        g_far, v_far = got[far].cpu().numpy(), vjp[far].cpu().numpy()
+        np.testing.assert_allclose(g_far, v_far, rtol=RTOL, atol=ATOL * float(vjp.abs().max()),
+                                   err_msg=f"{label} x's gradient vs the plain VJP")
+        log(f"[kernel] {label} {what}: max abs diff {max_err(g_far, v_far):.3e} within rtol {RTOL}, atol {ATOL} "
+            f"of the largest")
+    return e
 
 
 def within_steps(label, got, want, points=BF16_POINTS):
@@ -608,7 +781,7 @@ def api_captures(ian):
     return {name: sorted(v) for name, v in out.items()}
 
 
-def drive_api(label, config, variables, counters, expect, seed, dtype=None, **forms):
+def drive_api(label, config, variables, counters, expect, seed, dtype=None, per_gradient=None, **forms):
     """api.IAN on the card, captured (its path) and eager (`eager=True`), on
     the same weights and inputs under deterministic algorithms: the captured
     script twice, its first run making the six programs (an eager call and
@@ -616,7 +789,8 @@ def drive_api(label, config, variables, counters, expect, seed, dtype=None, **fo
     replays, under the profiler, the counts
     set to 0 just before and read just after, held to the device kernels it
     recorded and to `expect` ({kernel: launches a decode}; API_DECODES
-    decodes a script); every output of both runs equal to the eager twin's
+    decodes a script) and `per_gradient` ({kernel: launches a gradient
+    call}; API_GRADIENTS a script); every output of both runs equal to the eager twin's
     bit for bit; each of the six signatures captured once, the eager twin's
     never. Returns the replayed script's launches."""
     from npe_tpu_torch.api import IAN
@@ -638,7 +812,8 @@ def drive_api(label, config, variables, counters, expect, seed, dtype=None, **fo
             assert np.array_equal(g, w), f"{label} api, {run}: {what}, captured vs eager, differs by {max_err(g, w)}"
     check_witnessed(f"{label} api, replayed", launches, seen)
     for name, n in launches.items():
-        assert n == API_DECODES * expect.get(name, 0), f"{label} api: {name} launched {n} times"
+        want = API_DECODES * expect.get(name, 0) + API_GRADIENTS * (per_gradient or {}).get(name, 0)
+        assert n == want, f"{label} api: {name} launched {n} times, not {want}"
     assert all(np.abs(g).max() > 0 for g in first[4:]), f"{label} api: a gradient is zero"
     caps = api_captures(cap)
     assert caps == {"encode": [1, 1], "sample": [1, 1], "imgrad": [1], "imgrad_rgb": [1]}, caps
@@ -2487,8 +2662,9 @@ def main():
     log(f"[phase] 3 starts at {time.perf_counter() - started:.1f} s")
     # 3. Kernel checks: each kernel vs its plain version on the card
     dev = torch.device("cuda")
-    worst = {name: 0.0 for name in ("edit_tail", "rgb_beta_tail", "rgb_beta_head", "mdblock", "staging",
-                                    "rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")}
+    worst = {name: 0.0 for name in ("edit_tail", "rgb_beta_tail", "rgb_beta_head", "mdblock", "mdblock_bwd",
+                                    "staging", "rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16",
+                                    "mdblock_bwd_bf16")}
     for batch in (1, 8):
         for sigma in (0.7, 1.5, 3.0):  # radius 3, 6 and 12: the last wider than a band at batch 1 and 8
             for mask_kind in (None, "zeros", "random", "ones"):
@@ -2503,11 +2679,13 @@ def main():
                     f"max abs err {e:.3e} (tol {KERNEL_TOL})")
                 assert e <= KERNEL_TOL, f"edit_tail disagrees with its plain version: {e}"
 
-    def check_kernel(name, case, kernel, plain, args, tol, grad_atol_of_largest=False):
+    def check_kernel(name, case, kernel, plain, args, tol, grad_atol_of_largest=False, grad_of=None):
         """Forward, and the gradient of sum(out^2) through the wrapper's
         autograd.Function, against the plain version's on the same inputs.
         `grad_atol_of_largest`: ATOL times each gradient's largest value, for
-        gradients that are sums over every pixel and reach several hundred."""
+        gradients that are sums over every pixel and reach several hundred.
+        `grad_of`: the indices of the inputs whose gradients are asked for
+        (default all)."""
         got = kernel(*args)
         torch.cuda.synchronize()
         want = plain(*args)
@@ -2515,9 +2693,11 @@ def main():
         worst[name] = max(worst[name], e)
         log(f"[kernel] {name} {case}: max abs err {e:.3e} (tol {tol}), output std {float(want.std()):.3f}")
         assert got.shape == want.shape and e <= tol, f"{name} disagrees with its plain version: {e}"
-        leaves = [a.clone().requires_grad_(True) for a in args]
-        got_g = torch.autograd.grad((kernel(*leaves) ** 2).sum(), leaves)
-        want_g = torch.autograd.grad((plain(*leaves) ** 2).sum(), leaves)
+        wrt = range(len(args)) if grad_of is None else grad_of
+        inputs = [a.clone().requires_grad_(i in wrt) for i, a in enumerate(args)]
+        leaves = [inputs[i] for i in wrt]
+        got_g = torch.autograd.grad((kernel(*inputs) ** 2).sum(), leaves)
+        want_g = torch.autograd.grad((plain(*inputs) ** 2).sum(), leaves)
         torch.cuda.synchronize()
         for g, w in zip(got_g, want_g):
             atol = ATOL * max(1.0, float(w.abs().max())) if grad_atol_of_largest else ATOL
@@ -2543,27 +2723,33 @@ def main():
             f"trunk std {float(want.std()):.3f}")
         assert e <= HEAD_TOL, f"rgb_beta_head's trunk disagrees with its plain version: {e}"
         check_kernel("rgb_beta_head", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb), HEAD_TOL)
+    # the MDBLOCK: forward, and the taps' and affines' gradients (the plain
+    # VJP); x's gradient through the backward kernels (check_mdblock_backward)
     for _, channels, size, scales in MDBLOCK_SHAPES:
         for batch in (1, 8):
-            check_kernel("mdblock", f"{size}x{size}x{channels} scales {list(scales)} batch {batch}",
-                         lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
+            case = f"{size}x{size}x{channels} scales {list(scales)} batch {batch}"
+            args = mdblock_inputs(batch, channels, size, scales, 40 + batch, dev)
+            check_kernel("mdblock", case, lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
                          lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
-                         mdblock_inputs(batch, channels, size, scales, 40 + batch, dev), MDBLOCK_TOL,
-                         grad_atol_of_largest=True)
+                         args, MDBLOCK_TOL, grad_atol_of_largest=True, grad_of=(1, 2, 3))
+            worst["mdblock_bwd"] = max(worst["mdblock_bwd"], check_mdblock_backward(f"mdblock_bwd {case}", *args,
+                                                                                      scales))
 
     log(f"[phase] 3b starts at {time.perf_counter() - started:.1f} s")
     # 3b. The bf16 forms of the three dtype-generic kernels, each against its
     # bf16 plain version on the same bf16 inputs, compared in bf16
-    def check_bf16_kernel(name, case, kernel, plain, args, grad=False):
+    def check_bf16_kernel(name, case, kernel, plain, args, grad=False, skip_grad=()):
         """Forward and (`grad`) the gradient of sum(out^2) to each bf16 input
-        through the wrapper's autograd.Function (the plain version's VJP, in
-        bf16), each within BF16_POINTS steps of the plain version's."""
+        but those of `skip_grad` through the wrapper's autograd.Function (the
+        plain version's VJP, in bf16), each within BF16_POINTS steps of the
+        plain version's."""
         got = kernel(*args)
         torch.cuda.synchronize()
         worst[name] = max(worst[name], within_steps(f"[kernel] {name} {case}", got, plain(*args)))
         if grad:
-            leaves = [a.clone().requires_grad_(True) for a in args]
-            wrt = [a for a in leaves if a.dtype == torch.bfloat16]
+            leaves = [a.clone().requires_grad_(a.dtype == torch.bfloat16 and i not in skip_grad)
+                      for i, a in enumerate(args)]
+            wrt = [a for a in leaves if a.requires_grad]
             got_g = torch.autograd.grad((kernel(*leaves).float() ** 2).sum(), wrt)
             want_g = torch.autograd.grad((plain(*leaves).float() ** 2).sum(), wrt)
             torch.cuda.synchronize()
@@ -2592,8 +2778,9 @@ def main():
     # the bf16 MDBLOCK (its own kernel, mdblock_bf16.cu): full IAN's shapes at
     # batch 1, 8 and 128 (one patch a block and slices; two patches a block),
     # an odd batch, a channel count that is not a multiple of its 64-channel
-    # chunk, and a 4x16 map (no 8x8 patches: rows mode); the gradient to each
-    # bf16 input (the plain version's VJP) where the batch is small
+    # chunk, and a 4x16 map (no 8x8 patches: rows mode); x's gradient through
+    # the backward kernels in every case, the taps' (the plain version's VJP)
+    # where the batch is small
     bf16_cases = [(channels, (size, size), scales, batch) for _, channels, size, scales in MDBLOCK_SHAPES
                   for batch in (1, 8, 128)]
     bf16_cases += [(512, (8, 8), (0, 2), 3), (48, (8, 8), (0, 2), 2), (32, (4, 16), (0, 2), 2)]
@@ -2601,10 +2788,13 @@ def main():
         x, t1, t2, aff = mdblock_inputs(batch, channels, int((h * w) ** 0.5), scales, 80 + batch, dev)
         x = x.reshape(batch, channels, h, w)
         plan = mk.bf16_plan(batch, channels, h, w, scales, torch.cuda.get_device_properties(dev).multi_processor_count)
-        check_bf16_kernel("mdblock_bf16", f"{h}x{w}x{channels} scales {list(scales)} batch {batch} ({plan})",
-                          lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
+        case = f"{h}x{w}x{channels} scales {list(scales)} batch {batch} ({plan})"
+        args = (*bf16((x, t1, t2)), aff)
+        check_bf16_kernel("mdblock_bf16", case, lambda *a: mk.mdblock_fused(*a, scales),  # noqa: B023
                           lambda *a: mk.mdblock_taps_reference(*a, scales),  # noqa: B023
-                          (*bf16((x, t1, t2)), aff), grad=batch < 8)
+                          args, grad=batch < 8, skip_grad=(0,))
+        worst["mdblock_bwd_bf16"] = max(worst["mdblock_bwd_bf16"],
+                                        check_mdblock_backward(f"mdblock_bwd_bf16 {case}", *args, scales))
 
     staging_cache = check_staging(staging, dev, worst)
 
@@ -2620,7 +2810,9 @@ def main():
                        "staging": (staging.stage_chunk, "launches"),
                        "rgb_beta_tail_bf16": (rt.rgb_beta_tail, "launches_bf16"),
                        "rgb_beta_head_bf16": (rh.rgb_beta_head, "launches_bf16"),
-                       "mdblock_bf16": (mk.mdblock_fused, "launches_bf16")})
+                       "mdblock_bf16": (mk.mdblock_fused, "launches_bf16"),
+                       "mdblock_bwd": (mk.mdblock_fused, "launches_bwd"),
+                       "mdblock_bwd_bf16": (mk.mdblock_fused, "launches_bwd_bf16")})
 
     def sessions_of(config, module):
         """A card and a CPU session of `config` from the same seeded
@@ -2645,8 +2837,8 @@ def main():
         the profiler, counts read and held against the device kernels it
         recorded; then the same script on the CPU and the comparison; then one
         capture a program, and none more for a fork. `expect` maps each kernel
-        to 'steps' (paint and composite steps), 'decodes', '3 x decodes' or
-        0."""
+        to 'steps' (paint and composite steps), 'decodes', '3 x decodes',
+        '3 x gradients' (a gradient a paint stroke and a scroll) or 0."""
         counters.zero()
         t0 = time.perf_counter()
         (steps, decodes, card_painted), seen = profiled(lambda: run_session_script(card, image, z_grid, **script))
@@ -2654,8 +2846,10 @@ def main():
         log(f"[main] {label} card script under the profiler: {time.perf_counter() - t0:.3f} s; paint and composite "
             f"steps {steps}, decodes {decodes}; launches {launches}")
         check_witnessed(label, launches, seen)
+        gradients = steps - 1 + int(script.get("tail", True))  # the strokes, and the scroll
         for name, what in expect.items():
-            want = {"steps": steps, "decodes": decodes, "3 x decodes": 3 * decodes, 0: 0}[what]
+            want = {"steps": steps, "decodes": decodes, "3 x decodes": 3 * decodes, "3 x gradients": 3 * gradients,
+                    0: 0}[what]
             assert launches[name] == want, f"{label}: {name} launched {launches[name]} times, not {want}"
             assert what == 0 or launches[name] > 0
         assert not any(n for name, n in launches.items() if name.endswith("_bf16")), launches
@@ -2704,10 +2898,11 @@ def main():
                                 for s in (card_ian, cpu_ian))
     ian_launches = drive("IAN fused MDBLOCKs", fused_ian, fused_cpu_ian,
                          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
-                          "mdblock": "3 x decodes"})
+                          "mdblock": "3 x decodes", "mdblock_bwd": "3 x gradients"})
     main_launches["mdblock"] = ian_launches["mdblock"]
+    main_launches["mdblock_bwd"] = ian_launches["mdblock_bwd"]
     drive("IAN per-op MDBLOCKs", card_ian, cpu_ian,
-          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0},
+          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0, "mdblock_bwd": 0},
           n_strokes=4, tail=False)
 
     # captured against the runner's bodies called eagerly, every model and form
@@ -2739,7 +2934,9 @@ def main():
                  ("IAN fused MDBLOCKs", "IAN", card_ian.variables, {"mdblock_mode": "fused"},
                   {"mdblock": 3, "rgb_beta_tail": 1}))
     for i, (label, config, variables, forms, expect) in enumerate(api_forms):
-        launches = drive_api(label, config, variables, counters, expect, 40 + i, **forms)
+        per_gradient = {"mdblock_bwd": 3} if "mdblock" in expect else {}  # three MDBLOCK backwards a gradient
+        launches = drive_api(label, config, variables, counters, expect, 40 + i, per_gradient=per_gradient,
+                             **forms)
         api_launches = {name: n + launches[name] for name, n in api_launches.items()}
     check_trap(root)
 
@@ -2771,18 +2968,19 @@ def main():
                   ("IANv1 fused head", "IANv1", {"head_mode": "fused"}, {"rgb_beta_head_bf16": "decodes"},
                    {"n_strokes": 4, "tail": False}),
                   ("IAN fused MDBLOCKs", "IAN", {"mdblock_mode": "fused"},
-                   {"rgb_beta_tail_bf16": "decodes", "mdblock_bf16": "3 x decodes"}, {}),
+                   {"rgb_beta_tail_bf16": "decodes", "mdblock_bf16": "3 x decodes",
+                    "mdblock_bwd_bf16": "3 x gradients"}, {}),
                   ("IAN per-op MDBLOCKs", "IAN", {"mdblock_mode": "plain"}, {"rgb_beta_tail_bf16": "decodes"},
                    {"n_strokes": 4, "tail": False}))
     variables_of = {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}
     x64 = rng.uniform(-1, 1, (64, 3, 64, 64)).astype(np.float32)
     rgb = np.broadcast_to(np.float32([0.5, -0.5, 0.2])[None, :, None, None], (1, 3, 64, 64))
 
-    def expect_launches(label, launches, expect, decodes, steps):
+    def expect_launches(label, launches, expect, decodes, steps, gradients):
         """`expect`'s kernels launched once a decode (three times for the
-        MDBLOCK), edit_tail once a paint or composite step in float32, nothing
-        else."""
-        wants = {"decodes": decodes, "3 x decodes": 3 * decodes}
+        MDBLOCK, and its backward three times a gradient), edit_tail once a
+        paint or composite step in float32, nothing else."""
+        wants = {"decodes": decodes, "3 x decodes": 3 * decodes, "3 x gradients": 3 * gradients}
         for name, n in launches.items():
             want = wants[expect[name]] if name in expect else steps if name == "edit_tail" else 0
             assert n == want, f"{label}: {name} launched {n} times, not {want}"
@@ -2802,7 +3000,7 @@ def main():
         launches = counters.read()
         log(f"[bf16] {label} api.IAN(dtype=bf16), encode_images and sample_at at batch 64, imgradRGB: "
             f"launches {launches}")
-        expect_launches(f"{label} api", launches, expect, 2, 0)
+        expect_launches(f"{label} api", launches, expect, 2, 0, 1)
         assert z16.dtype == y16.dtype == g16.dtype == np.float32
         mean_close(f"[bf16] {label} encode_images, bf16 vs float32", z16, z32, Z_BOUND)
         mean_close(f"[bf16] {label} sample_at, bf16 vs float32", y16, y32, IMAGE_BOUND)
@@ -2818,7 +3016,8 @@ def main():
         log(f"[bf16] {label} EditSession(dtype=bf16) script: paint and composite steps {steps}, decodes {decodes}; "
             f"launches {launches}; captures {captures_of(session)}")
         check_witnessed(f"{label} bf16 session", launches, seen)
-        expect_launches(f"{label} session", launches, expect, decodes, steps)
+        expect_launches(f"{label} session", launches, expect, decodes, steps,
+                        steps - 1 + int(script.get("tail", True)))
         assert captures_of(session) == {"paint": 1, "scroll": int(script.get("tail", True)), "composite": 1,
                                         "encode": 1, "decode": 1}
         z32_painted, im32_painted, _ = painted[label]
@@ -2826,9 +3025,11 @@ def main():
         mean_close(f"[bf16] {label} Z after the strokes, bf16 vs float32", got[0], z32_painted, Z_BOUND)
         mean_close(f"[bf16] {label} IM after the strokes, bf16 vs float32", got[1], im32_painted, IMAGE_BOUND)
         bf16_sessions[label] = session
-        per_decode = {name: 3 if what == "3 x decodes" else 1 for name, what in expect.items()}
+        per_decode = {name: 3 if what == "3 x decodes" else 1 for name, what in expect.items()
+                      if what != "3 x gradients"}
+        per_gradient = {name: 3 for name, what in expect.items() if what == "3 x gradients"}
         launches = drive_api(f"{label} bf16", config, variables_of[config], counters, per_decode, 60 + len(bf16_sessions),
-                             dtype=torch.bfloat16, **forms)
+                             dtype=torch.bfloat16, per_gradient=per_gradient, **forms)
         api_launches = {name: n + launches[name] for name, n in api_launches.items()}
         edit_captured_vs_eager(f"{label} bf16", config, variables_of[config], image, z_grid, dtype="bfloat16",
                                **forms)
@@ -2836,7 +3037,9 @@ def main():
     bf16_kernels = ("rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")
     assert all(bf16_launches[name] > 0 and bf16_serving[name] > 0 for name in bf16_kernels), (bf16_launches,
                                                                                                  bf16_serving)
-    main_launches.update({name: bf16_launches[name] for name in bf16_kernels})
+    main_launches.update({name: bf16_launches[name] for name in bf16_kernels + ("mdblock_bwd_bf16",)})
+    assert bf16_launches["mdblock_bwd_bf16"] > 0 and not bf16_serving["mdblock_bwd_bf16"], (bf16_launches,
+                                                                                          bf16_serving)
     serving_launches.update({name: bf16_serving[name] for name in bf16_kernels})
     serving_launches["staging"] += bf16_serving["staging"]  # the float32 kernel on the bf16 uint8 wires
     log(f"[bf16] launches on the bf16 API and session paths {bf16_launches}, on the bf16 serving paths "
@@ -3045,6 +3248,12 @@ def main():
             common._stacked_mdcl_taps(vi, f"{name}2", scales)
             torch.stack([a for i in range(3) for a in common._bn_affine(vi, f"{name}bnorm{i}")])
 
+    # the backward kernels (x's gradient) at the same shapes, batch 1 and 8
+    bwd_times = {(f"{size}x{size}x{channels}", batch): time_mdblock_backward(vi, name, channels, size, scales, batch,
+                                                                             110 + batch, smi)
+                 for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8)}
+    entries.append(mdblock_backward_entry("mdblock_bwd", mk.SOURCE, bwd_times))
+
     with torch.no_grad():
         log(f"[time] MDBLOCK tap stacking (six stacks, three affines), per decode: {cuda_ms(stack_taps, 100):.4f} ms "
             f"eager back to back, {graph_ms(stack_taps, iters=10):.4f} ms device time (CUDA graph)")
@@ -3126,6 +3335,12 @@ def main():
         entries.append({"name": "mdblock_bf16", "source": mk.BF16_SOURCE, "replaces": mk.REPLACES,
                         **{key: sum(e[key] for e in per_shape) for key in ("ms", "plain_ms", "bound_ms")},
                         "bound_by": max(per_shape, key=lambda e: e["bound_ms"])["bound_by"], "per_shape": per_shape})
+    # the bf16 backward kernels (x's gradient) at batch 1, 8 and 128
+    bwd_times = {(f"{size}x{size}x{channels}", batch): time_mdblock_backward(vi16, name, channels, size, scales, batch,
+                                                                             120 + batch, smi, torch.bfloat16)
+                 for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8, 128)}
+    bf16_times["mdblock_bwd_bf16_blocks"] = {f"{shape} batch {batch}": t for (shape, batch), t in bwd_times.items()}
+    entries.append(mdblock_backward_entry("mdblock_bwd_bf16", mk.BF16_SOURCE, bwd_times))
 
     log(f"[phase] 7b's kernels done at {time.perf_counter() - started:.1f} s")
     x256 = torch.from_numpy(rng.uniform(-1, 1, (256, 3, 64, 64)).astype(np.float32)).to(dev, torch.bfloat16)

@@ -15,12 +15,23 @@ _lock = threading.Lock()
 _tally = threading.local()
 
 
-def add_launches(fn, attr="launches", n=1):
+_THREADS = object()
+
+
+def current_tally():
+    """The calling thread's tally, or None where it keeps none."""
+    return getattr(_tally, "counts", None)
+
+
+def add_launches(fn, attr="launches", n=1, tally=_THREADS):
     """`n` more launches of `fn`'s kernel, counted in `fn.<attr>` and in the
-    calling thread's tally, if it keeps one."""
+    calling thread's tally, if it keeps one, or in `tally` where one is given
+    (None: none). A backward, which autograd may run on a thread of its own,
+    counts in the tally its forward's thread kept (`current_tally()` then)."""
     with _lock:
         setattr(fn, attr, getattr(fn, attr) + n)
-    tally = getattr(_tally, "counts", None)
+    if tally is _THREADS:
+        tally = current_tally()
     if tally is not None:
         tally[(fn, attr)] = tally.get((fn, attr), 0) + n
 

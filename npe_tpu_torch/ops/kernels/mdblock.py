@@ -36,6 +36,23 @@ shared memory by the tensor memory accelerator, the activations as one halo
 tile per 8x8 patch and 64-channel chunk shared by all taps, the taps as they
 lie. Its tiles and slices come from `bf16_plan`. `mdblock_fused.launches` counts the float32 form's
 calls, `mdblock_fused.launches_bf16` the bf16 form's.
+
+x's gradient (npe_tpu's `_fused_bwd`) is hand-written too, in both forms
+(`npe_mdblock_bwd` in mdblock.cu, `npe_mdblock_bwd_bf16` in
+mdblock_bf16.cu): from a cotangent g of y, and the h1 and y the forward
+keeps when autograd will need them,
+
+    g_r  = s2 * lrelu'(a2) * g                  (lrelu'(a2) from the sign of y)
+    g_m1 = s1 * lrelu'(a1) * MDCL2^T(g_r)       (lrelu'(a1) from the sign of h1)
+    dx   = g_r + s0 * lrelu'(a0) * MDCL1^T(g_m1)   (a0 = s0 * x + t0)
+
+with lrelu'(a) = 1 for a > 0, else 0.2, and MDCL^T the MDCL over the same
+offsets whose tap t is the mirrored tap's matrix transposed
+(`mdcl_transposed`). The same product kernels as the forward's run it, the
+taps read as they lie; in bf16, g_r and g_m1 go to the tensor cores as a
+pair of bf16 operands (`bf16_pair`), since the VJP keeps them float32.
+`mdblock_backward_reference` is its plain version.
+`mdblock_fused.launches_bwd` and `.launches_bwd_bf16` count its calls.
 """
 
 import ctypes
@@ -45,12 +62,13 @@ from collections import namedtuple
 import torch
 import torch.nn.functional as F
 
-from npe_tpu_torch.ops.kernels import build
+from npe_tpu_torch.ops.kernels import add_launches, build, current_tally
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, count_launch, sum_dtype, vjp_of_plain
 
 SOURCE = "npe_tpu_torch/csrc/mdblock.cu"
 BF16_SOURCE = "npe_tpu_torch/csrc/mdblock_bf16.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
+REPLACES_BWD = "npe_tpu/ops/pallas/mdcl_kernels.py:155"  # `_fused_bwd`, the custom VJP's backward
 TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 128 channels
 TILE_CHANNELS = 128
 CHANNEL_STEP = 16  # input channels of one step of its inner loop
@@ -100,6 +118,12 @@ def _lrelu(x):
     return F.leaky_relu(x, 0.2)
 
 
+def tap_mirror(n_taps):
+    """m(t) for each tap of `tap_offsets`: the tap of the opposite offset,
+    9 floor(t / 9) + 8 - t mod 9 (each branch's nine offsets are symmetric)."""
+    return [9 * (t // 9) + 8 - t % 9 for t in range(n_taps)]
+
+
 def _mdcl_taps(h, taps, offs):
     """sum_t shift_t(h) @ taps[t] with a zero border. h: (N, Cin, H, W);
     taps: (T, Cin, Cout). One product per tap."""
@@ -113,6 +137,27 @@ def _mdcl_taps(h, taps, offs):
     return out.reshape(n, taps.shape[2], hh, ww)
 
 
+def mdcl_transposed(g, taps, offs):
+    """MDCL^T(g)[ci, p] = sum_t sum_co g[co, p - offset_t] taps[t, ci, co],
+    g zero outside the image: the MDCL over the same offsets whose tap t is
+    taps[m(t)] transposed (`tap_mirror`). g: (N, Cout, H, W)."""
+    return _mdcl_taps(g, taps[tap_mirror(len(offs))].transpose(1, 2), offs)
+
+
+def mdblock_forward_parts(x, taps1, taps2, affines, scales):
+    """(y, h1) of the plain version: its output and the intermediate
+    h1 = lrelu(s1 * MDCL1(..) + t1) in x's dtype (NCHW), which the kernels
+    keep for the backward."""
+    mx, acc = x.dtype, sum_dtype(x.dtype)
+    offs = tap_offsets(scales)
+    s0, t0, s1, t1, s2, t2 = (a[None, :, None, None] for a in affines)
+    xf = x.to(acc)
+    h = _lrelu(xf * s0 + t0)
+    h1 = _lrelu(_mdcl_taps(h.to(mx).to(acc), taps1.to(acc), offs) * s1 + t1).to(mx)
+    h = _mdcl_taps(h1.to(acc), taps2.to(acc), offs)
+    return _lrelu((xf + h) * s2 + t2).to(mx), h1
+
+
 def mdblock_taps_reference(x, taps1, taps2, affines, scales):
     """Plain version of exactly what the kernel computes, and its backward.
     x: (N, C, H, W); taps1, taps2: (T, C, C); affines: (6, C). In bfloat16
@@ -121,14 +166,51 @@ def mdblock_taps_reference(x, taps1, taps2, affines, scales):
     bf16 just before its products (after BN0's and BN1's affine and lrelu),
     the sums, affines and the residual x + h are float32, and the output is
     rounded to bf16. In float32 every cast is the identity."""
+    return mdblock_forward_parts(x, taps1, taps2, affines, scales)[0]
+
+
+def _slope(a, v):
+    """lrelu'(a) * v as torch's VJP of leaky_relu forms it: v where a > 0,
+    else v * 0.2 (so 0.2 at a = 0)."""
+    return torch.where(a > 0, v, v * 0.2)
+
+
+def bf16_pair(v):
+    """hi + lo with hi = bf16(v) and lo = bf16(v - hi), in float32: the bf16
+    backward kernel's operands for the float32 g_r and g_m1, two products
+    each into the same float32 sums. hi + lo is exact in float32 and holds v
+    to about 16 bits; one bf16 alone would hold 8."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + (v - hi).to(torch.bfloat16).float()
+
+
+def mdblock_backward_reference(g, x, y, h1, taps1, taps2, affines, scales):
+    """Plain version of exactly what the backward kernels compute: x's
+    gradient for the cotangent g of y = mdblock(x), given the forward's y and
+    h1 (NCHW, x's dtype; `mdblock_forward_parts`):
+
+        g_r = s2 * lrelu'(a2) * g, g_m1 = s1 * lrelu'(a1) * MDCL2^T(g_r),
+        dx = g_r + s0 * lrelu'(a0) * MDCL1^T(g_m1)
+
+    with lrelu'(a2) and lrelu'(a1) read from the signs of y and h1, and
+    a0 = s0 * x + t0. In float32 it is the VJP of `mdblock_taps_reference`
+    up to the order of the sums. In bfloat16 it rounds where the bf16 VJP
+    rounds (each MDCL^T's sum, the cotangent of an MDCL's rounded input, to
+    bf16; dx once at the end) and also where the kernel does (g_r and g_m1
+    split into their `bf16_pair` as the products' operands); the rest is
+    float32, g_r in dx's sum included."""
     mx, acc = x.dtype, sum_dtype(x.dtype)
     offs = tap_offsets(scales)
-    s0, t0, s1, t1, s2, t2 = (a[None, :, None, None] for a in affines)
-    xf = x.to(acc)
-    h = _lrelu(xf * s0 + t0)
-    h = _lrelu(_mdcl_taps(h.to(mx).to(acc), taps1.to(acc), offs) * s1 + t1)
-    h = _mdcl_taps(h.to(mx).to(acc), taps2.to(acc), offs)
-    return _lrelu((xf + h) * s2 + t2).to(mx)
+    s0, t0, s1, _, s2, _ = (a[None, :, None, None] for a in affines)
+
+    def rnd(v):
+        return v.to(mx).to(acc)
+
+    pair = bf16_pair if mx == torch.bfloat16 else (lambda v: v)
+    gr = _slope(y.to(acc), g.to(acc)) * s2
+    gm1 = _slope(h1.to(acc), rnd(mdcl_transposed(pair(gr), taps2.to(acc), offs))) * s1
+    dx = gr + _slope(x.to(acc) * s0 + t0, rnd(mdcl_transposed(pair(gm1), taps1.to(acc), offs))) * s0
+    return dx.to(mx)
 
 
 def tf32_split(x):
@@ -196,76 +278,140 @@ def bf16_plan(batch, channels, height, width, scales, sm_count):
     return BF16Plan(halo, sub, tile_channels, splits)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 @functools.cache
-def _entry(bf16):
-    if bf16:
-        fn = build.load("mdblock_bf16").npe_mdblock_bf16
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-    else:
-        fn = build.load("mdblock").npe_mdblock
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+def _entry(bf16, backward=False):
+    """The C entry point of a form (`npe_mdblock[_bwd][_bf16]`)."""
+    lib = build.load("mdblock_bf16" if bf16 else "mdblock")
+    fn = getattr(lib, "npe_mdblock" + ("_bwd" if backward else "") + ("_bf16" if bf16 else ""))
+    plan = [_I] * 4 if bf16 else [_I]  # sub_tiles, halo, tile_channels, splits; or splits
+    if backward:  # g, x, y, h1, taps1, taps2, aff, gr, gm1, partial, dx
+        fn.argtypes = [_P] * 11 + [_I] * 5 + [_P] + plan + [_P]
+    else:  # x, taps1, taps2, aff, [act,] h1, partial, out
+        fn.argtypes = [_P] * (8 if bf16 else 7) + [_I] * 5 + [_P] + plan + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_float32(x, taps1, taps2, affines, scales):
-    """The float32 kernel's call: scratch for h1 and, when `inner_splits`
-    slices, float32 partial sums. Returns (the output, the C function's
-    return code)."""
+def _splits(x, scales):
+    """`inner_splits` for the float32 kernel at x's shape (both directions)."""
     n, c, h, w = x.shape
-    branches = dilations(scales)
     tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = inner_splits(n, tiles, 9 * len(branches) * c // CHANNEL_STEP, sms)
-    h1, out = torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=x.device) if splits > 1 else None
+    return inner_splits(n, tiles, 9 * len(dilations(scales)) * c // CHANNEL_STEP, sms)
+
+
+def _plan(x, scales):
+    """`bf16_plan` at x's shape (both directions)."""
+    n, c, h, w = x.shape
+    return bf16_plan(n, c, h, w, scales, torch.cuda.get_device_properties(x.device).multi_processor_count)
+
+
+def _partial(x, splits):
+    """Float32 partial sums of `splits` slices, or None for one."""
+    return torch.empty((x.shape[0], splits, *x.shape[1:]), dtype=torch.float32, device=x.device) if splits > 1 else None
+
+
+def _call(fn, x, *args):
+    """fn(*args, stream) on x's device, tensors as their addresses, a
+    tuple as a C int array."""
+    def arg(a):
+        if isinstance(a, torch.Tensor):
+            return a.data_ptr()
+        return (ctypes.c_int * len(a))(*a) if isinstance(a, tuple) else a
+
     with torch.cuda.device(x.device):
-        rc = _entry(False)(
-            x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(),
-            h1.data_ptr(), None if partial is None else partial.data_ptr(), out.data_ptr(),
-            n, c, h, w, len(branches), (ctypes.c_int * len(branches))(*branches), splits,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    return out, rc
+        return fn(*map(arg, args), torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _launch_float32(x, taps1, taps2, affines, scales):
+    """The float32 kernel's call: scratch for h1 and, when `inner_splits`
+    slices, float32 partial sums. Returns (the output, h1 as (N, C, H, W),
+    the C function's return code)."""
+    n, c, h, w = x.shape
+    branches, splits = dilations(scales), _splits(x, scales)
+    h1, out = torch.empty_like(x), torch.empty_like(x)
+    rc = _call(_entry(False), x, x, taps1, taps2, affines, h1, _partial(x, splits), out, n, c, h, w, len(branches),
+               branches, splits)
+    return out, h1, rc
 
 
 def _launch_bf16(x, taps1, taps2, affines, scales):
     """The bf16 kernel's call: scratch for MDCL1's input and h1 (bf16,
     pixel-major), float32 partial sums when `bf16_plan` slices; the taps as
-    they lie. Returns (the output, the C function's return code)."""
+    they lie. Returns (the output, h1 as (N, H, W, C), the C function's
+    return code)."""
     n, c, h, w = x.shape
-    branches = dilations(scales)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = bf16_plan(n, c, h, w, scales, sms)
-    act, h1, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    partial = torch.empty((n, plan.splits, c, h, w), dtype=torch.float32, device=x.device) if plan.splits > 1 else None
-    with torch.cuda.device(x.device):
-        rc = _entry(True)(
-            x.data_ptr(), taps1.data_ptr(), taps2.data_ptr(), affines.data_ptr(), act.data_ptr(), h1.data_ptr(),
-            None if partial is None else partial.data_ptr(), out.data_ptr(), n, c, h, w, len(branches),
-            (ctypes.c_int * len(branches))(*branches), plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    return out, rc
+    branches, plan = dilations(scales), _plan(x, scales)
+    act, out = torch.empty_like(x), torch.empty_like(x)
+    h1 = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
+    rc = _call(_entry(True), x, x, taps1, taps2, affines, act, h1, _partial(x, plan.splits), out, n, c, h, w,
+               len(branches), branches, plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits)
+    return out, h1, rc
+
+
+def _launch_bwd_float32(g, x, y, h1, taps1, taps2, affines, scales):
+    """The float32 backward's call (g_r, g_m1 and, as the forward, partial
+    sums for scratch). Returns (dx, the C function's return code)."""
+    n, c, h, w = x.shape
+    branches, splits = dilations(scales), _splits(x, scales)
+    gr, gm1, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    rc = _call(_entry(False, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1, _partial(x, splits), dx, n, c,
+               h, w, len(branches), branches, splits)
+    return dx, rc
+
+
+def _launch_bwd_bf16(g, x, y, h1, taps1, taps2, affines, scales):
+    """The bf16 backward's call on the forward's plan: scratch for the
+    (hi, lo) pairs of g_r and g_m1 (`bf16_pair`; pixel-major, the lo images
+    after the hi) and the partial sums; h1 the forward's (N, H, W, C).
+    Returns (dx, the C function's return code)."""
+    n, c, h, w = x.shape
+    branches, plan = dilations(scales), _plan(x, scales)
+    gr, gm1 = (torch.empty((2, n, h, w, c), dtype=x.dtype, device=x.device) for _ in range(2))
+    dx = torch.empty_like(x)
+    rc = _call(_entry(True, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1, _partial(x, plan.splits), dx,
+               n, c, h, w, len(branches), branches, plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits)
+    return dx, rc
 
 
 class _MDBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps1, taps2, affines, scales):
-        ctx.save_for_backward(x, taps1, taps2, affines)
-        ctx.scales = scales
-        launch = _launch_bf16 if x.dtype == torch.bfloat16 else _launch_float32
-        out, rc = launch(x, taps1, taps2, affines, scales)
+        bf16 = x.dtype == torch.bfloat16
+        out, h1, rc = (_launch_bf16 if bf16 else _launch_float32)(x, taps1, taps2, affines, scales)
         if rc != 0:
             raise RuntimeError(f"mdblock kernel launch failed with CUDA error {rc}")
         count_launch(mdblock_fused, x.dtype)
+        # h1 (in the form's layout) and y only where x requires a gradient;
+        # under no_grad or inference_mode autograd drops ctx, and all it saved,
+        # as this call returns
+        ctx.save_for_backward(x, taps1, taps2, affines, *((h1, out) if ctx.needs_input_grad[0] else ()))
+        ctx.scales = scales
+        # autograd may run the backward on a thread of its own: it counts where the forward did
+        ctx.tally = current_tally()
         return out
 
     @staticmethod
     def backward(ctx, g):
-        plain = functools.partial(mdblock_taps_reference, scales=ctx.scales)
-        return vjp_of_plain(plain, ctx.needs_input_grad[:4], ctx.saved_tensors, g) + (None,)
+        x, taps1, taps2, affines, *kept = ctx.saved_tensors
+        need_x, *need_rest = ctx.needs_input_grad[:4]
+        dx = None
+        if need_x:
+            bf16 = x.dtype == torch.bfloat16
+            h1, y = kept
+            dx, rc = (_launch_bwd_bf16 if bf16 else _launch_bwd_float32)(
+                g.to(x.dtype).contiguous(), x, y, h1, taps1, taps2, affines, ctx.scales)
+            if rc != 0:
+                raise RuntimeError(f"mdblock backward kernel launch failed with CUDA error {rc}")
+            add_launches(mdblock_fused, "launches_bwd_bf16" if bf16 else "launches_bwd", tally=ctx.tally)
+        rest = (None,) * 3
+        if any(need_rest):  # the taps' and affines' gradients: the plain version's VJP
+            plain = functools.partial(mdblock_taps_reference, scales=ctx.scales)
+            rest = vjp_of_plain(plain, (False, *need_rest), (x, taps1, taps2, affines), g)[1:]
+        return (dx, *rest, None)
 
 
 def mdblock_fused(x, taps1, taps2, affines, scales):
@@ -274,9 +420,12 @@ def mdblock_fused(x, taps1, taps2, affines, scales):
     x's dtype, float32 (the float32 form) or bfloat16 (the bf16 form:
     `mdblock_taps_reference` says where it rounds); affines: (6, C) float32,
     rows s0, t0, s1, t1, s2, t2; scales: the MDCLs' scale list, e.g. (0, 2,
-    3), not tensor data. Returns (N, C, H, W) in x's dtype. The gradient is
-    the plain version's, and only the inputs that need one get one: the edit
-    step asks for x's alone, so no tap gradient is built."""
+    3), not tensor data. Returns (N, C, H, W) in x's dtype. Only the inputs
+    that need a gradient get one. x's comes from the backward kernels
+    (`mdblock_backward_reference` is their plain version), for which the
+    forward keeps h1 and y when x requires a gradient; the taps'
+    and affines', which no inference path asks for (the edit step and
+    `imgrad` ask for x's alone), are the plain version's VJP."""
     scales = tuple(int(s) for s in scales)
     branches = dilations(scales)
     if x.ndim != 4 or x.shape[0] < 1 or x.shape[1] % CHANNEL_STEP or (x.shape[2] * x.shape[3]) % TILE_PIXELS:
@@ -301,3 +450,5 @@ def mdblock_fused(x, taps1, taps2, affines, scales):
 
 mdblock_fused.launches = 0
 mdblock_fused.launches_bf16 = 0
+mdblock_fused.launches_bwd = 0
+mdblock_fused.launches_bwd_bf16 = 0

@@ -48,7 +48,7 @@ from npe_tpu_torch.ops.kernels import add_launches, edit_tail, mdblock, rgb_beta
 # Every launch count of the kernel wrappers: (wrapper, attribute).
 COUNTERS = tuple((fn, attr) for fn in (edit_tail.edit_tail, mdblock.mdblock_fused, rgb_beta_head.rgb_beta_head,
                                        rgb_beta_tail.rgb_beta_tail, staging.stage_chunk)
-                 for attr in ("launches", "launches_bf16") if hasattr(fn, attr))
+                 for attr in ("launches", "launches_bf16", "launches_bwd", "launches_bwd_bf16") if hasattr(fn, attr))
 
 
 def read_counts():

@@ -247,10 +247,11 @@ def test_mdblock_kernel_matches_plain(cuda, batch, channels, size, scales):
     assert got.shape == x.shape and float(want.std()) > 0.5
     # float32 sums of up to 9216 products in another order, twice in a row
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    xg = x.clone().requires_grad_(True)
-    (got_g,) = torch.autograd.grad((mk.mdblock_fused(xg, t1, t2, aff, scales) ** 2).sum(), xg)
-    (want_g,) = torch.autograd.grad((mk.mdblock_taps_reference(xg, t1, t2, aff, scales) ** 2).sum(), xg)
-    torch.testing.assert_close(got_g, want_g, rtol=1e-3, atol=1e-4 * float(want_g.abs().max()))
+    # x's gradient, the backward kernels: against their plain version, and the
+    # plain VJP outside the reach of a slope that parts from the plain forward's
+    from chip_smoke import check_mdblock_backward
+
+    check_mdblock_backward(f"batch {batch} C {channels} {size}x{size}", x, t1, t2, aff, scales)
 
 
 @pytest.mark.cuda
@@ -608,7 +609,9 @@ def test_bf16_kernel_forms_match_their_bf16_plain_versions(cuda, kernel, batch):
 def test_bf16_mdblock_kernel_matches_plain(cuda, batch, channels, shape, scales):
     """The bf16 MDBLOCK kernel (csrc/mdblock_bf16.cu) against the bf16
     plain version on the same bf16 inputs, counted in `launches_bf16`, and
-    the gradient to x through the wrapper (the plain version's VJP)."""
+    x's gradient through the wrapper (the backward kernels, against their
+    plain version and the plain version's VJP: chip_smoke.py's
+    `check_mdblock_backward`)."""
     h, w = shape
     x, t1, t2, aff = _mdblock_inputs(batch, channels, int((h * w) ** 0.5), scales, cuda)
     x, t1, t2 = x.reshape(batch, channels, h, w).to(BF16), t1.to(BF16), t2.to(BF16)
@@ -617,10 +620,9 @@ def test_bf16_mdblock_kernel_matches_plain(cuda, batch, channels, shape, scales)
     torch.cuda.synchronize()
     assert (mk.mdblock_fused.launches, mk.mdblock_fused.launches_bf16) == (before[0], before[1] + 1)
     _within_bf16_steps(got, mk.mdblock_taps_reference(x, t1, t2, aff, scales))
-    xg = x.clone().requires_grad_(True)
-    (got_g,) = torch.autograd.grad((mk.mdblock_fused(xg, t1, t2, aff, scales).float() ** 2).sum(), xg)
-    (want_g,) = torch.autograd.grad((mk.mdblock_taps_reference(xg, t1, t2, aff, scales).float() ** 2).sum(), xg)
-    _within_bf16_steps(got_g, want_g, 4)
+    from chip_smoke import check_mdblock_backward
+
+    check_mdblock_backward(f"bf16 batch {batch} C {channels} {h}x{w}", x, t1, t2, aff, scales)
 
 
 @pytest.mark.cuda
