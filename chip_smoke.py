@@ -14,7 +14,9 @@ steps run eagerly on the card (bit for bit under deterministic algorithms,
 each program captured once while the brush moves), holds the kernels'
 launch counts of each edit script to the device kernels that torch.profiler
 records in the same run, and times the edit step captured and eager, the
-kernels and encode+decode. The editor's load, sample and decode run as two
+kernels (among them the RGB-Beta head's backward kernels, the tail's and
+x's gradient of the fused head, beside the plain VJP they replace) and
+encode+decode. The editor's load, sample and decode run as two
 more captured programs. `api.IAN`'s four methods run as one captured program
 per input shape (`utils/graphs.ProgramCache`): for every model, form and
 dtype the API script (the box moved and resized, the colour and latents
@@ -55,8 +57,9 @@ capture a signature, the replayed launches held to the profiler's kernels,
 and one checkpoint's evaluation timed captured and eager; and the training times, float32 and bf16
 in turns, eager and captured (with bench_torch_train.py's function), with
 the trainer's three data paths. Then bfloat16: the bf16 forms
-of `rgb_beta_tail`, `rgb_beta_head` and `mdblock_fused` held against their
-bf16 plain versions, `api.IAN`, `EditSession` and `InferenceServer` (both
+of `rgb_beta_tail`, `rgb_beta_head` and `mdblock_fused` and of their backward
+kernels held against their bf16 plain versions (and the backwards against the
+bf16 VJP), `api.IAN`, `EditSession` and `InferenceServer` (both
 wires) with `dtype=torch.bfloat16` on the same weights for every model and
 form, held against the card's float32 results within npe_tpu's bf16 bounds,
 their launch counts by form, and the bf16 times (kernels, encode+decode at
@@ -172,6 +175,10 @@ TRAIN_EXAMPLES = 2 * TRAIN_BATCHES_PER_CHUNK * TRAIN_BATCH + TRAIN_BATCH // 2  #
 # validation images of phase 6b's train(): npe_tpu's FID batch of 256, two batches of 128
 FID_EXAMPLES = 256
 HEAD_SCALES = [2, 3, 4]
+# the tail's backward calls a G + D pair of IANv1 and full IAN: the G step's
+# two decodes (the trunk's and the taps' gradients), the D step's
+# reconstruction (the latent gradient: the trunk's alone)
+TAIL_BWD_PER_PAIR = 3
 # serving: requests a phase case sends per op, the max_batch that a 20-image
 # request overflows, sequential requests a timed op, concurrent encodes of the
 # throughput leg, timed runs a case (their median is reported), and the
@@ -207,8 +214,8 @@ def log(*args):
 class Counts:
     """The kernels' launch counts by form: name -> (wrapper, attribute); a
     wrapper counts its float32 form's launches in `launches` and its bf16
-    form's in `launches_bf16` (the MDBLOCK's backward kernels in
-    `launches_bwd` and `launches_bwd_bf16`)."""
+    form's in `launches_bf16` (its backward kernels, the MDBLOCK's, the
+    tail's and the head's, in `launches_bwd` and `launches_bwd_bf16`)."""
 
     def __init__(self, forms):
         self.forms = forms
@@ -226,12 +233,17 @@ class Counts:
 # that name a wrapper launch runs). A wrapper launch runs its named kernel
 # once (the float32 MDBLOCK runs mdcl_kernel twice, once an MDCL; the MDBLOCK
 # backward's first launch forms g_r: bwd_prologue_kernel in float32,
-# bwd_prologue_bf16_kernel in bf16); the head's own tail
-# (rgb_beta_tail_kernel<..., true>), the slice sums and the backward's
-# mdcl_bwd_kernel are left out.
+# bwd_prologue_bf16_kernel in bf16; the tail's backward opens with
+# tail_bwd_green_kernel, the head's x-gradient ends with
+# head_trunk_bwd_kernel); the head's own tail (rgb_beta_tail_kernel<..., true>)
+# and its own tail backward (tail_bwd_*_kernel<..., true>), the slice sums, the
+# tail backward's other passes and the MDBLOCK backward's mdcl_bwd_kernel are
+# left out.
 DEVICE_KERNELS = {"edit_tail_kernel": ("edit_tail", None, 1),
                   "rgb_beta_tail_kernel": ("rgb_beta_tail", "rgb_beta_tail_bf16", 1),
                   "head_trunk_kernel": ("rgb_beta_head", "rgb_beta_head_bf16", 1),
+                  "tail_bwd_green_kernel": ("rgb_beta_tail_bwd", "rgb_beta_tail_bwd_bf16", 1),
+                  "head_trunk_bwd_kernel": ("rgb_beta_head_bwd", "rgb_beta_head_bwd_bf16", 1),
                   "mdcl_kernel": ("mdblock", None, 2), "prologue_kernel": (None, "mdblock_bf16", 1),
                   "bwd_prologue_kernel": ("mdblock_bwd", None, 1),
                   "bwd_prologue_bf16_kernel": (None, "mdblock_bwd_bf16", 1),
@@ -636,6 +648,190 @@ def rgb_beta_head_bound_ms(batch, channels, cells=256, rr=16, offsets=33, dtype=
     nbytes = elt * (px * channels + 36 * channels * 6 + 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr + px * 3)
     products = px * 2 * offsets * (channels * 6 + 2 * 2 + 4 * 2)
     return kernel_bound_ms(nbytes, products, batch * cells * 10 * 9 * rr, dtype)
+
+
+def rgb_beta_tail_bwd_bound_ms(batch, need_taps=True, dtype="float32", trunk_elt=None, cells=256, rr=16):
+    """Least time for the tail's backward: the cotangent, the trunk and the
+    taps read once, the trunk's gradient (and with `need_taps` the taps')
+    written once; the work, in multiply-adds a cell: the forward again (G_b
+    2rr -> 2rr, B_b 4rr -> 2rr over 9 taps), B^T and G^T (the same counts),
+    and with the taps their gradients (the same counts again), two
+    operations each, and about 30 operations for each element's sigmoid,
+    Beta-mean derivative and sigmoid derivative; `elt` bytes as
+    `rgb_beta_tail_bound_ms`."""
+    elt = 2 if dtype == "bfloat16" else 4
+    taps = 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr
+    nbytes = (batch * cells * (3 * rr * elt + 2 * 6 * rr * (trunk_elt or elt))
+              + elt * taps * (2 if need_taps else 1))
+    products = batch * cells * 2 * taps * (3 if need_taps else 2)
+    return kernel_bound_ms(nbytes, products, batch * cells * 30 * 6 * rr, dtype)
+
+
+def rgb_beta_head_bwd_bound_ms(batch, channels, cells=256, rr=16, offsets=33, dtype="float32"):
+    """Least time for x's gradient of the head: the image's cotangent, the
+    forward's float32 trunk, x's three tap tensors read once, dx written
+    once; the tail's backward for the trunk alone (`rgb_beta_tail_bwd_bound_ms`'s
+    work) and the trunk's transposed conv, 6 * C multiply-adds a pixel over
+    the 33 distinct offsets."""
+    px = batch * cells * rr
+    elt = 2 if dtype == "bfloat16" else 4
+    taps = 9 * 2 * rr * 2 * rr + 9 * 4 * rr * 2 * rr
+    nbytes = px * (3 * elt + 6 * 4 + channels * elt) + elt * (36 * channels * 6 + taps)
+    products = batch * cells * 2 * taps * 2 + px * 2 * offsets * channels * 6
+    return kernel_bound_ms(nbytes, products, batch * cells * 30 * 6 * rr, dtype)
+
+
+def tail_bwd_inputs(batch, seed, dev, dtype=torch.float32, trunk_dtype=None):
+    """head_inputs' trunk and tail taps in `dtype` (the trunk in
+    `trunk_dtype`, default `dtype`) and a seeded cotangent of the output."""
+    rng = np.random.RandomState(seed)
+    trunk = torch.from_numpy(rng.randn(batch, 96, 16, 16).astype(np.float32)).to(dev, trunk_dtype or dtype)
+    tg = torch.from_numpy((rng.randn(9, 32, 32) / np.sqrt(9 * 32 / 4)).astype(np.float32)).to(dev, dtype)
+    tb = torch.from_numpy((rng.randn(9, 64, 32) / np.sqrt(9 * 64 / 4)).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.randn(batch, 48, 16, 16).astype(np.float32)).to(dev, dtype)
+    return trunk, tg, tb, g
+
+
+def check_backward(label, got, want, vjp):
+    """A backward kernel's gradient against its plain version and the plain
+    forward's VJP: float32 within RTOL and ATOL of the largest value; bf16
+    within BF16_POINTS + 1 steps of each (a float32 result, the trunk's
+    gradient under the fused head, compared in bf16). Returns the largest
+    difference from the plain version."""
+    assert got.shape == want.shape and got.dtype == want.dtype and bool(torch.isfinite(got).all()), label
+    e = float((got.double() - want.double()).abs().max())
+    if want.dtype == torch.bfloat16 or "bf16" in label:
+        for what, ref in (("its plain version", want), ("the bf16 VJP", vjp)):
+            within_steps(f"[kernel] {label} vs {what}", got.to(torch.bfloat16), ref.to(torch.bfloat16),
+                         BF16_POINTS + 1)
+        return e
+    for what, ref in (("its plain version", want), ("the plain VJP", vjp)):
+        a, b = got.cpu().numpy(), ref.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL * float(np.abs(b).max()), err_msg=f"{label} vs {what}")
+        log(f"[kernel] {label} vs {what}: max abs diff {max_err(a, b):.3e} within rtol {RTOL}, atol {ATOL} of the "
+            f"largest ({float(np.abs(b).max()):.3e})")
+    return e
+
+
+def check_tail_backward(batch, seed, dev, dtype=torch.float32, trunk_dtype=None):
+    """The tail's backward kernels (`_launch_bwd`, not counted) for dtrunk,
+    dtg and dtb against `rgb_beta_tail_backward_reference` and the plain
+    forward's VJP on the same inputs (`check_backward`); the trunk's
+    gradient alone equal to the whole call's, and a second call bit-equal
+    (the taps' partial sums added in a fixed order). Returns the largest
+    difference from the plain version."""
+    from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
+
+    trunk, tg, tb, g = tail_bwd_inputs(batch, seed, dev, dtype, trunk_dtype)
+    got = rt._launch_bwd(g, trunk, tg, tb)
+    torch.cuda.synchronize()
+    want = rt.rgb_beta_tail_backward_reference(g, trunk, tg, tb)
+    leaves = [t.clone().requires_grad_(True) for t in (trunk, tg, tb)]
+    vjp = torch.autograd.grad(rt.rgb_beta_tail_reference(*leaves), leaves, g)
+    form = "rgb_beta_tail_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
+    trunk_note = f", {str(trunk.dtype).split('.')[1]} trunk" if dtype == torch.bfloat16 else ""
+    worst = max(check_backward(f"{form} batch {batch}{trunk_note} {name}", a, b, v)
+                for name, a, b, v in zip(("dtrunk", "dtg", "dtb"), got, want, vjp))
+    again = rt._launch_bwd(g, trunk, tg, tb)
+    alone = rt._launch_bwd(g, trunk, tg, tb, need_taps=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, got)), f"{form} batch {batch}: two calls differ"
+    assert alone[1:] == (None, None) and torch.equal(alone[0], got[0]), f"{form} batch {batch}: the trunk's alone"
+    log(f"[kernel] {form} batch {batch}{trunk_note}: two calls bit-equal; the trunk's gradient alone equal to the "
+        "whole call's")
+    return worst
+
+
+def check_head_backward(batch, channels, seed, dev, dtype=torch.float32):
+    """x's gradient through rgb_beta_head's backward kernels (one call
+    counted in `launches_bwd` / `launches_bwd_bf16`) against
+    `rgb_beta_head_backward_reference` on the forward's own float32 trunk and
+    against the plain forward's VJP (`check_backward`). Returns the largest
+    difference from the plain version."""
+    from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
+
+    x, tr, _, tg, tb = (t.to(dtype) for t in head_inputs(batch, channels, seed, dev))
+    g = torch.randn((batch, 3, 64, 64), generator=torch.Generator(device=dev).manual_seed(seed), device=dev).to(dtype)
+    xg = x.clone().requires_grad_(True)
+    out = rh.rgb_beta_head(xg, tr, tg, tb, HEAD_SCALES)
+    trunk = out.grad_fn.saved_tensors[4]
+    attr = "launches_bwd_bf16" if dtype == torch.bfloat16 else "launches_bwd"
+    before = getattr(rh.rgb_beta_head, attr)
+    (got,) = torch.autograd.grad(out, xg, g)
+    torch.cuda.synchronize()
+    assert getattr(rh.rgb_beta_head, attr) == before + 1 and trunk.dtype == torch.float32
+    want = rh.rgb_beta_head_backward_reference(g, trunk, tr, tg, tb, HEAD_SCALES)
+    xp = x.clone().requires_grad_(True)
+    (vjp,) = torch.autograd.grad(rh.rgb_beta_head_reference(xp, tr, tg, tb, HEAD_SCALES), xp, g)
+    form = "rgb_beta_head_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
+    return check_backward(f"{form} C {channels} batch {batch} x's gradient", got, want, vjp)
+
+
+def time_tail_backward(batch, dtype, need_taps, smi, trunk_dtype=None, seed=130):
+    """The tail's backward as device time (CUDA graph): the kernels
+    (`_launch_bwd`), the plain version's VJP as the backward ran before them
+    (the plain forward again, then its VJP) for the same gradients, and the
+    bound. No single library call computes it."""
+    from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt
+    from npe_tpu_torch.utils.timing import graph_ms
+
+    trunk, tg, tb, g = tail_bwd_inputs(batch, seed, torch.device("cuda"), dtype, trunk_dtype)
+    reps = dict(iters=10, reps=3) if batch == 128 else dict(iters=20)
+    k_ms = graph_ms(lambda: rt._launch_bwd(g, trunk, tg, tb, need_taps=need_taps), **reps)
+    p_ms = graph_ms(lambda: rt.vjp_of_plain(rt.rgb_beta_tail_reference, (True, need_taps, need_taps),
+                                            (trunk, tg, tb), g), **reps)
+    bf16 = dtype == torch.bfloat16
+    bound = rgb_beta_tail_bwd_bound_ms(batch, need_taps, "bfloat16" if bf16 else "float32",
+                                       trunk_elt=trunk.element_size())
+    what = ("the trunk's and the taps' gradients" if need_taps else "the trunk's gradient alone") + (
+        f", {str(trunk.dtype).split('.')[1]} trunk" if bf16 else "")
+    log(f"[time] rgb_beta_tail_bwd{'_bf16' if bf16 else ''} batch {batch}, {what}, device time (CUDA graph): kernels "
+        f"{k_ms:.5f} ms, plain VJP (the plain forward again, then its VJP) {p_ms:.5f} ms, bound {bound[0]:.6f} ms "
+        f"({bound[1]}) ({smi})")
+    return {"batch": batch, "taps": need_taps, "trunk": str(trunk.dtype).split(".")[1], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def time_head_backward(batch, channels, dtype, smi, seed=140):
+    """x's gradient of the head as device time (CUDA graph): the kernels
+    (`_launch_bwd` on a forward's trunk), the plain version's VJP as the
+    backward ran before them (the plain head again, then its VJP for x), and
+    the library yardstick, one cuDNN call of the trunk conv's x-gradient
+    (`torch.nn.grad.conv2d_input` of the unpacked trunk gradient with the
+    9x9 `trunk_kernel`, TF32 off; it leaves out the tail's backward), and the
+    bound."""
+    from npe_tpu_torch.ops.kernels import rgb_beta_head as rh
+    from npe_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda")
+    x, tr, _, tg, tb = (t.to(dtype) for t in head_inputs(batch, channels, seed, dev))
+    g = torch.randn((batch, 3, 64, 64), generator=torch.Generator(device=dev).manual_seed(seed), device=dev).to(dtype)
+    _, trunk = rh._launch(x, tr, tg, tb, HEAD_SCALES)
+    k = rh.trunk_kernel(tr, HEAD_SCALES)
+    d6 = F.pixel_shuffle(torch.randn_like(trunk), 4).to(dtype)
+    reps = dict(iters=20)
+    k_ms = graph_ms(lambda: rh._launch_bwd(g, x, trunk, tr, tg, tb, HEAD_SCALES), **reps)
+    plain = functools.partial(rh.rgb_beta_head_reference, scales=HEAD_SCALES)
+    p_ms = graph_ms(lambda: rh.vjp_of_plain(plain, (True, False, False, False), (x, tr, tg, tb), g), **reps)
+    lib_ms = graph_ms(lambda: torch.nn.grad.conv2d_input(x.shape, k, d6, padding=k.shape[-1] // 2), **reps)
+    bf16 = dtype == torch.bfloat16
+    bound = rgb_beta_head_bwd_bound_ms(batch, channels, dtype="bfloat16" if bf16 else "float32")
+    log(f"[time] rgb_beta_head_bwd{'_bf16' if bf16 else ''} C {channels} batch {batch}, x's gradient, device time "
+        f"(CUDA graph): kernels {k_ms:.5f} ms, plain VJP (the plain head again, then its VJP) {p_ms:.5f} ms, the "
+        f"library's trunk-conv x-gradient alone (conv2d_input) {lib_ms:.5f} ms, bound {bound[0]:.6f} ms ({bound[1]}) "
+        f"({smi})")
+    return {"batch": batch, "channels": channels, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def backward_entry(name, source, replaces, cases):
+    """The `kernels` entry of a backward form: its first case's numbers
+    (the edit path's call: batch 1, the trunk's or x's gradient alone), the
+    others under `per_case`."""
+    first = cases[0]
+    return {"name": name, "source": source, "replaces": replaces,
+            **{key: first[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": first.get("library_ms"), "per_case": cases}
 
 
 def rgb_beta_head_s2d_bound_ms(batch, channels, cells=256, rr=16):
@@ -1172,8 +1368,11 @@ def compare_steps(label, card, cpu, grad_tol):
 def kernel_steps(label, module, variables, counters, batch_size=16):
     """One G and one D step of an RGB-Beta-head model on the card, through
     `make_train_steps`: each step decodes twice (the reconstruction and the
-    sample), each decode launches rgb_beta_tail once, and the MDBLOCKs take
-    the per-op form under training. Frozen weights and masks stay bit-equal."""
+    sample), each decode launches rgb_beta_tail once, its backward runs three
+    times a pair (the G step's two decodes, the trunk's and the taps'
+    gradients; the D step's reconstruction, the trunk's alone), and the
+    MDBLOCKs take the per-op form under training. Frozen weights and masks
+    stay bit-equal."""
     from npe_tpu_torch.training import train_step as ts
 
     cfg = dict(module.cfg, batch_size=batch_size)
@@ -1187,7 +1386,8 @@ def kernel_steps(label, module, variables, counters, batch_size=16):
     launches = counters.read()
     log(f"[train] {label} batch {batch_size}, one G and one D step on the card: launches {launches}; "
         f"G pixel_loss {float(m_g['pixel_loss']):.4f}, D discrim_acc {float(m_d['discrim_acc']):.4f}")
-    assert launches["rgb_beta_tail"] == 4 and launches["mdblock"] == 0 and launches["rgb_beta_head"] == 0, launches
+    assert launches["rgb_beta_tail"] == 4 and launches["rgb_beta_tail_bwd"] == TAIL_BWD_PER_PAIR, launches
+    assert launches["mdblock"] == 0 and launches["rgb_beta_head"] == 0, launches
     assert all(np.isfinite(float(v)) for m in (m_g, m_d) for v in m.values())
     frozen = [k for k in state0["parts"]["frozen"]] + [k for k in state0["parts"]["state"] if k.endswith(".weights_mask")]
     assert len(frozen) > 6
@@ -1205,7 +1405,8 @@ def bf16_steps(label, module, variables, counters, batch_size, expect_tail):
     (cfg['compute_dtype']), on the same batch and noise: each run with the
     counts set to 0 just before it. Under bf16 each decode (two a step)
     launches the tail's bf16 form when the model has the RGB-Beta head
-    (`expect_tail`), and nothing else launches. Masters, moments and BN
+    (`expect_tail`), and its backward's bf16 form runs TAIL_BWD_PER_PAIR
+    times; nothing else launches. Masters, moments and BN
     statistics stay float32; frozen weights and masks bit-equal. Returns
     ({dtype: (G pixel_loss, G kl, D discrim_d_loss)}, the bf16 launches)."""
     from npe_tpu_torch.training import train_step as ts
@@ -1235,10 +1436,10 @@ def bf16_steps(label, module, variables, counters, batch_size, expect_tail):
                 assert torch.equal(t, state0["parts"]["state"][k]), k
         for k, t in state["parts"]["frozen"].items():
             assert torch.equal(t, state0["parts"]["frozen"][k]), k
-    tail = 4 if expect_tail else 0
+    tail, bwd = (4, TAIL_BWD_PER_PAIR) if expect_tail else (0, 0)
     want = {name: 0 for name in counters.forms}
-    assert launches["bfloat16"] == dict(want, rgb_beta_tail_bf16=tail), (label, launches)
-    assert launches["float32"] == dict(want, rgb_beta_tail=tail), (label, launches)
+    assert launches["bfloat16"] == dict(want, rgb_beta_tail_bf16=tail, rgb_beta_tail_bwd_bf16=bwd), (label, launches)
+    assert launches["float32"] == dict(want, rgb_beta_tail=tail, rgb_beta_tail_bwd=bwd), (label, launches)
     log(f"[train] {label} batch {batch_size}, one G and one D step in bf16 and in float32 on the same weights and "
         f"batch: (G pixel_loss, G kl, D discrim_d_loss) bf16 {np.round(rows['bfloat16'], 5).tolist()}, float32 "
         f"{np.round(rows['float32'], 5).tolist()}; bf16 launches {launches['bfloat16']}; masters, moments and BN "
@@ -1509,7 +1710,8 @@ def time_training(label, model, batch_size, batches_per_chunk, smi, counters, ex
     path's ms per G and per D step (`make_train_steps`); the captured
     chunk's kernel launches (counts set to 0 just before it: two of the
     tail a step where the model has the RGB-Beta head, in the form of the
-    compute dtype); last, alone on the card, bench_torch_train.py's rounds
+    compute dtype, and TAIL_BWD_PER_PAIR of its backward a G + D pair);
+    last, alone on the card, bench_torch_train.py's rounds
     of captured G + D pairs. `cfg_extra`: e.g. compute_dtype="bfloat16".
     Returns ({"eager": ..., "captured": ...}, the captured launches)."""
     import bench_torch_train
@@ -1565,10 +1767,11 @@ def time_training(label, model, batch_size, batches_per_chunk, smi, counters, ex
     launches = counters.read()
     finite = all(np.isfinite(v) for v in torch.stack([*gen_m.values(), *dis_m.values()]).tolist())
     captured_ms = start.elapsed_time(end)
-    tail = "rgb_beta_tail_bf16" if cfg_extra.get("compute_dtype") == "bfloat16" else "rgb_beta_tail"
+    bf16 = "_bf16" if cfg_extra.get("compute_dtype") == "bfloat16" else ""
     want = {name: 0 for name in counters.forms}
     if expect_tail:
-        want[tail] = 2 * batches_per_chunk
+        want["rgb_beta_tail" + bf16] = 2 * batches_per_chunk
+        want["rgb_beta_tail_bwd" + bf16] = TAIL_BWD_PER_PAIR * batches_per_chunk // 2
     assert launches == want, (label, launches)
     out["captured"] = {"chunk_ms": captured_ms, "imgs_per_s": n / captured_ms * 1e3,
                        "peak_mib": torch.cuda.max_memory_allocated() / 2**20, "launches": launches,
@@ -2664,7 +2867,8 @@ def main():
     dev = torch.device("cuda")
     worst = {name: 0.0 for name in ("edit_tail", "rgb_beta_tail", "rgb_beta_head", "mdblock", "mdblock_bwd",
                                     "staging", "rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16",
-                                    "mdblock_bwd_bf16")}
+                                    "mdblock_bwd_bf16", "rgb_beta_tail_bwd", "rgb_beta_tail_bwd_bf16",
+                                    "rgb_beta_head_bwd", "rgb_beta_head_bwd_bf16")}
     for batch in (1, 8):
         for sigma in (0.7, 1.5, 3.0):  # radius 3, 6 and 12: the last wider than a band at batch 1 and 8
             for mask_kind in (None, "zeros", "random", "ones"):
@@ -2723,6 +2927,14 @@ def main():
             f"trunk std {float(want.std()):.3f}")
         assert e <= HEAD_TOL, f"rgb_beta_head's trunk disagrees with its plain version: {e}"
         check_kernel("rgb_beta_head", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb), HEAD_TOL)
+    # the RGB-Beta head's backward kernels: the tail's (dtrunk, dtg, dtb) at
+    # the stroke's batch, the training step's and a large one; x's gradient
+    # of the whole head at IANv1's and full IAN's widths
+    for batch in (1, 16, 128):
+        worst["rgb_beta_tail_bwd"] = max(worst["rgb_beta_tail_bwd"], check_tail_backward(batch, 150 + batch, dev))
+    for batch, channels in ((1, 64), (8, 64), (1, 128)):
+        worst["rgb_beta_head_bwd"] = max(worst["rgb_beta_head_bwd"],
+                                         check_head_backward(batch, channels, 160 + batch + channels, dev))
     # the MDBLOCK: forward, and the taps' and affines' gradients (the plain
     # VJP); x's gradient through the backward kernels (check_mdblock_backward)
     for _, channels, size, scales in MDBLOCK_SHAPES:
@@ -2775,6 +2987,15 @@ def main():
         assert got.dtype == torch.float32 and e <= HEAD_TOL, f"the bf16 head's trunk disagrees: {e}"
         check_bf16_kernel("rgb_beta_head_bf16", f"C {channels} batch {batch}", head, head_plain, (x, tr, tg, tb),
                           grad=True)
+    # the bf16 backward kernels: the tail's over a bf16 trunk (the hybrid
+    # head's) and a float32 one (the fused head's), x's gradient of the head
+    for batch in (1, 16, 128):
+        for trunk_dtype in (torch.bfloat16, torch.float32):
+            worst["rgb_beta_tail_bwd_bf16"] = max(worst["rgb_beta_tail_bwd_bf16"], check_tail_backward(
+                batch, 170 + batch, dev, torch.bfloat16, trunk_dtype))
+    for batch, channels in ((1, 64), (8, 64), (1, 128)):
+        worst["rgb_beta_head_bwd_bf16"] = max(worst["rgb_beta_head_bwd_bf16"], check_head_backward(
+            batch, channels, 180 + batch + channels, dev, torch.bfloat16))
     # the bf16 MDBLOCK (its own kernel, mdblock_bf16.cu): full IAN's shapes at
     # batch 1, 8 and 128 (one patch a block and slices; two patches a block),
     # an odd batch, a channel count that is not a multiple of its 64-channel
@@ -2812,7 +3033,11 @@ def main():
                        "rgb_beta_head_bf16": (rh.rgb_beta_head, "launches_bf16"),
                        "mdblock_bf16": (mk.mdblock_fused, "launches_bf16"),
                        "mdblock_bwd": (mk.mdblock_fused, "launches_bwd"),
-                       "mdblock_bwd_bf16": (mk.mdblock_fused, "launches_bwd_bf16")})
+                       "mdblock_bwd_bf16": (mk.mdblock_fused, "launches_bwd_bf16"),
+                       "rgb_beta_tail_bwd": (rt.rgb_beta_tail, "launches_bwd"),
+                       "rgb_beta_tail_bwd_bf16": (rt.rgb_beta_tail, "launches_bwd_bf16"),
+                       "rgb_beta_head_bwd": (rh.rgb_beta_head, "launches_bwd"),
+                       "rgb_beta_head_bwd_bf16": (rh.rgb_beta_head, "launches_bwd_bf16")})
 
     def sessions_of(config, module):
         """A card and a CPU session of `config` from the same seeded
@@ -2838,7 +3063,8 @@ def main():
         recorded; then the same script on the CPU and the comparison; then one
         capture a program, and none more for a fork. `expect` maps each kernel
         to 'steps' (paint and composite steps), 'decodes', '3 x decodes',
-        '3 x gradients' (a gradient a paint stroke and a scroll) or 0."""
+        'gradients' (a gradient a paint stroke and a scroll), '3 x gradients'
+        or 0."""
         counters.zero()
         t0 = time.perf_counter()
         (steps, decodes, card_painted), seen = profiled(lambda: run_session_script(card, image, z_grid, **script))
@@ -2848,8 +3074,8 @@ def main():
         check_witnessed(label, launches, seen)
         gradients = steps - 1 + int(script.get("tail", True))  # the strokes, and the scroll
         for name, what in expect.items():
-            want = {"steps": steps, "decodes": decodes, "3 x decodes": 3 * decodes, "3 x gradients": 3 * gradients,
-                    0: 0}[what]
+            want = {"steps": steps, "decodes": decodes, "3 x decodes": 3 * decodes, "gradients": gradients,
+                    "3 x gradients": 3 * gradients, 0: 0}[what]
             assert launches[name] == want, f"{label}: {name} launched {launches[name]} times, not {want}"
             assert what == 0 or launches[name] > 0
         assert not any(n for name, n in launches.items() if name.endswith("_bf16")), launches
@@ -2873,7 +3099,7 @@ def main():
     card, cpu = sessions_of("IAN_simple", ian_simple)
     main_launches = drive("IAN_simple", card, cpu,
                           {"edit_tail": "steps", "rgb_beta_tail": 0, "rgb_beta_head": 0, "mdblock": 0,
-                           "staging": 0})
+                           "staging": 0, "rgb_beta_tail_bwd": 0, "rgb_beta_head_bwd": 0})
 
     assert common.HEAD_MODE == "hybrid"
     card_v1, cpu_v1 = sessions_of("IANv1", ian_v1)
@@ -2881,14 +3107,17 @@ def main():
     assert len(masks) == 6 and all(card_v1.variables[k].is_cuda for k in masks)
     hybrid_launches = drive("IANv1 hybrid head", card_v1, cpu_v1,
                             {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
-                             "mdblock": 0})
+                             "mdblock": 0, "rgb_beta_tail_bwd": "gradients", "rgb_beta_head_bwd": 0})
     main_launches["rgb_beta_tail"] = hybrid_launches["rgb_beta_tail"]
+    main_launches["rgb_beta_tail_bwd"] = hybrid_launches["rgb_beta_tail_bwd"]
     fused_v1, fused_cpu_v1 = (EditSession("IANv1", variables=s.variables, device=s.device, head_mode="fused")
                               for s in (card_v1, cpu_v1))
     fused_launches = drive("IANv1 fused head", fused_v1, fused_cpu_v1,
-                           {"edit_tail": "steps", "rgb_beta_tail": 0, "rgb_beta_head": "decodes"},
+                           {"edit_tail": "steps", "rgb_beta_tail": 0, "rgb_beta_head": "decodes",
+                            "rgb_beta_tail_bwd": 0, "rgb_beta_head_bwd": "gradients"},
                            n_strokes=4, tail=False)
     main_launches["rgb_beta_head"] = fused_launches["rgb_beta_head"]
+    main_launches["rgb_beta_head_bwd"] = fused_launches["rgb_beta_head_bwd"]
 
     # full IAN: the whole script with the three MDBLOCKs in the kernel's form,
     # a short one in the default per-op form, which must not reach the kernel
@@ -2898,11 +3127,12 @@ def main():
                                 for s in (card_ian, cpu_ian))
     ian_launches = drive("IAN fused MDBLOCKs", fused_ian, fused_cpu_ian,
                          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0,
-                          "mdblock": "3 x decodes", "mdblock_bwd": "3 x gradients"})
+                          "mdblock": "3 x decodes", "mdblock_bwd": "3 x gradients", "rgb_beta_tail_bwd": "gradients"})
     main_launches["mdblock"] = ian_launches["mdblock"]
     main_launches["mdblock_bwd"] = ian_launches["mdblock_bwd"]
     drive("IAN per-op MDBLOCKs", card_ian, cpu_ian,
-          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0, "mdblock_bwd": 0},
+          {"edit_tail": "steps", "rgb_beta_tail": "decodes", "rgb_beta_head": 0, "mdblock": 0, "mdblock_bwd": 0,
+           "rgb_beta_tail_bwd": "gradients"},
           n_strokes=4, tail=False)
 
     # captured against the runner's bodies called eagerly, every model and form
@@ -2927,14 +3157,17 @@ def main():
     # the API's programs captured against eager, every model and form, each
     # script's launches held to the device kernels the profiler recorded
     api_launches = {name: 0 for name in counters.forms}
-    api_forms = (("IAN_simple", "IAN_simple", card.variables, {}, {}),
-                 ("IANv1 hybrid head", "IANv1", card_v1.variables, {"head_mode": "hybrid"}, {"rgb_beta_tail": 1}),
-                 ("IANv1 fused head", "IANv1", card_v1.variables, {"head_mode": "fused"}, {"rgb_beta_head": 1}),
-                 ("IAN per-op MDBLOCKs", "IAN", card_ian.variables, {}, {"rgb_beta_tail": 1}),
+    # (label, config, weights, forms, {kernel: launches a decode}, {kernel: launches a gradient})
+    api_forms = (("IAN_simple", "IAN_simple", card.variables, {}, {}, {}),
+                 ("IANv1 hybrid head", "IANv1", card_v1.variables, {"head_mode": "hybrid"}, {"rgb_beta_tail": 1},
+                  {"rgb_beta_tail_bwd": 1}),
+                 ("IANv1 fused head", "IANv1", card_v1.variables, {"head_mode": "fused"}, {"rgb_beta_head": 1},
+                  {"rgb_beta_head_bwd": 1}),
+                 ("IAN per-op MDBLOCKs", "IAN", card_ian.variables, {}, {"rgb_beta_tail": 1},
+                  {"rgb_beta_tail_bwd": 1}),
                  ("IAN fused MDBLOCKs", "IAN", card_ian.variables, {"mdblock_mode": "fused"},
-                  {"mdblock": 3, "rgb_beta_tail": 1}))
-    for i, (label, config, variables, forms, expect) in enumerate(api_forms):
-        per_gradient = {"mdblock_bwd": 3} if "mdblock" in expect else {}  # three MDBLOCK backwards a gradient
+                  {"mdblock": 3, "rgb_beta_tail": 1}, {"mdblock_bwd": 3, "rgb_beta_tail_bwd": 1}))
+    for i, (label, config, variables, forms, expect, per_gradient) in enumerate(api_forms):
         launches = drive_api(label, config, variables, counters, expect, 40 + i, per_gradient=per_gradient,
                              **forms)
         api_launches = {name: n + launches[name] for name, n in api_launches.items()}
@@ -2964,13 +3197,16 @@ def main():
     bf16_sessions = {}
     # (label, config, forms, {kernel: what launches it}, script), the float32 scripts' labels
     bf16_paths = (("IAN_simple", "IAN_simple", {}, {}, {}),
-                  ("IANv1 hybrid head", "IANv1", {"head_mode": "hybrid"}, {"rgb_beta_tail_bf16": "decodes"}, {}),
-                  ("IANv1 fused head", "IANv1", {"head_mode": "fused"}, {"rgb_beta_head_bf16": "decodes"},
+                  ("IANv1 hybrid head", "IANv1", {"head_mode": "hybrid"},
+                   {"rgb_beta_tail_bf16": "decodes", "rgb_beta_tail_bwd_bf16": "gradients"}, {}),
+                  ("IANv1 fused head", "IANv1", {"head_mode": "fused"},
+                   {"rgb_beta_head_bf16": "decodes", "rgb_beta_head_bwd_bf16": "gradients"},
                    {"n_strokes": 4, "tail": False}),
                   ("IAN fused MDBLOCKs", "IAN", {"mdblock_mode": "fused"},
                    {"rgb_beta_tail_bf16": "decodes", "mdblock_bf16": "3 x decodes",
-                    "mdblock_bwd_bf16": "3 x gradients"}, {}),
-                  ("IAN per-op MDBLOCKs", "IAN", {"mdblock_mode": "plain"}, {"rgb_beta_tail_bf16": "decodes"},
+                    "mdblock_bwd_bf16": "3 x gradients", "rgb_beta_tail_bwd_bf16": "gradients"}, {}),
+                  ("IAN per-op MDBLOCKs", "IAN", {"mdblock_mode": "plain"},
+                   {"rgb_beta_tail_bf16": "decodes", "rgb_beta_tail_bwd_bf16": "gradients"},
                    {"n_strokes": 4, "tail": False}))
     variables_of = {"IAN_simple": card.variables, "IANv1": card_v1.variables, "IAN": card_ian.variables}
     x64 = rng.uniform(-1, 1, (64, 3, 64, 64)).astype(np.float32)
@@ -2978,9 +3214,10 @@ def main():
 
     def expect_launches(label, launches, expect, decodes, steps, gradients):
         """`expect`'s kernels launched once a decode (three times for the
-        MDBLOCK, and its backward three times a gradient), edit_tail once a
-        paint or composite step in float32, nothing else."""
-        wants = {"decodes": decodes, "3 x decodes": 3 * decodes, "3 x gradients": 3 * gradients}
+        MDBLOCK), the backwards once a gradient (the MDBLOCK's three times),
+        edit_tail once a paint or composite step in float32, nothing else."""
+        wants = {"decodes": decodes, "3 x decodes": 3 * decodes, "gradients": gradients,
+                 "3 x gradients": 3 * gradients}
         for name, n in launches.items():
             want = wants[expect[name]] if name in expect else steps if name == "edit_tail" else 0
             assert n == want, f"{label}: {name} launched {n} times, not {want}"
@@ -3026,8 +3263,9 @@ def main():
         mean_close(f"[bf16] {label} IM after the strokes, bf16 vs float32", got[1], im32_painted, IMAGE_BOUND)
         bf16_sessions[label] = session
         per_decode = {name: 3 if what == "3 x decodes" else 1 for name, what in expect.items()
-                      if what != "3 x gradients"}
-        per_gradient = {name: 3 for name, what in expect.items() if what == "3 x gradients"}
+                      if what.endswith("decodes")}
+        per_gradient = {name: 3 if what == "3 x gradients" else 1 for name, what in expect.items()
+                        if what.endswith("gradients")}
         launches = drive_api(f"{label} bf16", config, variables_of[config], counters, per_decode, 60 + len(bf16_sessions),
                              dtype=torch.bfloat16, per_gradient=per_gradient, **forms)
         api_launches = {name: n + launches[name] for name, n in api_launches.items()}
@@ -3037,9 +3275,10 @@ def main():
     bf16_kernels = ("rgb_beta_tail_bf16", "rgb_beta_head_bf16", "mdblock_bf16")
     assert all(bf16_launches[name] > 0 and bf16_serving[name] > 0 for name in bf16_kernels), (bf16_launches,
                                                                                                  bf16_serving)
-    main_launches.update({name: bf16_launches[name] for name in bf16_kernels + ("mdblock_bwd_bf16",)})
-    assert bf16_launches["mdblock_bwd_bf16"] > 0 and not bf16_serving["mdblock_bwd_bf16"], (bf16_launches,
-                                                                                          bf16_serving)
+    bf16_backwards = ("mdblock_bwd_bf16", "rgb_beta_tail_bwd_bf16", "rgb_beta_head_bwd_bf16")
+    main_launches.update({name: bf16_launches[name] for name in bf16_kernels + bf16_backwards})
+    assert all(bf16_launches[name] > 0 and not bf16_serving[name] for name in bf16_backwards), (bf16_launches,
+                                                                                              bf16_serving)
     serving_launches.update({name: bf16_serving[name] for name in bf16_kernels})
     serving_launches["staging"] += bf16_serving["staging"]  # the float32 kernel on the bf16 uint8 wires
     log(f"[bf16] launches on the bf16 API and session paths {bf16_launches}, on the bf16 serving paths "
@@ -3069,8 +3308,8 @@ def main():
                                             ("IAN", ian, card_ian.variables, torch.float32)):
         launches = captured_vs_eager(label, module, variables, counters, dtype)
         captured_launches = {k: n + launches[k] for k, n in captured_launches.items()}
-    assert captured_launches == dict({name: 0 for name in counters.forms},
-                                     rgb_beta_tail=2 * 2 * CAPTURE_STEPS), captured_launches
+    assert captured_launches == dict({name: 0 for name in counters.forms}, rgb_beta_tail=2 * 2 * CAPTURE_STEPS,
+                                     rgb_beta_tail_bwd=2 * TAIL_BWD_PER_PAIR * CAPTURE_STEPS // 2), captured_launches
 
     log(f"[phase] 6b starts at {time.perf_counter() - started:.1f} s")
     # 6b. bf16 training (cfg['compute_dtype']) and the rest of the trainer:
@@ -3090,6 +3329,7 @@ def main():
         training_launches = {name: n + launches[name] for name, n in training_launches.items()}
     training_launches["staging"] = drive_training_bf16(counters, smi)
     assert training_launches["rgb_beta_tail_bf16"] == 8 and training_launches["staging"] == 4, training_launches
+    assert training_launches["rgb_beta_tail_bwd_bf16"] == 2 * TAIL_BWD_PER_PAIR, training_launches
     log(f"[train] launches on the bf16 training paths {training_launches}; phase 6b took "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3117,7 +3357,7 @@ def main():
     log(f"[phase] 7's strokes done at {time.perf_counter() - started:.1f} s")
     # the API's methods and the editor's first calls, captured beside eager
     api_times, first_calls = {}, {}
-    for label, config, variables, forms, _ in api_forms:
+    for label, config, variables, forms, _, _ in api_forms:
         api_times[label] = time_api(label, config, variables, smi, **forms)
         first_calls[label] = editor_first_calls(label, config, variables, image, z_grid, smi, **forms)
     log(f"[phase] 7's API times done at {time.perf_counter() - started:.1f} s")
@@ -3253,6 +3493,18 @@ def main():
                                                                              110 + batch, smi)
                  for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8)}
     entries.append(mdblock_backward_entry("mdblock_bwd", mk.SOURCE, bwd_times))
+    # the RGB-Beta head's backward kernels: the tail's at the stroke's batch
+    # (first the trunk's gradient alone, the edit path's call: the entry),
+    # with the taps' gradients at the stroke's, the training step's and a
+    # large batch, and the D step's trunk-only call; x's gradient of the head
+    # at IANv1's and full IAN's widths
+    tail_bwd_cases = [time_tail_backward(1, torch.float32, False, smi)]
+    tail_bwd_cases += [time_tail_backward(batch, torch.float32, True, smi) for batch in (1, 16, 128)]
+    tail_bwd_cases.append(time_tail_backward(16, torch.float32, False, smi))
+    entries.append(backward_entry("rgb_beta_tail_bwd", rt.SOURCE, rt.REPLACES_BWD, tail_bwd_cases))
+    entries.append(backward_entry("rgb_beta_head_bwd", rh.SOURCE, rh.REPLACES_BWD,
+                                  [time_head_backward(batch, channels, torch.float32, smi)
+                                   for batch, channels in ((1, 64), (8, 64), (1, 128))]))
 
     with torch.no_grad():
         log(f"[time] MDBLOCK tap stacking (six stacks, three affines), per decode: {cuda_ms(stack_taps, 100):.4f} ms "
@@ -3341,6 +3593,16 @@ def main():
                  for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8, 128)}
     bf16_times["mdblock_bwd_bf16_blocks"] = {f"{shape} batch {batch}": t for (shape, batch), t in bwd_times.items()}
     entries.append(mdblock_backward_entry("mdblock_bwd_bf16", mk.BF16_SOURCE, bwd_times))
+    # the bf16 RGB-Beta head backwards, as in float32; the tail's over a bf16
+    # trunk, and once over the fused head's float32 one
+    half = torch.bfloat16
+    tail_bwd_cases = [time_tail_backward(1, half, False, smi)]
+    tail_bwd_cases += [time_tail_backward(batch, half, True, smi) for batch in (1, 16, 128)]
+    tail_bwd_cases += [time_tail_backward(16, half, False, smi), time_tail_backward(1, half, False, smi, torch.float32)]
+    entries.append(backward_entry("rgb_beta_tail_bwd_bf16", rt.SOURCE, rt.REPLACES_BWD, tail_bwd_cases))
+    entries.append(backward_entry("rgb_beta_head_bwd_bf16", rh.SOURCE, rh.REPLACES_BWD,
+                                  [time_head_backward(batch, channels, half, smi)
+                                   for batch, channels in ((1, 64), (8, 64), (1, 128))]))
 
     log(f"[phase] 7b's kernels done at {time.perf_counter() - started:.1f} s")
     x256 = torch.from_numpy(rng.uniform(-1, 1, (256, 3, 64, 64)).astype(np.float32)).to(dev, torch.bfloat16)
@@ -3395,8 +3657,10 @@ def main():
             torch.backends.cudnn.allow_tf32 = False
             training["data_paths_ms_per_chunk"] = time_data_paths(smi)
     # the bf16 tail as a bf16 step of IANv1 and full IAN runs it (batch 16, a
-    # bf16 trunk): the kernel forward, and its backward, the plain version's
-    # VJP in bf16 (which recomputes the plain forward), as device time
+    # bf16 trunk): the kernel forward, its backward kernels (the trunk's and
+    # the taps' gradients, as the G step asks), and the plain version's VJP in
+    # bf16 that they replace (which recomputes the plain forward), as device
+    # time and eager
     _, _, trunk, tg, tb = (t.to(torch.bfloat16) for t in head_inputs(16, 64, 97, dev))
     g_out = torch.randn((16, 48) + tuple(trunk.shape[2:]), device=dev).to(torch.bfloat16)
     tail_fwd = graph_ms(lambda: rt.rgb_beta_tail(trunk, tg, tb), iters=20)
@@ -3404,10 +3668,15 @@ def main():
                                                 g_out), iters=20)
     tail_bwd_eager = cuda_ms(lambda: rt.vjp_of_plain(rt.rgb_beta_tail_reference, (True, True, True),
                                                      (trunk, tg, tb), g_out), 50)
+    kernel_bwd = graph_ms(lambda: rt._launch_bwd(g_out, trunk, tg, tb), iters=20)
+    kernel_bwd_eager = cuda_ms(lambda: rt._launch_bwd(g_out, trunk, tg, tb), 50)
     training["rgb_beta_tail_bf16_batch16"] = {"kernel_ms": tail_fwd, "plain_vjp_backward_ms": tail_bwd,
-                                              "plain_vjp_backward_eager_ms": tail_bwd_eager}
-    log(f"[time] rgb_beta_tail_bf16 at a bf16 training step's batch of 16: kernel {tail_fwd:.5f} ms, its backward "
-        f"(the plain VJP in bf16) {tail_bwd:.5f} ms device time (CUDA graph), {tail_bwd_eager:.5f} ms eager ({smi})")
+                                              "plain_vjp_backward_eager_ms": tail_bwd_eager,
+                                              "kernel_backward_ms": kernel_bwd,
+                                              "kernel_backward_eager_ms": kernel_bwd_eager}
+    log(f"[time] rgb_beta_tail_bf16 at a bf16 training step's batch of 16: kernel {tail_fwd:.5f} ms; its backward "
+        f"kernels {kernel_bwd:.5f} ms device time (CUDA graph), {kernel_bwd_eager:.5f} ms eager; the plain VJP in bf16 "
+        f"they replace {tail_bwd:.5f} ms device time, {tail_bwd_eager:.5f} ms eager ({smi})")
 
     log(f"[phase] 8 starts at {time.perf_counter() - started:.1f} s")
     # 8. Multi-device training: subprocesses, counts read from their output
@@ -3424,7 +3693,7 @@ def main():
                      training_bf16_launches=training_launches[entry["name"]],
                      training_captured_launches=captured_launches[entry["name"]],
                      eval_launches=eval_launches[entry["name"]],
-                     max_abs_err=worst[entry["name"]], library_ms=None)
+                     max_abs_err=worst[entry["name"]], library_ms=entry.get("library_ms"))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"strokes": strokes, "paint_stroke_p50_ms": strokes["IAN_simple"]["captured"]["p50_ms"],
                     "paint_stroke_p95_ms": strokes["IAN_simple"]["captured"]["p95_ms"],

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel
 // npe_tpu/ops/pallas/mdcl_kernels.py:rgb_beta_head_pallas (body
 // `_beta_head_kernel`): the trunk MDCLs R / G_a / B_a over the decoder's last
-// feature map, then the autoregressive tail of rgb_beta_tail.cuh. The TPU
+// feature map, then the autoregressive tail of rgb_beta_tail.cuh; and x's
+// gradient of its custom VJP (`_head_bwd`): the tail's backward passes, then
+// `head_trunk_bwd_kernel` (its design is in the comment above it). The TPU
 // kernel computes the trunk as nine tap products over the space-to-depth(4)
 // map, which suits a 128-lane MXU; here it is the MDCL as it is, a direct
 // multiscale conv over the NCHW map:
@@ -268,6 +270,122 @@ int head_trunk(const void* x, const void* taps, void* trunk, void* partial, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// The trunk's backward, x's gradient (npe_tpu's `_head_bwd` for x): the
+// transposed multiscale conv of dtrunk, the trunk's gradient as the tail's
+// backward leaves it (float32, the tail's s2d layout, zero outside the map),
+//
+//   dx[c, y, x] = sum over the offsets t, k < 6, of d6[k, y - dy_t, x - dx_t] * taps[t, c, k]
+//
+// with d6[k, y, x] = dtrunk[k * 16 + 4 (y % 4) + x % 4, y / 4, x / 4] and the
+// centres folded into one offset, as in the forward: 33 offsets at scales
+// 2/3/4. Bound: operations, 198 multiply-adds an element of dx at three
+// branches (51.9 M an image at C = 64, 0.0016 ms at 67 TFLOP/s, against
+// 1.4 MB moved). A block is a band of four pixel rows by the 64 columns, for
+// kBwdChannels channels: it stages the six planes of d6 on the band and a
+// halo of four rows (unpacked from the s2d layout, zero outside the map) and
+// the taps of its channels, folds the centres, and each of its 256 threads
+// (four groups of 64 columns) sums one column's four pixels for two
+// channels: per offset and plane four d6 reads and one float2 of taps for
+// eight products. The grid is bands x channel slices x batch (128 blocks at
+// C = 64 and one image). dx is rounded to x's type at the end.
+constexpr int kBwdChannels = 8;  // channels a block; two a thread
+constexpr int kBwdPerThread = kBwdChannels / kGroups;
+static_assert(kBwdPerThread == 2, "a thread's channels are read as one float2");
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+head_trunk_bwd_kernel(const float* __restrict__ dtrunk, const T* __restrict__ taps, T* __restrict__ dx,
+                      int channels, int hh, int n_dil, Dilations dil) {
+  __shared__ __align__(16) float ds[kCo * kRows * kStride];
+  __shared__ __align__(16) float ws[kMaxTaps * kCo * kBwdChannels];  // (tap, k, channel of the block)
+  const int band = blockIdx.x, c0 = blockIdx.y * kBwdChannels, n = blockIdx.z;
+  const int height = kBand * hh, n_taps = 9 * n_dil, cells = hh * (kWidth / 4);
+  const int tid = threadIdx.x, group = tid / kWidth, col = tid % kWidth;
+  const float* dt = dtrunk + static_cast<size_t>(n) * kCo * npe::kRR * cells;
+
+  for (int i = tid; i < kCo * kRows * kStride; i += kThreads) ds[i] = 0.0f;
+  for (int i = tid; i < n_taps * kCo * kBwdChannels; i += kThreads) {
+    const int cl = i % kBwdChannels, k = (i / kBwdChannels) % kCo, t = i / (kBwdChannels * kCo);
+    ws[i] = c0 + cl < channels ? npe::to_f32(taps[(static_cast<size_t>(t) * channels + c0 + cl) * kCo + k]) : 0.0f;
+  }
+  __syncthreads();
+  for (int i = tid; i < kCo * kRows * kWidth; i += kThreads) {
+    const int x = i % kWidth, row = (i / kWidth) % kRows, k = i / (kWidth * kRows);
+    const int y = band * kBand - kHaloPx + row;
+    if (y >= 0 && y < height)
+      ds[(k * kRows + row) * kStride + kHaloPx + x] =
+          dt[(static_cast<size_t>(k * npe::kRR + 4 * (y % 4) + x % 4) * hh + y / 4) * (kWidth / 4) + x / 4];
+  }
+  if (n_dil > 1) {  // every branch's centre folded into the first branch's, in branch order
+    __syncthreads();
+    for (int i = tid; i < kCo * kBwdChannels; i += kThreads) {
+      float* w = ws + 4 * kCo * kBwdChannels + i;
+      float v = *w;
+      for (int b = 1; b < n_dil; ++b) v += w[9 * b * kCo * kBwdChannels];
+      *w = v;
+    }
+  }
+  __syncthreads();
+
+  float acc[kBand][kBwdPerThread];
+#pragma unroll
+  for (int r = 0; r < kBand; ++r)
+#pragma unroll
+    for (int q = 0; q < kBwdPerThread; ++q) acc[r][q] = 0.0f;
+  for (int b = 0; b < n_dil; ++b) {
+    const int d = dil.d[b];
+    for (int tap = 0; tap < 9; ++tap) {
+      const int i = tap / 3 - 1, j = tap % 3 - 1;
+      if (b > 0 && i == 0 && j == 0) continue;  // folded into the first centre
+      const float* xp = ds + (kHaloPx - d * i) * kStride + kHaloPx + col - d * j;
+      const float* wt = ws + (9 * b + tap) * kCo * kBwdChannels + kBwdPerThread * group;
+#pragma unroll
+      for (int k = 0; k < kCo; ++k) {
+        const float2 w = *reinterpret_cast<const float2*>(wt + k * kBwdChannels);
+#pragma unroll
+        for (int r = 0; r < kBand; ++r) {
+          const float v = xp[(k * kRows + r) * kStride];
+          acc[r][0] = fmaf(v, w.x, acc[r][0]);
+          acc[r][1] = fmaf(v, w.y, acc[r][1]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kBwdPerThread; ++q) {
+    const int c = c0 + kBwdPerThread * group + q;
+    if (c >= channels) continue;
+#pragma unroll
+    for (int r = 0; r < kBand; ++r)
+      dx[((static_cast<size_t>(n) * channels + c) * height + band * kBand + r) * kWidth + col] =
+          npe::from_f32<T>(acc[r][q]);
+  }
+}
+
+// x's gradient: the tail's backward (its passes for the trunk alone, reading
+// the image's cotangent g) into dtrunk, then the trunk's backward into dx.
+template <typename T>
+int head_bwd(const void* g, const void* trunk, const void* taps, const void* tg, const void* tb, void* scratch,
+             void* dtrunk, void* dx, int batch, int channels, int hh, int n_dil, const int* dil, int tail_rows,
+             void* stream) {
+  if (n_dil < 1 || n_dil > kMaxDil) return static_cast<int>(cudaErrorInvalidValue);
+  Dilations d = {};
+  for (int b = 0; b < n_dil; ++b) {
+    if (dil[b] < 1 || dil[b] > kHaloPx) return static_cast<int>(cudaErrorInvalidValue);
+    d.d[b] = dil[b];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const npe::TailBwdArgs<float, T> a{static_cast<const T*>(g), static_cast<const float*>(trunk),
+                                     static_cast<const T*>(tg), static_cast<const T*>(tb),
+                                     static_cast<float*>(scratch), static_cast<float*>(dtrunk), nullptr, nullptr,
+                                     nullptr, hh, kWidth / 4, tail_rows};
+  const int err = npe::launch_tail_bwd<true>(a, batch, 1, 0, s);
+  if (err != 0) return err;
+  head_trunk_bwd_kernel<T><<<dim3(hh, (channels + kBwdChannels - 1) / kBwdChannels, batch), kThreads, 0, s>>>(
+      static_cast<const float*>(dtrunk), static_cast<const T*>(taps), static_cast<T*>(dx), channels, hh, n_dil, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int head(const void* x, const void* taps, const void* tg, const void* tb, void* trunk, void* partial, void* out,
          int batch, int channels, int hh, int n_dil, const int* dil, int slices, int tail_rows, void* stream) {
@@ -316,4 +434,28 @@ extern "C" int npe_rgb_beta_head_bf16(const void* x, const void* taps, const voi
                                       int n_dil, const int* dil, int slices, int tail_rows, void* stream) {
   return head<__nv_bfloat16>(x, taps, tg, tb, trunk, partial, out, batch, channels, hh, n_dil, dil, slices,
                              tail_rows, stream);
+}
+
+// x's gradient of the whole head (npe_tpu's `_head_bwd` for x): g, the
+// image's cotangent, (batch, 3, 4*hh, 64); trunk: the forward's float32
+// (batch, 96, hh, 16); taps, tg, tb, dil as for npe_rgb_beta_head; scratch:
+// (batch, 192, hh, 16) float32; dtrunk: (batch, 96, hh, 16) float32; dx:
+// (batch, channels, 4*hh, 64); tail_rows as the forward's. The tail's
+// backward launches (four), then the trunk's; returns the first CUDA error
+// code (0 = all launched).
+extern "C" int npe_rgb_beta_head_bwd(const void* g, const void* trunk, const void* taps, const void* tg,
+                                     const void* tb, void* scratch, void* dtrunk, void* dx, int batch,
+                                     int channels, int hh, int n_dil, const int* dil, int tail_rows, void* stream) {
+  return head_bwd<float>(g, trunk, taps, tg, tb, scratch, dtrunk, dx, batch, channels, hh, n_dil, dil, tail_rows,
+                         stream);
+}
+
+// The bfloat16 form: g, taps, tg, tb and dx bf16; trunk, scratch and dtrunk
+// float32, as in the float32 form (the tail's bf16 form over a float32 trunk).
+extern "C" int npe_rgb_beta_head_bwd_bf16(const void* g, const void* trunk, const void* taps, const void* tg,
+                                          const void* tb, void* scratch, void* dtrunk, void* dx, int batch,
+                                          int channels, int hh, int n_dil, const int* dil, int tail_rows,
+                                          void* stream) {
+  return head_bwd<__nv_bfloat16>(g, trunk, taps, tg, tb, scratch, dtrunk, dx, batch, channels, hh, n_dil, dil,
+                                 tail_rows, stream);
 }

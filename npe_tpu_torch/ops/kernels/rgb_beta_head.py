@@ -25,6 +25,16 @@ tail kernel of `rgb_beta_tail`, which finishes the head. In both forms, float32
 and bfloat16 (picked by the tensors' dtype), the trunk between the launches is
 float32. `rgb_beta_head.launches` counts the float32 form's calls,
 `rgb_beta_head.launches_bf16` the bf16 form's.
+
+x's gradient (npe_tpu's custom VJP, `_head_bwd`, for x) is hand-written too,
+in both forms (`npe_rgb_beta_head_bwd[_bf16]`): the tail's backward passes
+(`rgb_beta_tail`'s, float32 or bf16 over the float32 trunk the forward keeps
+when x requires a gradient) into the trunk's float32 gradient, then
+`head_trunk_bwd_kernel`, the trunk's transposed multiscale conv, into dx.
+`rgb_beta_head_backward_reference` is its plain version;
+`rgb_beta_head.launches_bwd` and `.launches_bwd_bf16` count its calls. The
+taps' gradients stay the plain version's VJP: no path asks for them
+(training runs the hybrid head; the API and the editor ask for x's alone).
 """
 
 import ctypes
@@ -33,14 +43,16 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from npe_tpu_torch.ops.kernels import build
-from npe_tpu_torch.ops.kernels.mdblock import dilations, tap_offsets
+from npe_tpu_torch.ops.kernels import add_launches, build, current_tally
+from npe_tpu_torch.ops.kernels.mdblock import dilations, mdcl_transposed, tap_offsets
 from npe_tpu_torch.ops.kernels.rgb_beta_tail import (
-    RR, check_tensors, count_launch, rgb_beta_tail_reference, sum_dtype, tail_rows, vjp_of_plain,
+    RR, SCRATCH_PLANES, check_tensors, count_launch, rgb_beta_tail_backward_reference, rgb_beta_tail_reference,
+    sum_dtype, tail_rows, vjp_of_plain,
 )
 
 SOURCE = "npe_tpu_torch/csrc/rgb_beta_head.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:275"
+REPLACES_BWD = "npe_tpu/ops/pallas/mdcl_kernels.py:446"  # `_head_bwd`, the custom VJP's backward
 R = 4
 WIDTH = 64  # a band is four rows of 64 pixels, the tail's 16 cells
 BAND_ROWS = 4
@@ -74,20 +86,41 @@ def trunk_kernel(trunk_taps, scales):
     return k.reshape(co, c, size, size)
 
 
-def rgb_beta_head_reference(x, trunk_taps, tg_taps, tb_taps, scales):
-    """Plain version: the trunk, the sum over the taps of the shifted x times
-    the tap's matrix with a zero border, as one conv with the taps placed at
+def trunk_reference(x, trunk_taps, scales):
+    """The plain trunk: the sum over the taps of the shifted x times the
+    tap's matrix with a zero border, as one conv with the taps placed at
     their offsets (`trunk_kernel`; its backward is a few launches, where one
     product per tap would be dozens), packed by `pixel_unshuffle` into the
-    tail's component-major channels (component * 16 + position); the tail;
-    unpacked. x: (N, C, H, W); returns (N, 3, H, W). In bfloat16 (x and the
-    taps) the trunk takes the bf16 operands and stays float32, never rounded,
-    as in npe_tpu's kernel; the tail rounds as `rgb_beta_tail_reference`
-    says; the image is bf16. In float32 every cast is the identity."""
+    tail's component-major channels (component * 16 + position): (N, 96,
+    H/4, W/4), float32 for bf16 operands (npe_tpu never rounds it)."""
     acc = sum_dtype(x.dtype)
     k = trunk_kernel(trunk_taps.to(acc), scales)
-    trunk = F.conv2d(x.to(acc), k, padding=k.shape[-1] // 2)
-    return F.pixel_shuffle(rgb_beta_tail_reference(F.pixel_unshuffle(trunk, R), tg_taps, tb_taps), R)
+    return F.pixel_unshuffle(F.conv2d(x.to(acc), k, padding=k.shape[-1] // 2), R)
+
+
+def rgb_beta_head_reference(x, trunk_taps, tg_taps, tb_taps, scales):
+    """Plain version: `trunk_reference`, the tail, unpacked. x: (N, C, H, W);
+    returns (N, 3, H, W). In bfloat16 (x and the taps) the trunk takes the
+    bf16 operands and stays float32, never rounded, as in npe_tpu's kernel;
+    the tail rounds as `rgb_beta_tail_reference` says; the image is bf16. In
+    float32 every cast is the identity."""
+    return F.pixel_shuffle(rgb_beta_tail_reference(trunk_reference(x, trunk_taps, scales), tg_taps, tb_taps), R)
+
+
+def rgb_beta_head_backward_reference(g, trunk, trunk_taps, tg_taps, tb_taps, scales):
+    """Plain version of exactly what x's backward kernels compute: x's
+    gradient of `rgb_beta_head_reference` for the cotangent g of the image,
+    given the forward's trunk (`trunk_reference`). The tail's backward for
+    the trunk alone (`rgb_beta_tail_backward_reference` over the cotangent
+    packed as the tail's output), unpacked, then the trunk's transposed
+    MDCL (`mdcl_transposed`): dx[c, p] = sum_t sum_k d6[k, p - offset_t]
+    taps[t, c, k]. In bfloat16 the trunk and its gradient are float32 (the
+    tail's bf16 form over a float32 trunk) and dx is rounded to bf16 once at
+    the end, where the VJP rounds it."""
+    g_cells = F.pixel_unshuffle(g, R)
+    dtrunk = rgb_beta_tail_backward_reference(g_cells, trunk, tg_taps, tb_taps, (True, False, False))[0]
+    dx = mdcl_transposed(F.pixel_shuffle(dtrunk, R), trunk_taps.to(dtrunk.dtype), tap_offsets(scales))
+    return dx.to(trunk_taps.dtype)
 
 
 def head_slices(batch, bands, channels, sm_count):
@@ -140,38 +173,92 @@ def trunk_only(x, trunk_taps, scales, slices=None):
     return trunk
 
 
+@functools.cache
+def _bwd_entry(bf16):
+    lib = build.load("rgb_beta_head")
+    fn = lib.npe_rgb_beta_head_bwd_bf16 if bf16 else lib.npe_rgb_beta_head_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                                                               ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, trunk_taps, tg_taps, tb_taps, scales):
+    """One call of the kernel in x's form: returns (the image, the float32
+    (N, 96, H/4, 16) trunk it wrote between its launches). Checked by the
+    caller; not counted."""
+    n, c, h, w = x.shape
+    cells_h = h // R
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    dil = dilations(scales)
+    slices = head_slices(n, h // BAND_ROWS, c, sms)
+    # float32 in both forms: npe_tpu's kernel never rounds the trunk
+    trunk = torch.empty((n, CO * RR, cells_h, w // R), dtype=torch.float32, device=x.device)
+    partial = trunk.new_empty((n, slices) + trunk.shape[1:]) if slices > 1 else None
+    out = torch.empty((n, 3, h, w), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _entry(x.dtype == torch.bfloat16)(
+            x.data_ptr(), trunk_taps.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), trunk.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(), n, c, cells_h, len(dil),
+            (ctypes.c_int * len(dil))(*dil), slices, tail_rows(n, cells_h, w // R, sms),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rgb_beta_head kernel launch failed with CUDA error {rc}")
+    return out, trunk
+
+
+def _launch_bwd(g, x, trunk, trunk_taps, tg_taps, tb_taps, scales):
+    """One call of x's backward kernels in x's form for the cotangent g (the
+    image's shape and dtype, contiguous), over the forward's float32 trunk;
+    scratch for the tail's passes and the trunk's gradient. Returns dx.
+    Checked by the caller; not counted."""
+    n, c, h, w = x.shape
+    cells_h = h // R
+    dil = dilations(scales)
+    scratch = torch.empty((n, SCRATCH_PLANES, cells_h, w // R), dtype=torch.float32, device=x.device)
+    dtrunk, dx = torch.empty_like(trunk), torch.empty_like(x)
+    rows = tail_rows(n, cells_h, w // R, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    with torch.cuda.device(x.device):
+        rc = _bwd_entry(x.dtype == torch.bfloat16)(
+            g.data_ptr(), trunk.data_ptr(), trunk_taps.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(),
+            scratch.data_ptr(), dtrunk.data_ptr(), dx.data_ptr(), n, c, cells_h, len(dil),
+            (ctypes.c_int * len(dil))(*dil), rows, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rgb_beta_head backward kernel launch failed with CUDA error {rc}")
+    return dx
+
+
 class _Head(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, trunk_taps, tg_taps, tb_taps, scales):
-        ctx.save_for_backward(x, trunk_taps, tg_taps, tb_taps)
-        ctx.scales = scales
-        n, c, h, w = x.shape
-        cells_h = h // R
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        dil = dilations(scales)
-        slices = head_slices(n, h // BAND_ROWS, c, sms)
-        # float32 in both forms: npe_tpu's kernel never rounds the trunk
-        trunk = torch.empty((n, CO * RR, cells_h, w // R), dtype=torch.float32, device=x.device)
-        partial = trunk.new_empty((n, slices) + trunk.shape[1:]) if slices > 1 else None
-        out = torch.empty((n, 3, h, w), dtype=x.dtype, device=x.device)
-        with torch.cuda.device(x.device):
-            rc = _entry(x.dtype == torch.bfloat16)(
-                x.data_ptr(), trunk_taps.data_ptr(), tg_taps.data_ptr(), tb_taps.data_ptr(), trunk.data_ptr(),
-                None if partial is None else partial.data_ptr(), out.data_ptr(), n, c, cells_h, len(dil),
-                (ctypes.c_int * len(dil))(*dil), slices, tail_rows(n, cells_h, w // R, sms),
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"rgb_beta_head kernel launch failed with CUDA error {rc}")
+        out, trunk = _launch(x, trunk_taps, tg_taps, tb_taps, scales)
         count_launch(rgb_beta_head, x.dtype)
+        # the trunk only where x requires a gradient; under no_grad or
+        # inference_mode autograd drops ctx, and all it saved, as this call returns
+        ctx.save_for_backward(x, trunk_taps, tg_taps, tb_taps, *((trunk,) if ctx.needs_input_grad[0] else ()))
+        ctx.scales = scales
+        # autograd may run the backward on a thread of its own: it counts where the forward did
+        ctx.tally = current_tally()
         return out
 
     @staticmethod
     def backward(ctx, g):
-        def plain(*tensors):
-            return rgb_beta_head_reference(*tensors, ctx.scales)
+        x, trunk_taps, tg_taps, tb_taps, *kept = ctx.saved_tensors
+        need_x, *need_rest = ctx.needs_input_grad[:4]
+        dx = None
+        if need_x:
+            dx = _launch_bwd(g.to(x.dtype).contiguous(), x, kept[0], trunk_taps, tg_taps, tb_taps, ctx.scales)
+            add_launches(rgb_beta_head, "launches_bwd_bf16" if x.dtype == torch.bfloat16 else "launches_bwd",
+                         tally=ctx.tally)
+        rest = (None,) * 3
+        if any(need_rest):  # the taps' gradients: the plain version's VJP
+            def plain(*tensors):
+                return rgb_beta_head_reference(*tensors, ctx.scales)
 
-        return vjp_of_plain(plain, ctx.needs_input_grad[:4], ctx.saved_tensors, g) + (None,)
+            rest = vjp_of_plain(plain, (False, *need_rest), (x, trunk_taps, tg_taps, tb_taps), g)[1:]
+        return (dx, *rest, None)
 
 
 def rgb_beta_head(x, trunk_taps, tg_taps, tb_taps, scales):
@@ -180,7 +267,9 @@ def rgb_beta_head(x, trunk_taps, tg_taps, tb_taps, scales):
     4, at most 4 branches), tg_taps (9, 32, 32), tb_taps (9, 64, 32) from
     `pack_head_taps`; all float32 (the float32 form) or all bfloat16 (the
     bf16 form: `rgb_beta_head_reference` says where it rounds). Returns the
-    image (N, 3, H, 64) in that dtype."""
+    image (N, 3, H, 64) in that dtype. x's gradient comes from the backward
+    kernels (`rgb_beta_head_backward_reference` is their plain version), the
+    taps' from the plain version's VJP."""
     if x.ndim != 4 or x.shape[0] < 1 or x.shape[1] < 1 or x.shape[2] % (2 * R) or x.shape[3] != WIDTH:
         raise ValueError(f"rgb_beta_head wants (N, C, H, {WIDTH}) with H a multiple of {2 * R}, got {tuple(x.shape)}")
     scales = tuple(scales)
@@ -201,3 +290,5 @@ def rgb_beta_head(x, trunk_taps, tg_taps, tb_taps, scales):
 
 rgb_beta_head.launches = 0
 rgb_beta_head.launches_bf16 = 0
+rgb_beta_head.launches_bwd = 0
+rgb_beta_head.launches_bwd_bf16 = 0

@@ -23,11 +23,19 @@ row-major, tap t = 3*(dy + 1) + (dx + 1), from `pack_head_taps`.
 `rgb_beta_tail` runs the plain version for CPU tensors; for CUDA tensors it
 launches the kernel, or raises. The kernel gives each block a group of cell
 rows of an image (`tail_rows`) and recomputes R and G on the two rows around
-them. Its backward is the plain version's, as
-npe_tpu's custom VJP is. It has a float32 and a bfloat16 form, picked by the
-dtype of the tensors it is given (`check_tensors`; the bf16 form rounds where
-npe_tpu's kernel rounds under bf16); `rgb_beta_tail.launches` counts the
-float32 form's launches, `rgb_beta_tail.launches_bf16` the bf16 form's.
+them. It has a float32 and a bfloat16 form, picked by the dtype of the
+tensors it is given (`check_tensors`; the bf16 form rounds where npe_tpu's
+kernel rounds under bf16); `rgb_beta_tail.launches` counts the float32
+form's launches, `rgb_beta_tail.launches_bf16` the bf16 form's.
+
+The backward (npe_tpu's custom VJP, `_tail_bwd`: the VJP of its plain
+version) is hand-written too, in both forms (`npe_rgb_beta_tail_bwd[_bf16]`,
+device code in `rgb_beta_tail.cuh`): passes over the forward's row groups
+that leave u_B, u_G and the recomputed maps in a float32 scratch, and, only
+where autograd asks for the taps' gradients, per-block partial sums of dtg
+and dtb added in a fixed order. `rgb_beta_tail_backward_reference` is its
+plain version; `rgb_beta_tail.launches_bwd` and `.launches_bwd_bf16` count
+its calls.
 """
 
 import ctypes
@@ -38,11 +46,14 @@ import torch.nn.functional as F
 
 from npe_tpu_torch.ops.beta import beta_mean
 from npe_tpu_torch.ops.conv import pack_kernel_s2d, s2d_block_taps
-from npe_tpu_torch.ops.kernels import add_launches, build
+from npe_tpu_torch.ops.kernels import add_launches, build, current_tally
 
 SOURCE = "npe_tpu_torch/csrc/rgb_beta_tail.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:394"
+REPLACES_BWD = "npe_tpu/ops/pallas/mdcl_kernels.py:430"  # `_tail_bwd`, the custom VJP's backward
 RR = 16  # r*r; the kernels are compiled for r = 4
+SCRATCH_PLANES = 12 * RR  # the backward's float32 planes an image: [R, G] rounded, G, u_B, u_G, dr_B
+TAP_GRADS = 9 * 4 * RR * 2 * RR + 9 * 2 * RR * 2 * RR  # dtb then dtg, the partial sums a block
 # What one block may ask for on Hopper (dynamic, after opting in).
 SMEM_LIMIT = 227 * 1024
 
@@ -64,6 +75,36 @@ def tap_conv(h, taps):
     border, written as one 3x3 conv. h: (N, in, H, W); taps: (9, in, out)."""
     n_in, n_out = taps.shape[1:]
     return F.conv2d(h, taps.reshape(3, 3, n_in, n_out).permute(3, 2, 0, 1), padding=1)
+
+
+def tap_conv_transposed(u, taps):
+    """The adjoint of `tap_conv`: sum_t shift_-t(u) @ taps[t]^T, written as
+    `tap_conv` over the mirrored taps (tap 8 - t) transposed. u: (N, out, H,
+    W); taps: (9, in, out); returns (N, in, H, W)."""
+    return tap_conv(u, taps.flip(0).transpose(1, 2))
+
+
+def tap_grad(h, u):
+    """The taps' gradient of `tap_conv(h, taps)` for the cotangent u:
+    sum over the cells of shift_t(h)^T u, (9, in, out)."""
+    hh, ww = u.shape[2:]
+    hp = F.pad(h, (1, 1, 1, 1))
+    return torch.stack([torch.einsum("nihw,nohw->io", hp[:, :, dy:dy + hh, dx:dx + ww], u)
+                        for dy in range(3) for dx in range(3)])
+
+
+def beta_mean_vjp(a, b, g):
+    """(d alpha, d beta) of `beta_mean(a, b)` for the cotangent g, in the
+    order torch's autograd forms them."""
+    g2 = 2.0 * g
+    s = a + b + 1e-8
+    gs = -g2 * a / (s * s)
+    return g2 / s + gs, gs
+
+
+def sigmoid_vjp(y, g):
+    """The cotangent of sigmoid's input from its output y and g, as torch's."""
+    return g * (1 - y) * y
 
 
 def sum_dtype(dtype):
@@ -93,6 +134,49 @@ def rgb_beta_tail_reference(trunk, tg_taps, tb_taps):
     blu = torch.sigmoid(pre[:, 2 * pair :] + tap_conv(rg, tb_taps.to(acc)))
     rr = pair // 2
     return torch.cat([beta_mean(c[:, :rr], c[:, rr:]) for c in (red, grn, blu)], 1).to(mx)
+
+
+def rgb_beta_tail_backward_reference(g, trunk, tg_taps, tb_taps, needs=(True, True, True)):
+    """Plain version of exactly what the backward kernels compute: the
+    gradients of `rgb_beta_tail_reference(trunk, tg_taps, tb_taps)` for the
+    cotangent g of its output, written out, not through autograd, with None
+    where `needs` (trunk, tg, tb) is False. Per cell, with R, G, B the
+    forward's sigmoids and dbeta the Beta mean's derivative:
+
+        u_B = dbeta(B) g_B * B(1 - B),  (dr_B, dg_B) = B^T(u_B)
+        u_G = (dbeta(G) g_G + dg_B) * G(1 - G)
+        dT  = [(dbeta(R) g_R + dr_B + G^T(u_G)) * R(1 - R), u_G, u_B]
+        dtb = sum over cells of shift_t([R, G])^T u_B,  dtg = shift_t(R)^T u_G
+
+    In bfloat16 it rounds where the bf16 VJP of `rgb_beta_tail_reference`
+    rounds: the products read R and [R, G] as bf16 (the forward's points);
+    B^T's and G^T's sums, the cotangents of those rounded inputs, go to bf16;
+    dtg and dtb are float32 sums, then bf16; dT is rounded to the trunk's
+    dtype. The rest is float32. In float32 every cast is the identity."""
+    mx, acc = tg_taps.dtype, sum_dtype(tg_taps.dtype)
+
+    def rnd(v):
+        return v.to(mx).to(acc)
+
+    pre, g, tg, tb = trunk.to(acc), g.to(acc), tg_taps.to(acc), tb_taps.to(acc)
+    pair = pre.shape[1] // 3
+    rr = pair // 2
+    red = torch.sigmoid(pre[:, :pair])
+    r_in = rnd(red)
+    grn = torch.sigmoid(pre[:, pair:2 * pair] + tap_conv(r_in, tg))
+    rg = rnd(torch.cat([red, grn], 1))
+    blu = torch.sigmoid(pre[:, 2 * pair:] + tap_conv(rg, tb))
+
+    def colour(c, k):  # the Beta mean's cotangent, back to colour k's (alpha, beta) planes
+        return torch.cat(beta_mean_vjp(c[:, :rr], c[:, rr:], g[:, k * rr:(k + 1) * rr]), 1)
+
+    u_b = sigmoid_vjp(blu, colour(blu, 2))
+    d_rg = rnd(tap_conv_transposed(u_b, tb))
+    u_g = sigmoid_vjp(grn, colour(grn, 1) + d_rg[:, pair:])
+    d_red = colour(red, 0) + d_rg[:, :pair] + rnd(tap_conv_transposed(u_g, tg))
+    d_trunk = torch.cat([sigmoid_vjp(red, d_red), u_g, u_b], 1).to(trunk.dtype)
+    return (d_trunk if needs[0] else None, tap_grad(r_in, u_g).to(mx) if needs[1] else None,
+            tap_grad(rg, u_b).to(mx) if needs[2] else None)
 
 
 def check_tensors(fn, tensors, shapes, float32=()):
@@ -135,6 +219,16 @@ def tail_smem_bytes(w, rows=1):
     each plane with a zero border of one cell. The map's height does not
     count."""
     return (9 * 2 * RR * 2 * RR + 9 * 4 * RR * 2 * RR + 4 * RR * (rows + 5) * (w + 2)) * 4
+
+
+def tail_bwd_smem_bytes(w, rows):
+    """What one block of the backward's largest pass holds: the B product's
+    taps (rows padded by 4 floats) and its 4rr-plane input map on the rows
+    +-1 with a zero border, or the taps' pass's map and the 4rr planes of
+    u_B and u_G on its own rows. Below `tail_smem_bytes` wherever the forward
+    fits (tests/test_torch_rgb_beta_backward.py)."""
+    plane = (rows + 2) * (w + 2)
+    return max(9 * 4 * RR * (2 * RR + 4) + 4 * RR * plane, (4 * RR + 4) * (plane + rows * w)) * 4
 
 
 def tail_rows(batch, h, w, sm_count):
@@ -186,17 +280,61 @@ def _launch(trunk, tg_taps, tb_taps):
     return out
 
 
+@functools.cache
+def _bwd_entry(bf16):
+    lib = build.load("rgb_beta_tail")
+    fn = lib.npe_rgb_beta_tail_bwd_bf16 if bf16 else lib.npe_rgb_beta_tail_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * (7 if bf16 else 6) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_bwd(g, trunk, tg_taps, tb_taps, need_trunk=True, need_taps=True):
+    """One call of the backward kernels in the taps' form (float32, or
+    bfloat16 over a bf16 or a float32 trunk) for the cotangent g (the
+    output's shape and dtype, contiguous): (dtrunk in the trunk's dtype,
+    dtg, dtb), None where not asked for (`need_taps` gives both). Scratch:
+    the passes' float32 planes and, for the taps, the blocks' partial sums.
+    Checked by the caller; not counted."""
+    n, _, h, w = trunk.shape
+    bf16 = tg_taps.dtype == torch.bfloat16
+    rows = tail_rows(n, h, w, torch.cuda.get_device_properties(trunk.device).multi_processor_count)
+    scratch = torch.empty((n, SCRATCH_PLANES, h, w), dtype=torch.float32, device=trunk.device)
+    dtrunk = torch.empty_like(trunk)
+    partial = dtg = dtb = None
+    if need_taps:
+        partial = torch.empty((n * (h // rows), TAP_GRADS), dtype=torch.float32, device=trunk.device)
+        dtg, dtb = torch.empty_like(tg_taps), torch.empty_like(tb_taps)
+    args = [g, trunk, tg_taps, tb_taps, scratch, partial, dtrunk, dtg, dtb]
+    args = [None if t is None else t.data_ptr() for t in args] + [n, h, w, rows, int(need_trunk), int(need_taps)]
+    if bf16:
+        args.append(int(trunk.dtype == torch.float32))
+    with torch.cuda.device(trunk.device):
+        rc = _bwd_entry(bf16)(*args, torch.cuda.current_stream(trunk.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rgb_beta_tail backward kernel launch failed with CUDA error {rc}")
+    return dtrunk if need_trunk else None, dtg, dtb
+
+
 class _Tail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, trunk, tg_taps, tb_taps):
         ctx.save_for_backward(trunk, tg_taps, tb_taps)
         out = _launch(trunk, tg_taps, tb_taps)
         count_launch(rgb_beta_tail, tg_taps.dtype)
+        # autograd may run the backward on a thread of its own: it counts where the forward did
+        ctx.tally = current_tally()
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return vjp_of_plain(rgb_beta_tail_reference, ctx.needs_input_grad, ctx.saved_tensors, g)
+        trunk, tg_taps, tb_taps = ctx.saved_tensors
+        need_trunk, need_tg, need_tb = ctx.needs_input_grad
+        dtrunk, dtg, dtb = _launch_bwd(g.to(tg_taps.dtype).contiguous(), trunk, tg_taps, tb_taps, need_trunk,
+                                       need_tg or need_tb)
+        add_launches(rgb_beta_tail, "launches_bwd_bf16" if tg_taps.dtype == torch.bfloat16 else "launches_bwd",
+                     tally=ctx.tally)
+        return dtrunk, dtg if need_tg else None, dtb if need_tb else None
 
 
 def _check(fn, trunk, tg_taps, tb_taps, float32=()):
@@ -220,7 +358,9 @@ def rgb_beta_tail(trunk, tg_taps, tb_taps):
     32), tb_taps (9, 64, 32) from `pack_head_taps`; all float32 (the float32
     form) or all bfloat16 (the bf16 form, which rounds where npe_tpu's kernel
     does: `rgb_beta_tail_reference`). Returns the (N, 48, H, W)
-    component-major Beta means in that dtype."""
+    component-major Beta means in that dtype. The inputs that need a
+    gradient get one from the backward kernels, only those
+    (`rgb_beta_tail_backward_reference` is their plain version)."""
     _check("rgb_beta_tail", trunk, tg_taps, tb_taps)
     if trunk.device.type == "cpu":
         return rgb_beta_tail_reference(trunk, tg_taps, tb_taps)
@@ -243,3 +383,5 @@ def tail_only(trunk, tg_taps, tb_taps):
 
 rgb_beta_tail.launches = 0
 rgb_beta_tail.launches_bf16 = 0
+rgb_beta_tail.launches_bwd = 0
+rgb_beta_tail.launches_bwd_bf16 = 0

@@ -432,8 +432,9 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, config):
 @pytest.mark.parametrize("config", [TINY_V1, TINY_FULL])
 def test_bf16_train_steps_on_the_card_launch_only_the_bf16_tail(cuda, config):
     """cfg['compute_dtype'] = 'bfloat16': each decode of a step (two a step)
-    launches the tail's bf16 form, whose backward is its plain version's VJP
-    in bf16; no float32 tail, no head or MDBLOCK kernel. Masters stay
+    launches the tail's bf16 form, and its backward's bf16 form runs three
+    times a G + D pair (both decodes of the G step, the reconstruction's of
+    the D step); no float32 tail, no head or MDBLOCK kernel. Masters stay
     float32, and the metrics track the CPU's bf16 step within npe_tpu's bf16
     trajectory bounds (rtol 0.12 / atol 0.02)."""
     from npe_tpu_torch.training import train_step as ts
@@ -446,7 +447,8 @@ def test_bf16_train_steps_on_the_card_launch_only_the_bf16_tail(cuda, config):
     z, eps = (torch.from_numpy(rng.randn(4, cfg["num_latents"]).astype(np.float32)) for _ in range(2))
     counts = [(rt.rgb_beta_tail, "launches"), (rt.rgb_beta_tail, "launches_bf16"), (rh.rgb_beta_head, "launches"),
               (rh.rgb_beta_head, "launches_bf16"), (mk.mdblock_fused, "launches"),
-              (mk.mdblock_fused, "launches_bf16")]
+              (mk.mdblock_fused, "launches_bf16"), (rt.rgb_beta_tail, "launches_bwd"),
+              (rt.rgb_beta_tail, "launches_bwd_bf16")]
     metrics = []
     for device in (cuda, "cpu"):
         state = ts.init_train_state(module, {k: v.to(device) for k, v in variables.items()}, cfg)
@@ -456,7 +458,7 @@ def test_bf16_train_steps_on_the_card_launch_only_the_bf16_tail(cuda, config):
         state, m_g = gen_step(state, *batch, 2e-4)
         state, m_d = discrim_step(state, *batch, 2e-4)
         launched = [getattr(fn, attr) - b for (fn, attr), b in zip(counts, before)]
-        assert launched == ([0, 4, 0, 0, 0, 0] if device is cuda else [0] * 6), launched
+        assert launched == ([0, 4, 0, 0, 0, 0, 0, 3] if device is cuda else [0] * 8), launched
         assert all(t.dtype == torch.float32 for p in ("gen", "latent", "discrim") for t in state["parts"][p].values())
         metrics.append({k: float(v) for m in (m_g, m_d) for k, v in m.items()})
     for k, want in metrics[1].items():
@@ -873,3 +875,87 @@ def test_a_new_lr_between_chunks_is_honoured_without_a_new_capture(cuda):
         scale = float(w.abs().max()) if w.is_floating_point() and w.numel() else 1.0
         np.testing.assert_allclose(g_flat[path].cpu().numpy(), w.cpu().numpy(), rtol=0, atol=1e-7 * scale,
                                    err_msg=str(path))
+
+
+# --- the RGB-Beta head's backward kernels (npe_tpu's `_tail_bwd`, `_head_bwd`)
+
+
+def _assert_close_of_largest(got, want, what):
+    """float32: rtol 1e-3 / atol 1e-4 of the largest value (the same sums in
+    another order; the taps' gradients sum over every cell of the batch)."""
+    assert got.dtype == want.dtype and got.shape == want.shape and bool(torch.isfinite(got).all()), what
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4 * float(want.abs().max()), msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,cells", [(1, (16, 16)), (16, (16, 16)), (128, (16, 16)), (3, (2, 5)), (2, (6, 77))])
+def test_rgb_beta_tail_backward_kernels_match_plain(cuda, batch, cells):
+    """dtrunk, dtg and dtb from the backward kernels against
+    `rgb_beta_tail_backward_reference`, counted once in `launches_bwd`; the
+    trunk's gradient alone when the taps' are not asked for; the taps'
+    partial sums added in a fixed order, so two calls are bit-equal."""
+    _, _, trunk, tg, tb = _head_inputs(batch, 2, cuda, cells=cells)
+    g = torch.randn((batch, 48) + cells, generator=torch.Generator(device=cuda).manual_seed(batch), device=cuda)
+    want = rt.rgb_beta_tail_backward_reference(g, trunk, tg, tb)
+    got = rt._launch_bwd(g, trunk, tg, tb)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dtrunk", "dtg", "dtb"), got, want):
+        _assert_close_of_largest(a, b, what)
+    assert all(torch.equal(a, b) for a, b in zip(rt._launch_bwd(g, trunk, tg, tb), got))
+    only = rt._launch_bwd(g, trunk, tg, tb, need_taps=False)
+    assert only[1:] == (None, None) and torch.equal(only[0], got[0])
+    leaves = [t.clone().requires_grad_(i == 0) for i, t in enumerate((trunk, tg, tb))]
+    before = (rt.rgb_beta_tail.launches_bwd, rt.rgb_beta_tail.launches_bwd_bf16)
+    (dtrunk,) = torch.autograd.grad(rt.rgb_beta_tail(*leaves), leaves[0], g)
+    assert (rt.rgb_beta_tail.launches_bwd, rt.rgb_beta_tail.launches_bwd_bf16) == (before[0] + 1, before[1])
+    assert torch.equal(dtrunk, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,trunk_dtype", [(1, BF16), (16, BF16), (128, BF16), (1, torch.float32),
+                                               (16, torch.float32)])
+def test_bf16_rgb_beta_tail_backward_kernels_match_plain_and_the_vjp(cuda, batch, trunk_dtype):
+    """The bf16 form over a bf16 trunk (the hybrid head's) and over a float32
+    one (the fused head's): within 4 bf16 steps of its plain version and of
+    the bf16 VJP, dtrunk in the trunk's dtype."""
+    _, _, trunk, tg, tb = _head_inputs(batch, 2, cuda)
+    trunk, tg, tb = trunk.to(trunk_dtype), tg.to(BF16), tb.to(BF16)
+    g = torch.randn((batch, 48, 16, 16), generator=torch.Generator(device=cuda).manual_seed(7), device=cuda).to(BF16)
+    got = rt._launch_bwd(g, trunk, tg, tb)
+    torch.cuda.synchronize()
+    leaves = [t.clone().requires_grad_(True) for t in (trunk, tg, tb)]
+    vjp = torch.autograd.grad(rt.rgb_beta_tail_reference(*leaves), leaves, g)
+    for a, b, c in zip(got, rt.rgb_beta_tail_backward_reference(g, trunk, tg, tb), vjp):
+        assert a.dtype == b.dtype == c.dtype
+        for want in (b, c):
+            _within_bf16_steps(a.to(BF16) if a.dtype != BF16 else a, want.to(BF16), points=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,channels,dtype", [(1, 64, torch.float32), (8, 64, torch.float32),
+                                                  (1, 128, torch.float32), (2, 7, torch.float32),
+                                                  (1, 64, BF16), (8, 64, BF16), (1, 128, BF16)])
+def test_rgb_beta_head_backward_kernels_match_plain(cuda, batch, channels, dtype):
+    """x's gradient through the head's backward kernels (counted once in
+    `launches_bwd` / `launches_bwd_bf16`) against
+    `rgb_beta_head_backward_reference` on the forward's own trunk: float32 at
+    rtol 1e-3 / atol 1e-4 of the largest, bf16 within 4 steps of it and of
+    the bf16 VJP."""
+    x, tr, _, tg, tb = (t.to(dtype) for t in _head_inputs(batch, channels, cuda))
+    g = 4 * torch.randn((batch, 3, 64, 64), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    g = g.to(dtype)  # dx has a std near 0.3, above _within_bf16_steps' floor at C = 128
+    xg = x.clone().requires_grad_(True)
+    out = rh.rgb_beta_head(xg, tr, tg, tb, HEAD_SCALES)
+    trunk = out.grad_fn.saved_tensors[4]
+    attr = "launches_bwd_bf16" if dtype == BF16 else "launches_bwd"
+    before = getattr(rh.rgb_beta_head, attr)
+    (got,) = torch.autograd.grad(out, xg, g)
+    torch.cuda.synchronize()
+    assert getattr(rh.rgb_beta_head, attr) == before + 1 and trunk.dtype == torch.float32
+    want = rh.rgb_beta_head_backward_reference(g, trunk, tr, tg, tb, HEAD_SCALES)
+    if dtype == BF16:
+        (vjp,) = torch.autograd.grad(rh.rgb_beta_head_reference(xg, tr, tg, tb, HEAD_SCALES), xg, g)
+        _within_bf16_steps(got, want, points=4)
+        _within_bf16_steps(got, vjp, points=4)
+    else:
+        _assert_close_of_largest(got, want, "dx")

@@ -233,8 +233,10 @@ def test_head_gradients_match_jax(mode):
 
 
 def test_kernel_backward_is_the_plain_versions_vjp():
-    """On the GPU the autograd.Function's backward calls `vjp_of_plain`; here
-    it is held to autograd through the plain version, taps included."""
+    """`vjp_of_plain`, the backward both autograd.Functions had before their
+    backward kernels and the head's taps' gradients still use on the GPU
+    (the trunk's and x's are kernels: tests/test_torch_rgb_beta_backward.py),
+    held to autograd through the plain version, taps included."""
     trunk, tg, tb = _tail_inputs(1, 6)
     ins = [tp.nchw(trunk), torch.from_numpy(tg), torch.from_numpy(tb)]
     g = torch.randn(1, 3 * RR, 16, 16, generator=torch.Generator().manual_seed(0))
