@@ -439,7 +439,7 @@ def time_mdblock_backward(variables, name, channels, size, scales, batch, seed, 
     the backward on the stream of its forward, so both are captured); the
     fused form's forward and backward under autograd beside it; the
     backward's bound. Returns {"ms", "plain_ms", "per_op_ms", "fused_fwd_bwd_ms",
-    "per_op_fwd_bwd_ms", "bound_ms", "bound_by"}."""
+    "per_op_fwd_bwd_ms", "bound_ms", "bound_by", "launches_per_call"}."""
     from npe_tpu_torch.models import common
     from npe_tpu_torch.ops.kernels import mdblock as mk
     from npe_tpu_torch.utils.timing import graph_ms
@@ -452,10 +452,9 @@ def time_mdblock_backward(variables, name, channels, size, scales, batch, seed, 
     xg = x.clone().requires_grad_(True)
     out = mk.mdblock_fused(xg, t1, t2, aff, scales)  # kept alive: y is one of its saved tensors
     h1, y = out.grad_fn.saved_tensors[4:]
-    launch = mk._launch_bwd_bf16 if bf16 else mk._launch_bwd_float32
-    assert launch(g, x, y, h1, t1, t2, aff, scales)[1] == 0
+    assert mk._launch_bwd(g, x, y, h1, t1, t2, aff, scales)[1] == 0
     reps = dict(iters=5, reps=4) if batch == 128 else dict(iters=20)
-    k_ms = graph_ms(lambda: launch(g, x, y, h1, t1, t2, aff, scales), **reps)
+    k_ms = graph_ms(lambda: mk._launch_bwd(g, x, y, h1, t1, t2, aff, scales), **reps)
     plain = functools.partial(mk.mdblock_taps_reference, scales=scales)
     p_ms = graph_ms(lambda: mk.vjp_of_plain(plain, (True, False, False, False), (x, t1, t2, aff), g), **reps)
     def block(h):
@@ -475,13 +474,16 @@ def time_mdblock_backward(variables, name, channels, size, scales, batch, seed, 
     with torch.no_grad():
         o_f_ms = graph_ms(lambda: block(x), **reps)
     bound = mdblock_bound_ms(batch, channels, size, scales, "bf16" if bf16 else "3xtf32", backward=True)
+    plan = mk.bwd_plan(*x.shape, scales, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)
     log(f"[time] mdblock_bwd{'_bf16' if bf16 else ''} {size}x{size}x{channels} batch {batch}, x's gradient, device "
-        f"time (CUDA graph): kernels {k_ms:.5f} ms, plain VJP (forward again, then its VJP) {p_ms:.5f} ms, the "
+        f"time (CUDA graph): kernels {k_ms:.5f} ms ({mk.bwd_launches(plan)} launches, {plan}), plain VJP (forward "
+        f"again, then its VJP) {p_ms:.5f} ms, the "
         f"per-op block's backward from the weights {o_fb_ms - o_f_ms:.5f} ms (forward and backward {o_fb_ms:.5f}, "
         f"forward {o_f_ms:.5f}), the fused block's forward and backward {fb_ms:.5f} ms, bound {bound[0]:.6f} ms "
         f"({bound[1]}) ({smi})")
     return {"ms": k_ms, "plain_ms": p_ms, "per_op_ms": o_fb_ms - o_f_ms, "fused_fwd_bwd_ms": fb_ms,
-            "per_op_fwd_bwd_ms": o_fb_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+            "per_op_fwd_bwd_ms": o_fb_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "launches_per_call": mk.bwd_launches(plan)}
 
 
 def mdblock_backward_entry(name, source, times):
@@ -529,10 +531,14 @@ def check_mdblock_backward(label, x, taps1, taps2, affines, scales):
     the largest value, bf16 within BF16_POINTS + 1 steps (the VJP's three
     rounding points, each MDCL^T's sum and dx, and one for a gradient; the
     kernels feed the float32 g_r and g_m1 to wgmma as bf16 pairs, which add
-    none). Returns the largest difference from the reference."""
+    none). Two more calls on the same inputs are bit-equal to autograd's.
+    The label names `bwd_plan`'s cut. Returns the largest difference from
+    the reference."""
     from npe_tpu_torch.ops.kernels import mdblock as mk
 
     bf16 = x.dtype == torch.bfloat16
+    plan = mk.bwd_plan(*x.shape, scales, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    label = f"{label} (backward {plan})"
     attr = "launches_bwd_bf16" if bf16 else "launches_bwd"
     xg = x.clone().requires_grad_(True)
     out = mk.mdblock_fused(xg, taps1, taps2, affines, scales)
@@ -544,6 +550,9 @@ def check_mdblock_backward(label, x, taps1, taps2, affines, scales):
     torch.cuda.synchronize()
     assert getattr(mk.mdblock_fused, attr) == before + 1, f"{label}: the backward kernels did not launch once"
     g = (2 * out.detach().float()).to(x.dtype)  # the cotangent autograd gave the backward
+    # two more calls on the same inputs (not counted): bit-equal to autograd's (fixed-order sums, no atomics)
+    again = [mk._launch_bwd(g, x, y, kept[4], taps1, taps2, affines, scales) for _ in range(2)]
+    assert all(rc == 0 and torch.equal(dx, got) for dx, rc in again), f"{label}: two calls are not bit-equal"
     ref = mk.mdblock_backward_reference(g, x, y, h1, taps1, taps2, affines, scales)
     xp = x.clone().requires_grad_(True)
     (vjp,) = torch.autograd.grad((mk.mdblock_taps_reference(xp, taps1, taps2, affines, scales).float() ** 2).sum(),
@@ -2852,7 +2861,8 @@ def main():
     log(f"[phase] 2 starts at {time.perf_counter() - started:.1f} s")
     # 2. Build: one nvcc per source, all started together
     names = build.kernel_names()
-    assert names == ["edit_tail", "mdblock", "mdblock_bf16", "rgb_beta_head", "rgb_beta_tail", "staging"], names
+    assert names == ["edit_tail", "mdblock", "mdblock_bf16", "mdblock_bwd", "rgb_beta_head", "rgb_beta_tail",
+                     "staging"], names
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         outputs = list(pool.map(build.build, names))
@@ -2946,6 +2956,14 @@ def main():
                          args, MDBLOCK_TOL, grad_atol_of_largest=True, grad_of=(1, 2, 3))
             worst["mdblock_bwd"] = max(worst["mdblock_bwd"], check_mdblock_backward(f"mdblock_bwd {case}", *args,
                                                                                       scales))
+    # the backward alone where its plan takes other branches: batch 128 (one slice, no cluster), slices
+    # without a cluster (16x16x256 at batch 3: five groups of one), a 4x16 map (patches cut by its edge)
+    bwd_cases = [(channels, (size, size), scales, 128) for _, channels, size, scales in MDBLOCK_SHAPES]
+    for channels, (h, w), scales, batch in bwd_cases + [(256, (16, 16), (0, 2, 3), 3), (32, (4, 16), (0, 2), 2)]:
+        x, t1, t2, aff = mdblock_inputs(batch, channels, int((h * w) ** 0.5), scales, 40 + batch, dev)
+        worst["mdblock_bwd"] = max(worst["mdblock_bwd"], check_mdblock_backward(
+            f"mdblock_bwd {h}x{w}x{channels} scales {list(scales)} batch {batch}", x.reshape(batch, channels, h, w),
+            t1, t2, aff, scales))
 
     log(f"[phase] 3b starts at {time.perf_counter() - started:.1f} s")
     # 3b. The bf16 forms of the three dtype-generic kernels, each against its
@@ -3491,8 +3509,8 @@ def main():
     # the backward kernels (x's gradient) at the same shapes, batch 1 and 8
     bwd_times = {(f"{size}x{size}x{channels}", batch): time_mdblock_backward(vi, name, channels, size, scales, batch,
                                                                              110 + batch, smi)
-                 for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8)}
-    entries.append(mdblock_backward_entry("mdblock_bwd", mk.SOURCE, bwd_times))
+                 for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8, 128)}
+    entries.append(mdblock_backward_entry("mdblock_bwd", mk.BWD_SOURCE, bwd_times))
     # the RGB-Beta head's backward kernels: the tail's at the stroke's batch
     # (first the trunk's gradient alone, the edit path's call: the entry),
     # with the taps' gradients at the stroke's, the training step's and a
@@ -3592,7 +3610,7 @@ def main():
                                                                              120 + batch, smi, torch.bfloat16)
                  for name, channels, size, scales in MDBLOCK_SHAPES for batch in (1, 8, 128)}
     bf16_times["mdblock_bwd_bf16_blocks"] = {f"{shape} batch {batch}": t for (shape, batch), t in bwd_times.items()}
-    entries.append(mdblock_backward_entry("mdblock_bwd_bf16", mk.BF16_SOURCE, bwd_times))
+    entries.append(mdblock_backward_entry("mdblock_bwd_bf16", mk.BWD_SOURCE, bwd_times))
     # the bf16 RGB-Beta head backwards, as in float32; the tail's over a bf16
     # trunk, and once over the fused head's float32 one
     half = torch.bfloat16

@@ -76,28 +76,13 @@
 // This file is the float32 form. The bf16 form is mdblock_bf16.cu, a kernel
 // of its own (wgmma over tap tiles and halo tiles brought by TMA).
 //
-// The input gradient (npe_tpu's `_fused_bwd`, the VJP of the reference), for
-// a cotangent g of y and the forward's h1 and y:
-//
-//   g_r  = s2 * lrelu'(a2) * g                   lrelu'(a2) from the sign of y
-//   g_m1 = s1 * lrelu'(a1) * MDCL2^T(g_r)        lrelu'(a1) from the sign of h1
-//   dx   = g_r + s0 * lrelu'(s0 * x + t0) * MDCL1^T(g_m1)
-//   MDCL^T(g)[ci, p] = sum_t sum_co g[co, p - offset_t] * taps[t, ci, co]
-//
-// with lrelu'(a) = 1 for a > 0, else 0.2 (torch's and JAX's VJPs give 0.2 at
-// 0). The offsets of a branch are symmetric, offset_t = -offset_m(t) with
-// m(t) = 9 floor(t / 9) + 8 - t mod 9, so MDCL^T is an MDCL over the same
-// offsets whose tap t is taps[m(t)] transposed: the same product kernel
-// (mdcl_bwd_kernel) reads the taps as they lie, row ci of the tile's output
-// channels holding the 16 input channels co of a step, and its epilogues are
-// the two lines above. A first launch (bwd_prologue_kernel) writes g_r.
-// Three to five launches, the slices summed in a fixed order as in the
-// forward (no atomics); the same 3xTF32 products.
-//
 // Left for a later change: staging that moves fewer bytes per product (a
 // halo tile of the activations shared by all taps of a branch; TMA for the
 // tap tiles, split once per call rather than per tile), then wgmma behind
-// it.
+// it. mdblock_bwd.cu's input gradient has both.
+//
+// The input gradient (npe_tpu's `_fused_bwd`) is mdblock_bwd.cu's, a kernel
+// of its own over pixel-major operands.
 
 #include <cuda_runtime.h>
 
@@ -136,23 +121,6 @@ __device__ __forceinline__ float4 epilogue(float4 v, const float* resid, float s
                      lrelu(fmaf(s, v.w, t)));
 }
 
-// lrelu'(a) * v: v where a > 0, else 0.2 v (0.2 at a = 0, as torch's VJP).
-__device__ __forceinline__ float slope(float a, float v) { return a > 0.0f ? v : v * 0.2f; }
-
-// The backward's epilogues of a finished sum v of channel c at element `at`,
-// aff the (6, channels) affines:
-//   mode 1 (after MDCL2^T): g_m1 = s1 * lrelu'(a1) * v, a1's sign that of mask = h1
-//   mode 2 (after MDCL1^T): dx = g_r + s0 * lrelu'(a0) * v, a0 = s0 * x + t0
-//                           recomputed from mask = x unfused (as the plain
-//                           version forms it), resid = g_r
-__device__ __forceinline__ float bwd_finish(int mode, float v, size_t at, int c, const float* __restrict__ aff,
-                                            const float* __restrict__ mask, const float* __restrict__ resid,
-                                            int channels) {
-  if (mode == 1) return slope(mask[at], v) * __ldg(aff + 2 * channels + c);
-  const float s0 = __ldg(aff + c);
-  return resid[at] + slope(__fadd_rn(__fmul_rn(mask[at], s0), __ldg(aff + channels + c)), v) * s0;
-}
-
 // v = hi + lo, both TF32 (cvt.rna: round to nearest, ties away from zero).
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
@@ -182,17 +150,13 @@ __device__ __forceinline__ void mma_tf32_first(float c[4], const uint32_t a[4], 
 //   aff_in   rows (s, t) of the prologue lrelu(s * in + t), or null: in as it is
 //   taps     (9 * branches.n, channels, channels)
 //   aff_out  null: dst is the partial sums (batch, slices, channels, height, width);
-//            else dst is the finished map, and aff_out the rows (s, t) of the
-//            forward's epilogue or (kBwd) the six rows of the affines
-//   resid    added before the forward's epilogue affine, or (kBwd) g_r; or null
-//   mask, mode  kBwd: the epilogue's (bwd_finish)
-// kBwd: MDCL^T, tap t read as taps[m(t)] transposed (the header).
-template <bool kBwd>
-__device__ __forceinline__ void mdcl_tile(const float* __restrict__ in, const float* __restrict__ aff_in,
-                                          const float* __restrict__ taps, const Branches& branches,
-                                          float* __restrict__ dst, const float* __restrict__ aff_out,
-                                          const float* __restrict__ resid, const float* __restrict__ mask,
-                                          int mode, int channels, int height, int width, int units_per_split) {
+//            else rows (s, t) of the epilogue and dst is the finished map
+//   resid    added before the epilogue's affine, or null
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+mdcl_kernel(const float* __restrict__ in, const float* __restrict__ aff_in,
+            const float* __restrict__ taps, Branches branches, float* __restrict__ dst,
+            const float* __restrict__ aff_out, const float* __restrict__ resid, int channels,
+            int height, int width, int units_per_split) {
   // (stage, hi / lo, input channel x pixel) and (stage, hi / lo, input
   // channel x output channel)
   extern __shared__ __align__(16) float smem[];
@@ -206,12 +170,11 @@ __device__ __forceinline__ void mdcl_tile(const float* __restrict__ in, const fl
   const int grp = lane / 4, tig = lane % 4;                 // the fragments' row group and column
   const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);   // the warp's pixels and channels in the tile
   // What this thread stages: one pixel of the input channels lk, lk + 4, ..;
-  // and four output channels of the tap rows wr and wr + 8 or (kBwd) the
-  // eight input channels wr.. of output channel wc.
+  // and four output channels of the tap rows wr and wr + 8.
   const int lp = tid % kTileP, lk = tid / kTileP;
   const int pix = tile_p * kTileP + lp;
   const int py = pix / width, px = pix % width;
-  const int wc = kBwd ? tid % kTileC : 4 * (tid % 32), wr = kBwd ? 8 * (tid / kTileC) : tid / 32;
+  const int wc = 4 * (tid % 32), wr = tid / 32;
   const bool wc_ok = tile_c * kTileC + wc < channels;
   const int units_per_tap = channels / kStep;
 
@@ -245,20 +208,11 @@ __device__ __forceinline__ void mdcl_tile(const float* __restrict__ in, const fl
       a_next[e] = inside_next
                       ? __ldg(in + (static_cast<size_t>(n) * channels + c_next + 4 * e) * hw + y * width + x)
                       : 0.0f;
-    if constexpr (kBwd) {
-      // row wc of the mirrored tap's matrix: its input channels c0 + wr..
-      const int tm = 9 * (t / 9) + 8 - t % 9;
-      const float* wsrc = taps + (static_cast<size_t>(tm) * channels + tile_c * kTileC + wc) * channels + c0 + wr;
+    const float* wsrc = taps + (static_cast<size_t>(t) * channels + c0 + wr) * channels + tile_c * kTileC + wc;
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        w_next[e] = wc_ok ? __ldg(reinterpret_cast<const float4*>(wsrc + 4 * e)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    } else {
-      const float* wsrc = taps + (static_cast<size_t>(t) * channels + c0 + wr) * channels + tile_c * kTileC + wc;
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        w_next[e] = wc_ok ? __ldg(reinterpret_cast<const float4*>(wsrc + static_cast<size_t>(8 * e) * channels))
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
+    for (int e = 0; e < 2; ++e)
+      w_next[e] = wc_ok ? __ldg(reinterpret_cast<const float4*>(wsrc + static_cast<size_t>(8 * e) * channels))
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   };
   // The prologue on the activations, then both operands split into stage s.
   auto store = [&](int s) {
@@ -280,17 +234,8 @@ __device__ __forceinline__ void mdcl_tile(const float* __restrict__ in, const fl
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) split_tf32(v[q], hi[q], lo[q]);
-      if constexpr (kBwd) {
-        // one column of eight stage rows; a warp's 32 columns hit 32 banks
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          ws[s][0][(wr + 4 * e + q) * kRowW + wc] = __uint_as_float(hi[q]);
-          ws[s][1][(wr + 4 * e + q) * kRowW + wc] = __uint_as_float(lo[q]);
-        }
-      } else {
-        *reinterpret_cast<uint4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(&ws[s][1][(wr + 8 * e) * kRowW + wc]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      }
+      *reinterpret_cast<uint4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(&ws[s][1][(wr + 8 * e) * kRowW + wc]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
   };
 
@@ -367,38 +312,14 @@ __device__ __forceinline__ void mdcl_tile(const float* __restrict__ in, const fl
           const size_t at = (image * channels + co) * hw + tile_p * kTileP + wm + 16 * i + grp + 8 * lower;
           float v = acc[i][j][2 * lower + odd];
           if (aff_out != nullptr) {
-            if constexpr (kBwd) {
-              v = bwd_finish(mode, v, at, co, aff_out, mask, resid, channels);
-            } else {
-              if (resid != nullptr) v += resid[at];
-              v = lrelu(fmaf(s_out, v, t_out));
-            }
+            if (resid != nullptr) v += resid[at];
+            v = lrelu(fmaf(s_out, v, t_out));
           }
           dst[at] = v;
         }
       }
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-mdcl_kernel(const float* __restrict__ in, const float* __restrict__ aff_in,
-            const float* __restrict__ taps, Branches branches, float* __restrict__ dst,
-            const float* __restrict__ aff_out, const float* __restrict__ resid, int channels,
-            int height, int width, int units_per_split) {
-  mdcl_tile<false>(in, aff_in, taps, branches, dst, aff_out, resid, nullptr, 0, channels, height, width,
-                   units_per_split);
-}
-
-// The backward's MDCL^T: in is g_r or g_m1; aff_out null (partial sums) or
-// the affines, with the epilogue `mode` of bwd_finish.
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-mdcl_bwd_kernel(const float* __restrict__ in, const float* __restrict__ taps, Branches branches,
-                float* __restrict__ dst, const float* __restrict__ aff_out, const float* __restrict__ resid,
-                const float* __restrict__ mask, int mode, int channels, int height, int width,
-                int units_per_split) {
-  mdcl_tile<true>(in, nullptr, taps, branches, dst, aff_out, resid, mask, mode, channels, height, width,
-                  units_per_split);
 }
 
 // out[n, c, p] = lrelu(s[c] * (sum over the slices, in order, of partial[n, slice, c, p]
@@ -420,65 +341,6 @@ add_slices_kernel(const float* __restrict__ partial, const float* __restrict__ a
   const size_t at = static_cast<size_t>(blockIdx.y) * per_image + i;
   *reinterpret_cast<float4*>(out + at) =
       epilogue(v, resid == nullptr ? nullptr : resid + at, __ldg(aff_out + c), __ldg(aff_out + channels + c));
-}
-
-// The backward's slice sums: dst[n, c, p] = bwd_finish(mode, sum over the
-// slices, in order, of partial[n, slice, c, p]), four pixels a thread.
-__global__ void __launch_bounds__(kThreads)
-add_slices_bwd_kernel(const float* __restrict__ partial, const float* __restrict__ aff,
-                      const float* __restrict__ mask, const float* __restrict__ resid, int mode,
-                      float* __restrict__ out, int splits, int channels, int hw) {
-  const int per_image = channels * hw;
-  const int i = 4 * (blockIdx.x * kThreads + threadIdx.x);
-  if (i >= per_image) return;
-  const float* p = partial + static_cast<size_t>(blockIdx.y) * splits * per_image + i;
-  float4 v = *reinterpret_cast<const float4*>(p);
-  for (int k = 1; k < splits; ++k) {
-    const float4 q = *reinterpret_cast<const float4*>(p + static_cast<size_t>(k) * per_image);
-    v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
-  }
-  const int c = i / hw;
-  const size_t at = static_cast<size_t>(blockIdx.y) * per_image + i;
-  *reinterpret_cast<float4*>(out + at) =
-      make_float4(bwd_finish(mode, v.x, at, c, aff, mask, resid, channels),
-                  bwd_finish(mode, v.y, at + 1, c, aff, mask, resid, channels),
-                  bwd_finish(mode, v.z, at + 2, c, aff, mask, resid, channels),
-                  bwd_finish(mode, v.w, at + 3, c, aff, mask, resid, channels));
-}
-
-// g_r = s2 * lrelu'(a2) * g, lrelu'(a2) from the sign of y, four elements a
-// thread over the whole batch (count = batch * channels * hw).
-__global__ void __launch_bounds__(kThreads)
-bwd_prologue_kernel(const float* __restrict__ g, const float* __restrict__ y, const float* __restrict__ s2,
-                    float* __restrict__ gr, int channels, int hw, size_t count) {
-  const size_t i = 4 * (static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x);
-  if (i >= count) return;
-  const float4 gv = *reinterpret_cast<const float4*>(g + i), yv = *reinterpret_cast<const float4*>(y + i);
-  const float s = __ldg(s2 + (i / hw) % channels);
-  *reinterpret_cast<float4*>(gr + i) =
-      make_float4(slope(yv.x, gv.x) * s, slope(yv.y, gv.y) * s, slope(yv.z, gv.z) * s, slope(yv.w, gv.w) * s);
-}
-
-// One MDCL^T of the backward with its epilogue (bwd_finish's `mode`).
-cudaError_t mdcl_bwd(const float* in, const float* taps, const Branches& branches, float* partial, float* out,
-                     const float* aff, const float* mask, const float* resid, int mode, int batch, int channels,
-                     int height, int width, int splits, cudaStream_t s) {
-  const int hw = height * width;
-  const dim3 grid((hw / kTileP) * ((channels + kTileC - 1) / kTileC), splits, batch);
-  const int units_per_split = 9 * branches.n * (channels / kStep) / splits;
-  if (splits == 1) {
-    mdcl_bwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, taps, branches, out, aff, resid, mask, mode, channels,
-                                                       height, width, units_per_split);
-    return cudaGetLastError();
-  }
-  mdcl_bwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, taps, branches, partial, nullptr, nullptr, nullptr, mode,
-                                                     channels, height, width, units_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int quads = channels * hw / 4;
-  add_slices_bwd_kernel<<<dim3((quads + kThreads - 1) / kThreads, batch), kThreads, 0, s>>>(
-      partial, aff, mask, resid, mode, out, splits, channels, hw);
-  return cudaGetLastError();
 }
 
 cudaError_t mdcl(const float* in, const float* aff_in, const float* taps, const Branches& branches,
@@ -532,41 +394,5 @@ extern "C" int npe_mdblock(const void* x, const void* taps1, const void* taps2, 
   err = mdcl(static_cast<const float*>(h1), nullptr, static_cast<const float*>(taps2), branches,
              static_cast<float*>(partial), static_cast<float*>(out), af + 4 * channels, xf, batch,
              channels, height, width, splits, s);
-  return static_cast<int>(err);
-}
-
-// The input gradient of npe_mdblock (the header's three lines). g (y's
-// cotangent), x, y, h1 (the forward's output and scratch), dx: (batch,
-// channels, height, width) float32 NCHW; gr, gm1: scratch of that size (g_r
-// and g_m1); taps1, taps2, aff, partial, splits, dilations as for
-// npe_mdblock (the same rule for splits). Three to five launches on
-// `stream`; returns the first CUDA error code (0 = all launched).
-extern "C" int npe_mdblock_bwd(const void* g, const void* x, const void* y, const void* h1, const void* taps1,
-                               const void* taps2, const void* aff, void* gr, void* gm1, void* partial, void* dx,
-                               int batch, int channels, int height, int width, int n_branches,
-                               const int* dilations, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_branches < 1 || n_branches > kMaxBranches || channels % kStep || (height * width) % kTileP || splits < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = npe::allow_dynamic_smem<mdcl_bwd_kernel>(kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Branches branches;
-  branches.n = n_branches;
-  for (int b = 0; b < kMaxBranches; ++b) branches.dilation[b] = b < n_branches ? dilations[b] : 0;
-  const int hw = height * width;
-  const size_t count = static_cast<size_t>(batch) * channels * hw;
-  const float* af = static_cast<const float*>(aff);
-  float* grf = static_cast<float*>(gr);
-  bwd_prologue_kernel<<<static_cast<unsigned>((count / 4 + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(y), af + 4 * channels, grf, channels, hw, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = mdcl_bwd(grf, static_cast<const float*>(taps2), branches, static_cast<float*>(partial),
-                 static_cast<float*>(gm1), af, static_cast<const float*>(h1), nullptr, 1, batch, channels, height,
-                 width, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = mdcl_bwd(static_cast<const float*>(gm1), static_cast<const float*>(taps1), branches,
-                 static_cast<float*>(partial), static_cast<float*>(dx), af, static_cast<const float*>(x), grf, 2,
-                 batch, channels, height, width, splits, s);
   return static_cast<int>(err);
 }

@@ -37,10 +37,10 @@ tile per 8x8 patch and 64-channel chunk shared by all taps, the taps as they
 lie. Its tiles and slices come from `bf16_plan`. `mdblock_fused.launches` counts the float32 form's
 calls, `mdblock_fused.launches_bf16` the bf16 form's.
 
-x's gradient (npe_tpu's `_fused_bwd`) is hand-written too, in both forms
-(`npe_mdblock_bwd` in mdblock.cu, `npe_mdblock_bwd_bf16` in
-mdblock_bf16.cu): from a cotangent g of y, and the h1 and y the forward
-keeps when autograd will need them,
+x's gradient (npe_tpu's `_fused_bwd`) is hand-written too, in both forms,
+in a source of its own (`npe_tpu_torch/csrc/mdblock_bwd.cu`:
+`npe_mdblock_bwd`, `npe_mdblock_bwd_bf16`): from a cotangent g of y, and
+the h1 and y the forward keeps when autograd will need them,
 
     g_r  = s2 * lrelu'(a2) * g                  (lrelu'(a2) from the sign of y)
     g_m1 = s1 * lrelu'(a1) * MDCL2^T(g_r)       (lrelu'(a1) from the sign of h1)
@@ -48,9 +48,12 @@ keeps when autograd will need them,
 
 with lrelu'(a) = 1 for a > 0, else 0.2, and MDCL^T the MDCL over the same
 offsets whose tap t is the mirrored tap's matrix transposed
-(`mdcl_transposed`). The same product kernels as the forward's run it, the
-taps read as they lie; in bf16, g_r and g_m1 go to the tensor cores as a
-pair of bf16 operands (`bf16_pair`), since the VJP keeps them float32.
+(`mdcl_transposed`). g_r and g_m1 are written pixel-major as operand pairs
+(TF32 hi and lo in float32, `tf32_split`; bf16 hi and lo in bf16,
+`bf16_pair`), and each MDCL^T runs on wgmma over halo tiles of those pairs
+and tap tiles as they lie, both brought by the tensor memory accelerator;
+at one image its slices are summed inside a thread-block cluster. Its
+tiles, stages, slices and clusters come from `bwd_plan`.
 `mdblock_backward_reference` is its plain version.
 `mdblock_fused.launches_bwd` and `.launches_bwd_bf16` count its calls.
 """
@@ -67,6 +70,7 @@ from npe_tpu_torch.ops.kernels.rgb_beta_tail import check_tensors, count_launch,
 
 SOURCE = "npe_tpu_torch/csrc/mdblock.cu"
 BF16_SOURCE = "npe_tpu_torch/csrc/mdblock_bf16.cu"
+BWD_SOURCE = "npe_tpu_torch/csrc/mdblock_bwd.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
 REPLACES_BWD = "npe_tpu/ops/pallas/mdcl_kernels.py:155"  # `_fused_bwd`, the custom VJP's backward
 TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 128 channels
@@ -85,6 +89,23 @@ BF16_MIN_UNITS = 4  # units a slice takes at least: the tap ring's depth
 BF16_STAGES, BF16_ROWS_STAGE_BYTES = 4, 64 * 64 * 2
 SMEM_PER_BLOCK = 227 * 1024  # the most dynamic shared memory a block may take on the H100
 SMEM_PER_SM = 228 * 1024  # what the SM has for its blocks, 1 KB of it reserved per block
+# The backward kernels (mdblock_bwd.cu): a unit is one tap by a chunk of 128
+# bytes of input channels a pixel (32 float32, 64 bf16); a tile is an 8x8
+# patch by 128 (or 256) output channels; a tap stage is 16 KB a 128 of them
+# (float32: and its TF32 lo, as much again); a halo tile is (8 + 2R)^2 pixels
+# by the chunk.
+BWD_CHUNK_BYTES, BWD_TAP_BYTES = 128, 16 * 1024
+BWD_STAGES = {False: (3, 4), True: (4, 6)}  # the fewest and the most tap stages: float32, bf16
+BWD_MIN_UNITS = 4  # units a slice takes at least
+MAX_CLUSTER = 8  # blocks of a cluster, the portable most
+# Clusters of n backward blocks (one an SM) the H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters, `npe_mdblock_bwd_clusters`): its GPCs
+# fit 15 clusters of 8, not 132 / 8.
+CLUSTER_SLOTS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# What a cluster's second sum launch costs, in units of a slice's work
+# (`scripts/kernel_sweep.py mdblock_bwd plan` at full IAN's shapes, batch 1,
+# 2 and 8).
+BWD_GROUP_COST = 2
 
 
 def dilations(scales):
@@ -278,25 +299,97 @@ def bf16_plan(batch, channels, height, width, scales, sm_count):
     return BF16Plan(halo, sub, tile_channels, splits)
 
 
+BwdPlan = namedtuple("BwdPlan", "sub_tiles tile_channels stages halo_buffers splits cluster smem")
+
+
+def bwd_smem_bytes(bf16, sub_tiles, stages, halo_buffers, radius, tile_channels=TILE_CHANNELS):
+    """Dynamic shared memory of one block of the backward kernel: the tap
+    ring (a stage of `tile_channels` output channels), per patch
+    `halo_buffers` pairs of (hi, lo) halo tiles, and two 8-byte barriers a
+    stage (room for eight)."""
+    halo = (8 + 2 * radius) ** 2 * BWD_CHUNK_BYTES
+    tap = BWD_TAP_BYTES * tile_channels // TILE_CHANNELS * (1 if bf16 else 2)
+    return stages * tap + sub_tiles * halo_buffers * 2 * halo + 2 * 8 * 8
+
+
+def bwd_plan(batch, channels, height, width, scales, dtype, sm_count):
+    """How the backward kernel cuts each MDCL^T (a stated rule, the same on
+    every call of a shape):
+    - tiles: 8x8 patches (partial ones masked) by `tile_channels` output
+      channels;
+    - sub_tiles: in bf16, two patches a block over the same tap stages once
+      the tiles give every SM two; else one (float32 always: its consumers
+      split the tap tile);
+    - tile_channels: with two patches a block and C >= 256, 256 output
+      channels a block (half the tap tiles' traffic a product) where its
+      ring fits beside one halo buffer; else 128;
+    - halo_buffers, stages: two halo buffers (the next chunk's tiles land
+      while this one's taps run) and as many tap stages as fit 227 KB
+      (float32 3 to 4, bf16 4 to 6); in bf16 one halo buffer where two do not
+      fit; ValueError if nothing fits;
+    - splits, cluster: slices of the units (chunks x taps), the slices of a
+      tile cut into groups of `cluster` blocks, each group summed in one
+      cluster's shared memory and the groups, where there are more than one,
+      by a second launch. Among the cuts whose blocks run at once (at most
+      one an SM, and at most CLUSTER_SLOTS[cluster] clusters) with at least
+      BWD_MIN_UNITS units a slice, the one with the least units a slice plus
+      BWD_GROUP_COST per group past the first; ties to the larger cluster.
+      One slice once two patches share a block (the batch fills the card)."""
+    bf16 = dtype in (torch.bfloat16, "bfloat16")
+    radius = max(dilations(scales))
+    patches = batch * -(-height // 8) * -(-width // 8)
+    tiles_c = -(-channels // TILE_CHANNELS)
+    units = -(-channels * (2 if bf16 else 4) // BWD_CHUNK_BYTES) * 9 * len(dilations(scales))
+    sub = 2 if bf16 and patches * tiles_c >= 2 * sm_count else 1
+    fewest, most = BWD_STAGES[bf16]
+    wide = sub == 2 and channels >= 256 and bwd_smem_bytes(bf16, sub, fewest, 1, radius, 256) <= SMEM_PER_BLOCK
+    tile_channels = 256 if wide else TILE_CHANNELS
+    for halo_buffers in (2, 1) if bf16 else (2,):
+        fits = [n for n in range(most, fewest - 1, -1)
+                if bwd_smem_bytes(bf16, sub, n, halo_buffers, radius, tile_channels) <= SMEM_PER_BLOCK]
+        if fits:
+            break
+    else:
+        raise ValueError(f"mdblock's backward: a halo of radius {radius} does not fit a block's shared memory")
+    tiles = -(-patches // sub) * -(-channels // tile_channels)
+    best = (units, -1, 1, 1)  # (cost, -cluster, splits, cluster): one slice
+    for splits in range(2, units // BWD_MIN_UNITS + 1) if sub == 1 else ():
+        for cluster in range(1, min(MAX_CLUSTER, splits) + 1):
+            if splits % cluster or tiles * splits > sm_count or \
+                    tiles * splits // cluster > min(CLUSTER_SLOTS[cluster], sm_count // cluster):
+                continue
+            cost = -(-units // splits) + BWD_GROUP_COST * (splits // cluster - 1)
+            best = min(best, (cost, -cluster, splits, cluster))
+    *_, splits, cluster = best
+    return BwdPlan(sub, tile_channels, fits[0], halo_buffers, splits, cluster,
+                   bwd_smem_bytes(bf16, sub, fits[0], halo_buffers, radius, tile_channels))
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _entry(bf16, backward=False):
-    """The C entry point of a form (`npe_mdblock[_bwd][_bf16]`)."""
-    lib = build.load("mdblock_bf16" if bf16 else "mdblock")
+    """The C entry point of a form (`npe_mdblock[_bf16]`, `npe_mdblock_bwd[_bf16]`)."""
+    lib = build.load("mdblock_bwd" if backward else "mdblock_bf16" if bf16 else "mdblock")
     fn = getattr(lib, "npe_mdblock" + ("_bwd" if backward else "") + ("_bf16" if bf16 else ""))
-    plan = [_I] * 4 if bf16 else [_I]  # sub_tiles, halo, tile_channels, splits; or splits
-    if backward:  # g, x, y, h1, taps1, taps2, aff, gr, gm1, partial, dx
-        fn.argtypes = [_P] * 11 + [_I] * 5 + [_P] + plan + [_P]
-    else:  # x, taps1, taps2, aff, [act,] h1, partial, out
-        fn.argtypes = [_P] * (8 if bf16 else 7) + [_I] * 5 + [_P] + plan + [_P]
+    if backward:  # g, x, y, h1, taps1, taps2, aff, gr, gm1, partial, dx; the shape; dilations; the BwdPlan
+        fn.argtypes = [_P] * 11 + [_I] * 5 + [_P] + [_I] * 6 + [_P]
+    else:  # x, taps1, taps2, aff, [act,] h1, partial, out; the shape; dilations; the plan
+        fn.argtypes = [_P] * (8 if bf16 else 7) + [_I] * 5 + [_P] + ([_I] * 4 if bf16 else [_I]) + [_P]
     fn.restype = ctypes.c_int
     return fn
 
 
+def bwd_launches(plan):
+    """Launches of one backward call on `plan`: the prologue and the two
+    MDCL^T, and after each of those its clusters' sum where a tile's slices
+    outnumber a cluster."""
+    return 3 if plan.splits == plan.cluster else 5
+
+
 def _splits(x, scales):
-    """`inner_splits` for the float32 kernel at x's shape (both directions)."""
+    """`inner_splits` for the float32 kernel at x's shape."""
     n, c, h, w = x.shape
     tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -304,7 +397,7 @@ def _splits(x, scales):
 
 
 def _plan(x, scales):
-    """`bf16_plan` at x's shape (both directions)."""
+    """`bf16_plan` at x's shape."""
     n, c, h, w = x.shape
     return bf16_plan(n, c, h, w, scales, torch.cuda.get_device_properties(x.device).multi_processor_count)
 
@@ -352,28 +445,20 @@ def _launch_bf16(x, taps1, taps2, affines, scales):
     return out, h1, rc
 
 
-def _launch_bwd_float32(g, x, y, h1, taps1, taps2, affines, scales):
-    """The float32 backward's call (g_r, g_m1 and, as the forward, partial
-    sums for scratch). Returns (dx, the C function's return code)."""
-    n, c, h, w = x.shape
-    branches, splits = dilations(scales), _splits(x, scales)
-    gr, gm1, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    rc = _call(_entry(False, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1, _partial(x, splits), dx, n, c,
-               h, w, len(branches), branches, splits)
-    return dx, rc
-
-
-def _launch_bwd_bf16(g, x, y, h1, taps1, taps2, affines, scales):
-    """The bf16 backward's call on the forward's plan: scratch for the
-    (hi, lo) pairs of g_r and g_m1 (`bf16_pair`; pixel-major, the lo images
-    after the hi) and the partial sums; h1 the forward's (N, H, W, C).
+def _launch_bwd(g, x, y, h1, taps1, taps2, affines, scales, plan=None):
+    """The backward's call on `plan` (default `bwd_plan`'s): scratch for the
+    operand pairs of g_r and g_m1 (pixel-major, the lo images after the hi)
+    and, where a tile's slices outnumber a cluster, float32 partial sums of
+    the clusters; h1 in the forward's layout (float32 NCHW, bf16 NHWC).
     Returns (dx, the C function's return code)."""
     n, c, h, w = x.shape
-    branches, plan = dilations(scales), _plan(x, scales)
+    branches = dilations(scales)
+    if plan is None:
+        plan = bwd_plan(n, c, h, w, scales, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
     gr, gm1 = (torch.empty((2, n, h, w, c), dtype=x.dtype, device=x.device) for _ in range(2))
     dx = torch.empty_like(x)
-    rc = _call(_entry(True, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1, _partial(x, plan.splits), dx,
-               n, c, h, w, len(branches), branches, plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits)
+    rc = _call(_entry(x.dtype == torch.bfloat16, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1,
+               _partial(x, plan.splits // plan.cluster), dx, n, c, h, w, len(branches), branches, *plan[:6])
     return dx, rc
 
 
@@ -402,8 +487,7 @@ class _MDBlock(torch.autograd.Function):
         if need_x:
             bf16 = x.dtype == torch.bfloat16
             h1, y = kept
-            dx, rc = (_launch_bwd_bf16 if bf16 else _launch_bwd_float32)(
-                g.to(x.dtype).contiguous(), x, y, h1, taps1, taps2, affines, ctx.scales)
+            dx, rc = _launch_bwd(g.to(x.dtype).contiguous(), x, y, h1, taps1, taps2, affines, ctx.scales)
             if rc != 0:
                 raise RuntimeError(f"mdblock backward kernel launch failed with CUDA error {rc}")
             add_launches(mdblock_fused, "launches_bwd_bf16" if bf16 else "launches_bwd", tally=ctx.tally)

@@ -6,6 +6,8 @@
     python3 scripts/kernel_ab.py --wgmma                # scripts/mdblock_wgmma.cu's MDBLOCK
     git archive 76a5cfd npe_tpu_torch/csrc | tar -x -C scratch_archive/pr10
     python3 scripts/kernel_ab.py --mdblock-bf16 scratch_archive/pr10   # 76a5cfd's bf16 MDBLOCK
+    git archive 1f72098 npe_tpu_torch/csrc | tar -x -C scratch_archive/pr17
+    python3 scripts/kernel_ab.py --mdblock-bwd scratch_archive/pr17    # 1f72098's MDBLOCK backwards
 
 The earlier side is bound to commit 9a0f129 (edit_tail one block per image;
 the head's trunk as nine tap products over the space-to-depth(4) map, cut
@@ -39,6 +41,22 @@ launch floor, scripts/launch_floor.py). The yardstick, the trunk alone and
 the empty kernel are timed, not checked (their error is null). One line
 per case, and a JSON summary in runs/kernel_ab.json, runs/kernel_ab_wgmma.json
 or runs/kernel_ab_mdblock_bf16.json (git-ignored).
+
+`--mdblock-bwd` sets 1f72098's MDBLOCK backwards (`npe_mdblock_bwd` in its
+mdblock.cu: 3xTF32 mma.sync, slices by `inner_splits`; `npe_mdblock_bwd_bf16`
+in its mdblock_bf16.cu: wgmma with each tap tile read once a part, on
+`bf16_plan`) against the current ones (`csrc/mdblock_bwd.cu` through the
+wrapper's `_launch_bwd`, on `bwd_plan`), at full IAN's three shapes at batch
+1, 8 and 128 in float32 and bf16, and the two forwards (`npe_mdblock`,
+`npe_mdblock_bf16`: the same code on both sides, so a control of drift) at
+batch 1 and 128. Each side runs its own forward for the y and h1 its
+backward reads, holds the forward to `mdblock_taps_reference` (MDBLOCK_TOL;
+bf16 the bf16 rule) and the backward to `mdblock_backward_reference` (float32
+within MDBLOCK_BWD_TOL of the largest value; bf16 within BF16_POINTS + 1
+steps; its error is the worst fraction of that limit), then times both. In
+every process the per-op block's backward (cuDNN convolutions over the same
+taps, forward and backward less forward) is timed beside them as a second
+control. Summary in runs/kernel_ab_mdblock_bwd.json.
 """
 
 import ctypes
@@ -52,7 +70,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, ".")
-from chip_smoke import BF16_POINTS, BF16_STEP, HEAD_TOL, KERNEL_TOL, MDBLOCK_TOL  # noqa: E402
+from chip_smoke import (BF16_POINTS, BF16_STEP, HEAD_TOL, KERNEL_TOL, MDBLOCK_BWD_TOL,  # noqa: E402
+                        MDBLOCK_TOL, mdblock_inputs)
 from npe_tpu_torch.ops.conv import conv2d, space_to_depth  # noqa: E402
 from npe_tpu_torch.ops.kernels import build  # noqa: E402
 from npe_tpu_torch.ops.kernels import edit_tail as et  # noqa: E402
@@ -82,10 +101,12 @@ def nvcc(src, lib):
     return [line.strip() for line in r.stdout.splitlines() if "Used" in line or "spill" in line]
 
 
-def library_entry(lib, name):
+def library_entry(lib, name, abi=None):
     """An entry point of _build/baseline/`lib`: `npe_mdblock` (current ABI),
-    76a5cfd's `npe_mdblock_bf16` (the same ABI), or 9a0f129's
-    `npe_edit_tail` and `npe_rgb_beta_head`."""
+    76a5cfd's `npe_mdblock_bf16` (the same ABI), 9a0f129's `npe_edit_tail`
+    and `npe_rgb_beta_head`, or 1f72098's `npe_mdblock_bwd`,
+    `npe_mdblock_bwd_bf16` and (`abi` "npe_mdblock_bf16_plan")
+    `npe_mdblock_bf16` on `bf16_plan`."""
     fn = getattr(ctypes.CDLL(os.path.join(BASELINE_DIR, lib)), name)
     fn.argtypes = {
         "npe_mdblock": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
@@ -93,7 +114,14 @@ def library_entry(lib, name):
                                                                            ctypes.c_void_p],
         "npe_edit_tail": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         "npe_rgb_beta_head": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    }[name]
+        # 1f72098's: the shape, the dilations, then its splits (float32) or bf16_plan
+        "npe_mdblock_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                                                            ctypes.c_void_p],
+        "npe_mdblock_bwd_bf16": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                                + [ctypes.c_void_p],
+        "npe_mdblock_bf16_plan": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p],
+    }[abi or name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,11 +143,118 @@ def s2d_trunk_taps(taps, scales):
     return rt.pack_head_taps(k, 4)
 
 
-def bf16_rule(got, want):
-    """The worst |got - want| over chip_smoke.py's bf16 limit, BF16_POINTS
+def bf16_rule(got, want, points=BF16_POINTS):
+    """The worst |got - want| over chip_smoke.py's bf16 limit, `points`
     steps of 2^-8 of |want| + std(want) (1 is the limit)."""
     g, w = got.double(), want.double()
-    return float(((g - w).abs() / (BF16_POINTS * BF16_STEP * (w.abs() + w.std()))).max())
+    return float(((g - w).abs() / (points * BF16_STEP * (w.abs() + w.std()))).max())
+
+
+def perop_block(x, taps1, taps2, aff, scales):
+    """The MDBLOCK as per-op library calls over the same taps: each MDCL one
+    cuDNN convolution per branch (the branch's nine taps as a dilated 3x3
+    filter), the affines and lrelus elementwise; in x's dtype."""
+    def mdcl(h, taps):
+        out = 0
+        for b, d in enumerate(mk.dilations(scales)):
+            w = taps[9 * b:9 * b + 9].permute(2, 1, 0).reshape(taps.shape[2], taps.shape[1], 3, 3)
+            out = out + torch.nn.functional.conv2d(h, w, padding=d, dilation=d)
+        return out
+
+    s0, t0, s1, t1, s2, t2 = (a[None, :, None, None].to(x.dtype) for a in aff)
+    lrelu = lambda v: torch.nn.functional.leaky_relu(v, 0.2)  # noqa: E731
+    return lrelu(s2 * (x + mdcl(lrelu(s1 * mdcl(lrelu(s0 * x + t0), taps1) + t1), taps2)) + t2)
+
+
+def mdblock_bwd_side(side, measure, stream, sms, dev):
+    """One side of `--mdblock-bwd`: its forward and backward at full IAN's
+    shapes, checked, then timed; the per-op block's backward beside them."""
+    if side != "current":
+        fwd32, fwd16 = library_entry("libmdblock.so", "npe_mdblock"), library_entry("libmdblock_bf16.so", "npe_mdblock_bf16",
+                                                                                   "npe_mdblock_bf16_plan")
+        bwd32, bwd16 = library_entry("libmdblock.so", "npe_mdblock_bwd"), library_entry("libmdblock_bf16.so",
+                                                                                      "npe_mdblock_bwd_bf16")
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for c, size, scales in MDBLOCK_SHAPES:
+            br = mk.dilations(scales)
+            dil = (ctypes.c_int * len(br))(*br)
+            for batch in (1, 8, 128):
+                x, t1, t2, aff = mdblock_inputs(batch, c, size, scales, 200 + batch, dev)
+                x, t1, t2 = (t.to(dtype) for t in (x, t1, t2))
+                g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(batch), device=dev).to(dtype)
+                if side == "current":
+                    def forward():
+                        out, h1, rc = (mk._launch_bf16 if bf16 else mk._launch_float32)(x, t1, t2, aff, scales)  # noqa: B023
+                        assert rc == 0, rc
+                        return out, h1
+
+                    def backward(y, h1):
+                        dx, rc = mk._launch_bwd(g, x, y, h1, t1, t2, aff, scales)  # noqa: B023
+                        assert rc == 0, rc
+                        return dx
+                else:
+                    n, h, w = batch, size, size
+                    out = torch.empty_like(x)
+                    if bf16:  # 1f72098's plan: bf16_plan, one for both directions
+                        plan = mk.bf16_plan(n, c, h, w, scales, sms)
+                        act, h1_ = torch.empty_like(x), torch.empty((n, h, w, c), dtype=dtype, device=dev)
+                        gr, gm1 = (torch.empty((2, n, h, w, c), dtype=dtype, device=dev) for _ in range(2))
+                        splits, rest = plan.splits, (plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits)
+                    else:
+                        tiles = (h * w // mk.TILE_PIXELS) * -(-c // mk.TILE_CHANNELS)
+                        splits = mk.inner_splits(n, tiles, 9 * len(br) * c // mk.CHANNEL_STEP, sms)
+                        h1_, gr, gm1 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+                        rest = (splits,)
+                    partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=dev) if splits > 1 else None
+                    pp = None if partial is None else partial.data_ptr()
+                    dx_ = torch.empty_like(x)
+
+                    def forward():
+                        args = (x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(),  # noqa: B023
+                                *((act.data_ptr(),) if bf16 else ()), h1_.data_ptr(), pp, out.data_ptr(),  # noqa: B023
+                                n, c, h, w, len(br), dil, *rest, stream())  # noqa: B023
+                        rc = (fwd16 if bf16 else fwd32)(*args)  # noqa: B023
+                        assert rc == 0, rc
+                        return out, h1_  # noqa: B023
+
+                    def backward(y, h1):
+                        rc = (bwd16 if bf16 else bwd32)(g.data_ptr(), x.data_ptr(), y.data_ptr(), h1.data_ptr(),  # noqa: B023
+                                                        t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), gr.data_ptr(),  # noqa: B023
+                                                        gm1.data_ptr(), pp, dx_.data_ptr(), n, c, h, w, len(br),  # noqa: B023
+                                                        dil, *rest, stream())  # noqa: B023
+                        assert rc == 0, rc
+                        return dx_  # noqa: B023
+
+                key = f"{'bf16' if bf16 else 'float32'} {size}x{size}x{c} batch {batch}"
+                reps = 5 if batch == 128 else 20
+                with torch.no_grad():
+                    y, h1 = (t.clone() for t in forward())
+                    if batch != 8:
+                        measure(f"mdblock forward {key}", forward,
+                                lambda: (mk.mdblock_taps_reference(x, t1, t2, aff, scales), None),  # noqa: B023
+                                1.0 if bf16 else MDBLOCK_TOL, reps,
+                                error=lambda got, want: bf16_rule(got[0], want[0]) if bf16  # noqa: B023
+                                else float((got[0] - want[0]).abs().max()))
+                    h1_nchw = h1.permute(0, 3, 1, 2) if bf16 else h1
+                    ref = mk.mdblock_backward_reference(g, x, y, h1_nchw, t1, t2, aff, scales)
+
+                    def bwd_error(got, want):
+                        if bf16:
+                            return bf16_rule(got, want, BF16_POINTS + 1)
+                        return float((got - want).abs().max()) / (MDBLOCK_BWD_TOL * float(want.abs().max()))
+
+                    measure(f"mdblock backward {key}", lambda: backward(y, h1), lambda: ref,  # noqa: B023
+                            1.0, reps, error=bwd_error)
+
+                def perop_fb():
+                    leaf = x.detach().requires_grad_(True)  # noqa: B023
+                    return torch.autograd.grad(perop_block(leaf, t1, t2, aff, scales), leaf, g)  # noqa: B023
+
+                measure(f"per-op block forward and backward {key}", perop_fb, reps=reps)
+                with torch.no_grad():
+                    measure(f"per-op block forward {key}", lambda: perop_block(x, t1, t2, aff, scales),  # noqa: B023
+                            reps=reps)
 
 
 def run_side(side, what):
@@ -144,6 +279,9 @@ def run_side(side, what):
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    if what == "mdblock_bwd":
+        mdblock_bwd_side(side, measure, stream, sms, dev)
+        return results
     with torch.no_grad():
         if what == "mdblock_bf16":
             md = None if side == "current" else library_entry("libmdblock.so", "npe_mdblock_bf16")
@@ -277,8 +415,8 @@ def run_side(side, what):
 
 def main():
     if not torch.cuda.is_available() or len(sys.argv) not in (2, 3, 4):
-        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory, --wgmma, or --mdblock-bf16 "
-              "and 76a5cfd's directory", file=sys.stderr)
+        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory, --wgmma, --mdblock-bf16 "
+              "and 76a5cfd's directory, or --mdblock-bwd and 1f72098's", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # the plain versions in float32
@@ -291,6 +429,11 @@ def main():
     # {the current kernel's name: (the other side's source, its library)}
     if sys.argv[1] == "--wgmma":
         other, what, sources = "wgmma", "mdblock", {"mdblock": (WGMMA_SOURCE, WGMMA_LIB)}
+    elif sys.argv[1] == "--mdblock-bwd":
+        other, what = "parent", "mdblock_bwd"
+        csrc = os.path.join(sys.argv[2], "npe_tpu_torch", "csrc")
+        sources = {"mdblock": (os.path.join(csrc, "mdblock.cu"), "libmdblock.so"),
+                   "mdblock_bf16": (os.path.join(csrc, "mdblock_bf16.cu"), "libmdblock_bf16.so")}
     elif sys.argv[1] == "--mdblock-bf16":
         other, what = "earlier", "mdblock_bf16"
         sources = {"mdblock_bf16": (os.path.join(sys.argv[2], "npe_tpu_torch", "csrc", "mdblock.cu"), "libmdblock.so")}
@@ -301,6 +444,7 @@ def main():
     for name, (src, lib) in sources.items():
         for line in nvcc(src, lib):
             print(f"[build] {other} {name}: {line}", flush=True)
+    for name in [*sources, *(["mdblock_bwd"] if what == "mdblock_bwd" else [])]:
         for line in build.build(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build] current {name}: {line.strip()}", flush=True)
@@ -324,14 +468,15 @@ def main():
         err = {other: runs[0][case]["err"], "current": runs[1][case]["err"]}
         rec = {"case": case, f"{other}_ms": [t[0], t[3]], "current_ms": [t[1], t[2]],
                "max_abs_err_vs_plain": err, "speedup": (t[0] + t[3]) / (t[1] + t[2])}
-        measure = "worst fraction of the bf16 rule" if what == "mdblock_bf16" else "max abs err vs plain"
+        measure = {"mdblock_bf16": "worst fraction of the bf16 rule",
+                   "mdblock_bwd": "worst fraction of the rule"}.get(what, "max abs err vs plain")
         checked = (f"; {measure} {err[other]:.3e} / {err['current']:.3e}, each within its tolerance"
                    if err["current"] is not None else "; not checked (no plain version)")
         print(f"[ab] {case}: {other} {t[0]:.5f} / {t[3]:.5f} ms, current {t[1]:.5f} / {t[2]:.5f} ms "
               f"({rec['speedup']:.2f}x){checked} ({smi})", flush=True)
         results.append(rec)
     os.makedirs("runs", exist_ok=True)
-    suffix = {"mdblock": "_wgmma", "mdblock_bf16": "_mdblock_bf16"}.get(what, "")
+    suffix = {"mdblock": "_wgmma", "mdblock_bf16": "_mdblock_bf16", "mdblock_bwd": "_mdblock_bwd"}.get(what, "")
     with open(f"runs/kernel_ab{suffix}.json", "w") as fh:
         json.dump({"device": smi, "turns": turns, "cases": results}, fh, indent=1)
     return 0

@@ -628,6 +628,30 @@ def test_bf16_mdblock_kernel_matches_plain(cuda, batch, channels, shape, scales)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("channels,size,scales", [(512, 8, (0, 2)), (256, 16, (0, 2, 3)), (128, 32, (0, 2, 3))])
+def test_mdblock_backward_kernels_match_plain_and_repeat_bit_for_bit(cuda, channels, size, scales, batch, dtype):
+    """x's gradient through the backward kernels (csrc/mdblock_bwd.cu) at
+    full IAN's blocks: against `mdblock_backward_reference` and the plain
+    VJP (chip_smoke.py's `check_mdblock_backward`, float32 within
+    MDBLOCK_BWD_TOL, bf16 within BF16_POINTS + 1 steps), and two calls of the
+    kernels on one input bit-equal (the clusters' fixed-order sums)."""
+    from chip_smoke import check_mdblock_backward
+
+    x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda, seed=9)
+    x, t1, t2 = x.to(dtype), t1.to(dtype), t2.to(dtype)
+    check_mdblock_backward(f"{dtype} batch {batch} C {channels} {size}x{size}", x, t1, t2, aff, scales)
+    xg = x.clone().requires_grad_(True)
+    out = mk.mdblock_fused(xg, t1, t2, aff, scales)  # kept alive: y is one of its saved tensors
+    h1, y = out.grad_fn.saved_tensors[4:]
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(batch), device=cuda).to(dtype)
+    (a, rc_a), (b, rc_b) = (mk._launch_bwd(g, x, y, h1, t1, t2, aff, scales) for _ in range(2))
+    torch.cuda.synchronize()
+    assert rc_a == rc_b == 0 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("config,form", [(TINY, {}), (TINY_V1, {"head_mode": "hybrid"}),
                                          (TINY_V1, {"head_mode": "fused"}), (TINY_FULL, {"mdblock_mode": "fused"})])
 def test_bf16_session_on_the_card_runs_the_bf16_forms(cuda, config, form):

@@ -1,10 +1,11 @@
 """The MDBLOCK's x-gradient (the backward kernels of `mdblock_fused`) on the
 CPU: its plain version `mdblock_backward_reference` against torch's VJP of
 the plain forward and against npe_tpu's `mdblock_fused` VJP, the transposed
-MDCL it rests on, the slopes at exactly zero, the bf16 rounding points, and
-the autograd wiring of `_MDBlock` with the plain versions standing in for the
-launches (the kernels themselves run only on the card: chip_smoke.py phases 3
-and 3b, tests/test_torch_cuda.py).
+MDCL it rests on, the slopes at exactly zero, the bf16 rounding points, the
+backward kernels' plan (`bwd_plan`) and an emulation of the float32 kernel's
+arithmetic, and the autograd wiring of `_MDBlock` with the plain versions
+standing in for the launches (the kernels themselves run only on the card:
+chip_smoke.py phases 3 and 3b, tests/test_torch_cuda.py).
 
 Tolerances: float64 to 1e-7 of the largest value (the same sums in another
 order); float32 against npe_tpu at tests/test_torch_mdblock.py's GRAD (rtol
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_parity as tp
 from npe_tpu.ops.pallas import mdcl_kernels as jk
@@ -247,6 +249,131 @@ def _within_bf16_steps(got, want, steps):
     return worst
 
 
+# --- the backward kernels' plan and float32 arithmetic (csrc/mdblock_bwd.cu)
+
+FULL_IAN = [(512, 8, (0, 2)), (256, 16, (0, 2, 3)), (128, 32, (0, 2, 3))]  # chip_smoke.py's MDBLOCK_SHAPES
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("batch", [1, 8, 128])
+@pytest.mark.parametrize("channels,size,scales", FULL_IAN)
+def test_the_backward_plan_at_full_ians_shapes(channels, size, scales, batch, dtype):
+    """`bwd_plan` on the H100: its shared memory fits a block and is what
+    the kernel asks for; the slices partition the units with at least
+    BWD_MIN_UNITS each; a cluster holds at most the portable 8 blocks and
+    divides the slices; the blocks run at once (one an SM, no more clusters
+    than the card holds); at one image they fill most of the SMs and at most
+    three groups of slices take the second sum launch, and the cut is the
+    cheapest by the plan's cost; two patches a block only in bf16, without
+    slices; one slice from the batch that fills the card."""
+    plan = tk.bwd_plan(batch, channels, size, size, scales, dtype, H100_SMS)
+    bf16 = dtype == BF16
+    radius = max(tk.dilations(scales))
+    assert plan.smem == tk.bwd_smem_bytes(bf16, plan.sub_tiles, plan.stages, plan.halo_buffers, radius,
+                                          plan.tile_channels)
+    assert plan.smem <= tk.SMEM_PER_BLOCK
+    fewest, most = tk.BWD_STAGES[bf16]
+    assert fewest <= plan.stages <= most and plan.halo_buffers in ((1, 2) if bf16 else (2,))
+    units = channels * (2 if bf16 else 4) // tk.BWD_CHUNK_BYTES * 9 * len(tk.dilations(scales))
+    bounds = [s * units // plan.splits for s in range(plan.splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == units
+    assert min(b - a for a, b in zip(bounds, bounds[1:])) >= tk.BWD_MIN_UNITS
+    assert 1 <= plan.cluster <= tk.MAX_CLUSTER == 8 and plan.splits % plan.cluster == 0
+    tiles = batch * (size // 8) ** 2 // plan.sub_tiles * channels // plan.tile_channels
+    if plan.splits > 1:
+        assert tiles * plan.splits <= H100_SMS
+        assert tiles * plan.splits // plan.cluster <= tk.CLUSTER_SLOTS[plan.cluster]
+    if batch == 1:
+        assert tiles * plan.splits > H100_SMS // 2 and plan.splits // plan.cluster <= 3
+        cost = -(-units // plan.splits) + tk.BWD_GROUP_COST * (plan.splits // plan.cluster - 1)
+        for splits, cluster in ((plan.splits, 1), (plan.splits // 2, plan.cluster), (2 * plan.splits, plan.cluster)):
+            if splits >= 1 and splits % cluster == 0 and tiles * splits // cluster <= tk.CLUSTER_SLOTS[cluster] \
+                    and tiles * splits <= H100_SMS:
+                assert cost <= -(-units // splits) + tk.BWD_GROUP_COST * (splits // cluster - 1)
+    assert plan.sub_tiles == 1 or (bf16 and plan.splits == 1)
+    assert plan.tile_channels == (256 if plan.sub_tiles == 2 and channels >= 256 else 128)
+    if batch == 128:
+        assert plan.splits == 1 and plan.sub_tiles == (2 if bf16 else 1)
+
+
+def _sum_in_order(parts):
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _emulated_float32_backward(g, x, y, h1, taps1, taps2, aff, scales, plan, products=3):
+    """The float32 backward kernel's arithmetic in float32 on the CPU: g_r
+    and g_m1 as TF32 (hi, lo) pairs (`tf32_split`), each MDCL^T unit (a
+    chunk of 32 input channels co by one tap) a stage of lo*hi + hi*lo +
+    hi*hi of the pairs' shifted windows and the split mirrored tap (or hi*hi
+    alone, `products=1`), summed from zero and added to float32 running sums;
+    each slice of the plan's units its own sum; the slices added in cluster
+    order, then the clusters in order. (A product of two TF32 values is exact
+    in float32; the tensor cores' truncation is what the per-stage sums keep
+    from growing.)"""
+    n, c, hh, ww = x.shape
+    offs = tk.tap_offsets(scales)
+    mirror = tk.tap_mirror(len(offs))
+    r = max(tk.dilations(scales))
+    chunk = tk.BWD_CHUNK_BYTES // 4
+    units = [(ch, t) for ch in range(-(-c // chunk)) for t in range(len(offs))]
+    s0, t0, s1, _, s2, _ = (a[None, :, None, None] for a in aff)
+
+    def mdcl_t(v, taps):
+        hi, lo = (F.pad(a, (r, r, r, r)) for a in tk.tf32_split(v))
+
+        def window(a, t, cs):  # (n, pixels, k)
+            dy, dx = offs[t]
+            return a[:, cs, r + dy:r + dy + hh, r + dx:r + dx + ww].flatten(2).transpose(1, 2)
+
+        slices = []
+        for s in range(plan.splits):
+            acc = torch.zeros(n, hh * ww, c)
+            for ch, t in units[s * len(units) // plan.splits:(s + 1) * len(units) // plan.splits]:
+                cs = slice(ch * chunk, (ch + 1) * chunk)
+                b_hi, b_lo = tk.tf32_split(taps[mirror[t]][:, cs].t().contiguous())  # (co, ci)
+                a_hi, a_lo = window(hi, t, cs), window(lo, t, cs)
+                step = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi if products == 3 else a_hi @ b_hi
+                acc = acc + step
+            slices.append(acc)
+        clusters = [_sum_in_order(slices[i:i + plan.cluster]) for i in range(0, plan.splits, plan.cluster)]
+        return _sum_in_order(clusters).transpose(1, 2).reshape(n, c, hh, ww)
+
+    gr = tk._slope(y, g) * s2
+    gm1 = tk._slope(h1, mdcl_t(gr, taps2)) * s1
+    return gr + tk._slope(x * s0 + t0, mdcl_t(gm1, taps1)) * s0
+
+
+@pytest.mark.parametrize("channels,size,scales", FULL_IAN)
+def test_the_float32_backward_arithmetic_keeps_float32_accuracy_and_one_product_does_not(channels, size, scales):
+    """Why the float32 backward takes three TF32 products per multiply-add
+    from its pixel-major (hi, lo) pairs: full IAN's blocks at one image, the
+    plan's slices and clusters, chip_smoke.py's inputs; the emulated kernel
+    (`_emulated_float32_backward`) against the float64 VJP on the same slopes
+    (y and h1 of the float64 forward) stays within MDBLOCK_BWD_TOL of the
+    largest value, the float32 rule the card holds the kernels to; hi*hi
+    alone does not."""
+    from chip_smoke import MDBLOCK_BWD_TOL, mdblock_inputs
+
+    x, t1, t2, aff = (a.double() for a in mdblock_inputs(1, channels, size, scales, 41, "cpu"))
+    g = torch.from_numpy(np.random.RandomState(42).randn(*x.shape))
+    want = _vjp(x, t1, t2, aff, g, scales)
+    y, h1 = tk.mdblock_forward_parts(x, t1, t2, aff, scales)
+    plan = tk.bwd_plan(1, channels, size, size, scales, torch.float32, H100_SMS)
+    assert plan.splits > 1 and plan.cluster > 1
+    f32 = [a.float() for a in (g, x, y, h1, t1, t2, aff)]
+    tol = MDBLOCK_BWD_TOL * float(want.abs().max())
+    three = _emulated_float32_backward(*f32, scales, plan)
+    one = _emulated_float32_backward(*f32, scales, plan, products=1)
+    err3, err1 = (float((a.double() - want).abs().max()) for a in (three, one))
+    assert float(want.std()) > 1
+    assert err3 <= tol / 4, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
 # --- the wrapper's autograd wiring, the plain versions standing in for the launches
 
 
@@ -259,6 +386,7 @@ def _fake_forward(x, taps1, taps2, affines, scales):
 
 
 def _fake_backward(g, x, y, h1, taps1, taps2, affines, scales):
+    """What `_launch_bwd` returns, from the plain version."""
     h1 = h1.permute(0, 3, 1, 2) if x.dtype == BF16 else h1
     return tk.mdblock_backward_reference(g, x, y, h1, taps1, taps2, affines, scales), 0
 
@@ -267,8 +395,7 @@ def _fake_backward(g, x, y, h1, taps1, taps2, affines, scales):
 def plain_launches(monkeypatch):
     for name in ("_launch_float32", "_launch_bf16"):
         monkeypatch.setattr(tk, name, _fake_forward)
-    for name in ("_launch_bwd_float32", "_launch_bwd_bf16"):
-        monkeypatch.setattr(tk, name, _fake_backward)
+    monkeypatch.setattr(tk, "_launch_bwd", _fake_backward)
 
 
 def test_the_forward_keeps_h1_and_y_only_when_x_will_need_a_gradient(plain_launches, monkeypatch):
