@@ -22,6 +22,7 @@ from npe_tpu_torch.utils import checkpoints
 from npe_tpu_torch.utils.graphs import ProgramCache
 from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
+from npe_tpu_torch.utils.profiling import annotate
 
 
 def patch_mask(h, w, c1, r1, c2, r2, dtype=torch.float32, device="cpu"):
@@ -145,11 +146,13 @@ class IAN:
 
     def encode_images(self, images):
         """images: (n, 3, s, s) in [-1, 1] -> (n, zdim)."""
-        return self.programs("encode", np.asarray(images, np.float32))
+        with annotate("npe.encode_images"):
+            return self.programs("encode", np.asarray(images, np.float32))
 
     def sample_at(self, z):
         """z: (n, zdim) -> images (n, 3, s, s) in [-1, 1]."""
-        return self.programs("sample", np.asarray(z, np.float32))
+        with annotate("npe.sample_at"):
+            return self.programs("sample", np.asarray(z, np.float32))
 
     def imgrad(self, c1, r1, c2, r2, z):
         """dZ that lightens the local patch (reference `API.py:66-70`)."""

@@ -33,7 +33,10 @@ the runner, so each call copies its caller's state in); the program runs; the
 new z is cloned into a tensor of the caller's own (a replay overwrites
 `out`, and the session's undo stack keeps references); the images come back
 in one device-to-host copy and one synchronise. A lock makes a call atomic,
-so sessions on several threads may share a runner.
+so sessions on several threads may share a runner. Under a profiler the
+call's spans (`utils/profiling.py`) are `npe.stage` (the values staged and
+uploaded, the caller's tensors copied in), the program's, `npe.wait` (the
+synchronise) and `npe.unpack` (the images copied into arrays of their own).
 
 The traps, and what is done about each:
 
@@ -76,6 +79,7 @@ import torch
 from npe_tpu_torch.api import soft_patch_mask
 from npe_tpu_torch.ops.kernels.edit_tail import edit_tail
 from npe_tpu_torch.utils.graphs import Program
+from npe_tpu_torch.utils.profiling import annotate
 
 # Gradient-descent step size for brush strokes (`NPE.py:199`).
 PAINT_WEIGHT = 0.05
@@ -197,23 +201,26 @@ class EditRunner:
         first `images` CHW images of `out` as numpy arrays of their own)."""
         hw = self.h * self.w
         with self.lock:
-            if kind != "decode":  # the one kind that reads none of `inputs`
-                staged = self._staged
-                if user_mask is not None:
-                    staged[:hw] = np.asarray(user_mask, np.float32).reshape(hw)
-                staged[hw:hw + len(SCALARS)] = (*box, sigma, float(composite), direction)
-                staged[hw + len(SCALARS):] = rgb
-                self.inputs.copy_(self.staging, non_blocking=True)
-            pairs = [(d, s) for d, s in ((self.z, z), (self.recon, recon), (self.error, error)) if s is not None]
-            torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+            with annotate("npe.stage"):
+                if kind != "decode":  # the one kind that reads none of `inputs`
+                    staged = self._staged
+                    if user_mask is not None:
+                        staged[:hw] = np.asarray(user_mask, np.float32).reshape(hw)
+                    staged[hw:hw + len(SCALARS)] = (*box, sigma, float(composite), direction)
+                    staged[hw + len(SCALARS):] = rgb
+                    self.inputs.copy_(self.staging, non_blocking=True)
+                pairs = [(d, s) for d, s in ((self.z, z), (self.recon, recon), (self.error, error)) if s is not None]
+                torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
             self.programs[kind]()
             z_new = self.out[:self.zdim].clone()
             n = self.zdim + images * 3 * hw
             self.out_host[self.zdim:n].copy_(self.out[self.zdim:n], non_blocking=True)
             if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            shown = [self._returned[self.zdim + i * 3 * hw:self.zdim + (i + 1) * 3 * hw].reshape(3, self.h, self.w)
-                     .copy() for i in range(images)]
+                with annotate("npe.wait"):
+                    torch.cuda.current_stream(self.device).synchronize()
+            with annotate("npe.unpack"):
+                shown = [self._returned[self.zdim + i * 3 * hw:self.zdim + (i + 1) * 3 * hw]
+                         .reshape(3, self.h, self.w).copy() for i in range(images)]
         return z_new, shown
 
     def paint(self, z, recon, error, user_mask, box, sigma, rgb, composite):

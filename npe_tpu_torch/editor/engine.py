@@ -34,6 +34,7 @@ from npe_tpu_torch.models import get_config
 from npe_tpu_torch.utils import checkpoints
 from npe_tpu_torch.utils.cast import cast_floating, resolve_dtype
 from npe_tpu_torch.utils.device import resolve_device
+from npe_tpu_torch.utils.profiling import annotate
 from npe_tpu_torch.utils.ranges import from_tanh, to_tanh
 
 # Per-stroke user-mask accumulation rate (`NPE.py:221`, commented out there).
@@ -233,18 +234,19 @@ class EditSession:
         [0, 255]. The box is [y1, y2) rows x [x1, x2) cols in 64-space.
         sigma>0 = soft brush: the patch loss is feathered by the reference's
         `gk` Gaussian localizer (`NPE.py:167-175`)."""
-        rgb_tanh = to_tanh(np.float32(rgb))
-        if rgb_tanh.shape != (3,):
-            raise ValueError(f"rgb must hold 3 values, got {np.shape(rgb)}")
-        self._snapshot()
-        # Accumulate the user mask under the brush (the reference's sketched
-        # `USER_MASK[y1:y2,x1:x2]+=0.05`, `NPE.py:221`); soft strokes
-        # accumulate the same feathered profile the loss sees.
-        prof = _soft_box_profile(self.USER_MASK.shape, x1, y1, x2, y2, sigma)
-        self.USER_MASK = np.minimum(self.USER_MASK + USER_MASK_RATE * prof, 1.0)
-        self.Z, self.IM, self.DELTA = self.runner.paint(
-            self.Z, self._recon, self._error, self.USER_MASK, (x1, y1, x2, y2), float(sigma), rgb_tanh,
-            not self.sample_flag)
+        with annotate("npe.paint_stroke"):
+            rgb_tanh = to_tanh(np.float32(rgb))
+            if rgb_tanh.shape != (3,):
+                raise ValueError(f"rgb must hold 3 values, got {np.shape(rgb)}")
+            self._snapshot()
+            # Accumulate the user mask under the brush (the reference's sketched
+            # `USER_MASK[y1:y2,x1:x2]+=0.05`, `NPE.py:221`); soft strokes
+            # accumulate the same feathered profile the loss sees.
+            prof = _soft_box_profile(self.USER_MASK.shape, x1, y1, x2, y2, sigma)
+            self.USER_MASK = np.minimum(self.USER_MASK + USER_MASK_RATE * prof, 1.0)
+            self.Z, self.IM, self.DELTA = self.runner.paint(
+                self.Z, self._recon, self._error, self.USER_MASK, (x1, y1, x2, y2), float(sigma), rgb_tanh,
+                not self.sample_flag)
         return self.IM
 
     def scroll_patch(self, x1, y1, x2, y2, direction, sigma=0.0):

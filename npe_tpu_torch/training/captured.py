@@ -71,6 +71,7 @@ import torch
 from npe_tpu_torch.training.train_step import make_train_steps
 # The capture machinery lives in utils/graphs.py; its names stay importable here.
 from npe_tpu_torch.utils.graphs import COUNTERS, Program, add_counts, capture, read_counts  # noqa: F401
+from npe_tpu_torch.utils.profiling import annotate
 
 
 def flatten(tree, prefix=()):
@@ -154,8 +155,10 @@ class StepRunner:
 
     def step(self, is_gen, xb, gen):
         """The chunk loop's step: the batch `xb` into `x`, z_rand then the
-        noise drawn from `gen` into theirs, then `run`."""
-        self.x.copy_(xb)
-        torch.randn(self.z_rand.shape, generator=gen, out=self.z_rand)
-        torch.randn(self.noise.shape, generator=gen, out=self.noise)
-        return self.run(is_gen)
+        noise drawn from `gen` into theirs, then `run`; under a profiler one
+        span, `npe.step.G` or `npe.step.D`."""
+        with annotate("npe.step.G" if is_gen else "npe.step.D"):
+            self.x.copy_(xb)
+            torch.randn(self.z_rand.shape, generator=gen, out=self.z_rand)
+            torch.randn(self.noise.shape, generator=gen, out=self.noise)
+            return self.run(is_gen)

@@ -26,7 +26,8 @@ a frozen feature space; the checkpoints' grids, validation and encoder-FID
 run as captured programs (`training/programs.py`, npe_tpu's jitted
 evaluation functions), which a run captures at its first checkpoint;
 `profile_dir` traces the first chunk
-(`utils/profiling.py`): its first G and first D step run eagerly, the second
+(`utils/profiling.py`), its staging and steps under the port's `npe.*` spans
+(`npe.chunk` around them): its first G and first D step run eagerly, the second
 of each is captured (the trace shows `cudaStreamBeginCapture` /
 `cudaGraphInstantiate` on the host and no kernels of its own) and replayed,
 and every later step is one `cudaGraphLaunch` whose kernels the trace lists
@@ -153,7 +154,11 @@ def fetch_scalars(*dicts):
     """Dicts of 0-d device tensors -> dicts of Python floats, in ONE
     device-to-host copy."""
     values = [v for d in dicts for v in d.values()]
-    host = iter(torch.stack([v.to(torch.float32) for v in values]).cpu().tolist()) if values else iter(())
+    host = iter(())
+    if values:
+        stacked = torch.stack([v.to(torch.float32) for v in values])
+        with profiling.annotate("npe.wait"):
+            host = iter(stacked.cpu().tolist())
     return [{k: next(host) for k in d} for d in dicts]
 
 
@@ -315,20 +320,20 @@ def train(
                 # rank 0's order; this rank's rows of each global batch, in batch order
                 perm = broadcast_from_first(perm, mesh)
                 perm = perm.reshape(num_batches, mesh.data.size, -1)[:, mesh.data.index].reshape(-1)
-            # Chunks arrive as raw uint8 NCHW (or as index vectors into the
-            # device-resident cache); the host ships the bytes as they are
-            # and ONE kernel does gather + cast + to_tanh on the card.
-            if device_cache is not None:
-                x_dev = stage_chunk(device_cache, np.asarray(x_chunk)[perm])
-            else:
-                u8 = torch.from_numpy(x_chunk)
-                if device.type == "cuda":
-                    u8 = u8.pin_memory().to(device, non_blocking=True)
-                x_dev = stage_chunk(u8, perm)
-
             assert num_batches == cfg["batches_per_chunk"], (num_batches, cfg["batches_per_chunk"])
             traced = profile_dir and epoch == min_epoch and iter_counter == 1
-            with profiling.device_trace(profile_dir) if traced else contextlib.nullcontext():
+            with (profiling.device_trace(profile_dir) if traced else contextlib.nullcontext(),
+                  profiling.annotate("npe.chunk")):
+                # Chunks arrive as raw uint8 NCHW (or as index vectors into the
+                # device-resident cache); the host ships the bytes as they are
+                # and ONE kernel does gather + cast + to_tanh on the card.
+                if device_cache is not None:
+                    x_dev = stage_chunk(device_cache, np.asarray(x_chunk)[perm])
+                else:
+                    u8 = torch.from_numpy(x_chunk)
+                    if device.type == "cuda":
+                        u8 = u8.pin_memory().to(device, non_blocking=True)
+                    x_dev = stage_chunk(u8, perm)
                 if guard_ema is None:
                     state, gen_m, dis_m, n_gen = chunk_step(state, x_dev, itr, gen, lr_dev)
                 else:

@@ -51,6 +51,7 @@ from npe_tpu_torch.training import losses as L
 from npe_tpu_torch.training.graph import (
     compute_dtype, compute_metrics, discrim_and_latent_losses, gen_loss_fn,
 )
+from npe_tpu_torch.utils.profiling import annotate
 
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
@@ -296,12 +297,13 @@ class EagerSteps:
         self.state, self.lr = state, lr
 
     def step(self, is_gen, xb, gen):
-        lo, hi = self.rows
-        z_rand, noise = (torch.randn(self.shape, generator=gen, device=xb.device, dtype=xb.dtype)[lo:hi]
-                         for _ in range(2))
-        self.state, m = self.steps[0 if is_gen else 1](self.state, xb, z_rand, noise, self.lr)
-        self.keys = list(m)
-        return torch.stack([m[k].to(torch.float32) for k in self.keys])
+        with annotate("npe.step.G" if is_gen else "npe.step.D"):
+            lo, hi = self.rows
+            z_rand, noise = (torch.randn(self.shape, generator=gen, device=xb.device, dtype=xb.dtype)[lo:hi]
+                             for _ in range(2))
+            self.state, m = self.steps[0 if is_gen else 1](self.state, xb, z_rand, noise, self.lr)
+            self.keys = list(m)
+            return torch.stack([m[k].to(torch.float32) for k in self.keys])
 
 
 def make_chunk_rows(module, cfg, num_batches, guard_acc=None, mesh=None, layout=None, eager=False):
@@ -396,7 +398,8 @@ def make_chunk_step(module, cfg, num_batches, guard_acc=None, mesh=None, layout=
 
     def chunk_step(state, x_chunk, itr0, gen, lr, ema=None):
         state, keys, table, is_gen_flags, ema = chunk_rows(state, x_chunk, itr0, gen, lr, ema)
-        gen_w = torch.tensor(is_gen_flags, dtype=torch.float32, device=x_chunk.device)
+        with annotate("npe.wait"):  # a copy from pageable memory waits for the card
+            gen_w = torch.tensor(is_gen_flags, dtype=torch.float32, device=x_chunk.device)
         n_gen = sum(is_gen_flags)
         weights = torch.stack([gen_w / max(n_gen, 1), (1 - gen_w) / max(num_batches - n_gen, 1)])
         means = (weights[:, :, None] * table[None]).sum(dim=1)  # (2, keys)

@@ -33,6 +33,14 @@ they go.
 
 Failure raises. A capture or a replay that fails raises; nothing falls back
 to eager calls.
+
+Spans (`utils/profiling.py`, recorded only under a profiler). A `Program`'s
+call is `npe.eager` (a first call, or any call on the CPU), `npe.capture` or
+`npe.replay`; a `ProgramCache` call adds `npe.stage` (its inputs staged,
+uploaded and copied in), `npe.wait` (each synchronise) and `npe.unpack` (its
+outputs copied into the caller's own). Each wraps a call from the host, never
+a line of a captured body, so a graph holds the same kernels with or without
+a profiler.
 """
 import contextlib
 import gc
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from npe_tpu_torch.ops.kernels import add_launches, edit_tail, mdblock, rgb_beta_head, rgb_beta_tail, staging, tallying
+from npe_tpu_torch.utils.profiling import annotate
 
 # Every launch count of the kernel wrappers: (wrapper, attribute).
 COUNTERS = tuple((fn, attr) for fn in (edit_tail.edit_tail, mdblock.mdblock_fused, rgb_beta_head.rgb_beta_head,
@@ -125,23 +134,26 @@ class Program:
 
     def _capture(self):
         self.captures += 1
-        self.graph, self.recorded = capture(self.body, self.stream, self.pool)
+        with annotate("npe.capture"):
+            self.graph, self.recorded = capture(self.body, self.stream, self.pool)
 
     def __call__(self):
         self.calls += 1
         if self.stream is None:
-            self.body()
+            with annotate("npe.eager"):
+                self.body()
             return
         if self.graph is None and self.calls == 1:
-            with _on(self.stream):
+            with annotate("npe.eager"), _on(self.stream):
                 self.body()
             if self.pure:
                 self._capture()
             return
         if self.graph is None:
             self._capture()
-        self.graph.replay()
-        add_counts(self.recorded)
+        with annotate("npe.replay"):
+            self.graph.replay()
+            add_counts(self.recorded)
 
 
 # byte alignment of each tensor in a signature's packed buffers (cudaMalloc's)
@@ -291,25 +303,27 @@ class ProgramCache:
                 sig = Signature(self.device, specs, Program(lambda: me()._body(key), self.stream, self.pool, pure=True))
                 self.signatures[key] = sig
             staged = [(view, a) for view, a in zip(sig.staged, args) if not isinstance(a, torch.Tensor)]
-            if staged:
-                if sig.uploaded is not None:
+            if staged and sig.uploaded is not None:
+                with annotate("npe.wait"):
                     sig.uploaded.synchronize()  # the staging buffer is free again
-                for view, a in staged:
-                    if rows is None:
-                        view[...] = a
-                    else:
-                        view[:rows] = a
-                        view[rows:] = 0
-                sig.buffer.copy_(sig.staging, non_blocking=True)
-                if sig.uploaded is not None:
-                    sig.uploaded.record()
-            with torch.no_grad():
-                for view, a in zip(sig.inputs, args):
-                    if isinstance(a, torch.Tensor) and rows is None:
-                        view.copy_(a)
-                    elif isinstance(a, torch.Tensor):
-                        view[:rows].copy_(a)
-                        view[rows:].zero_()
+            with annotate("npe.stage"):
+                if staged:
+                    for view, a in staged:
+                        if rows is None:
+                            view[...] = a
+                        else:
+                            view[:rows] = a
+                            view[rows:] = 0
+                    sig.buffer.copy_(sig.staging, non_blocking=True)
+                    if sig.uploaded is not None:
+                        sig.uploaded.record()
+                with torch.no_grad():
+                    for view, a in zip(sig.inputs, args):
+                        if isinstance(a, torch.Tensor) and rows is None:
+                            view.copy_(a)
+                        elif isinstance(a, torch.Tensor):
+                            view[:rows].copy_(a)
+                            view[rows:].zero_()
             cold = sig.program.calls == 0
             try:
                 sig.program()
@@ -322,10 +336,12 @@ class ProgramCache:
             if download:
                 sig.out_staging.copy_(sig.out_buffer, non_blocking=True)
                 if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-                outs = tuple(o[cut].copy() for o in sig.host_outputs)
+                    with annotate("npe.wait"):
+                        torch.cuda.current_stream(self.device).synchronize()
+                with annotate("npe.unpack"):
+                    outs = tuple(o[cut].copy() for o in sig.host_outputs)
             else:
-                with torch.no_grad():
+                with annotate("npe.unpack"), torch.no_grad():
                     outs = tuple(o[cut].clone() for o in sig.outputs)
             if cold:
                 sig.first_call_ms = (time.perf_counter() - t0) * 1e3

@@ -1,40 +1,30 @@
-"""Tracing / profiling utilities (npe_tpu `utils/profiling.py`): a step timer
-with percentile summaries, and thin wrappers over `torch.profiler` for traces
-that Perfetto and TensorBoard open."""
+"""Tracing / profiling utilities: thin wrappers over `torch.profiler` for
+traces that Perfetto and TensorBoard open, and the port's one span.
+
+Spans. `annotate("npe.<name>")` names a stretch of the host's work inside
+the port on the paths that the benchmark's cells and the trainer's
+`--profile-dir` traces run: the entry points (`EditSession.paint_stroke`,
+`api.IAN.encode_images` and `sample_at`, the trainer's steps, `stage_chunk`
+and chunks), a `Program`'s call (`npe.eager`, `npe.capture`, `npe.replay`),
+the staging of its inputs (`npe.stage`), the copy of its outputs into the
+caller's arrays (`npe.unpack`) and each place there where the host blocks
+on the card (`npe.wait`). The other entries carry no span of their own
+until something reads one. A span records
+`torch.profiler.record_function` only while a torch profiler runs, so it is
+on the profiler's clock, the kernels' own, and nests under the span that
+caused it on the same thread. Otherwise it is one shared null context and
+costs a flag read. A span only marks the host: it takes and makes no
+tensor, issues no work, event or synchronise on the card, and none sits
+inside a body that a `Program` captures.
+"""
 
 import contextlib
-import time
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-
-class StepTimer:
-    """Wall-clock step timing with p50/p90/p99 summaries. The caller ends
-    each timed block with the device work it waits for (a synchronize or a
-    copy to the host): PyTorch returns before the card finishes."""
-
-    def __init__(self, name="step"):
-        self.name = name
-        self.samples = []
-
-    @contextlib.contextmanager
-    def time(self):
-        t0 = time.perf_counter()
-        yield
-        self.samples.append(time.perf_counter() - t0)
-
-    def summary(self):
-        if not self.samples:
-            return {}
-        arr = np.asarray(self.samples) * 1000.0
-        return {
-            f"{self.name}_ms_p50": float(np.percentile(arr, 50)),
-            f"{self.name}_ms_p90": float(np.percentile(arr, 90)),
-            f"{self.name}_ms_p99": float(np.percentile(arr, 99)),
-            f"{self.name}_ms_mean": float(arr.mean()),
-            f"{self.name}_count": len(arr),
-        }
+# what `annotate` returns while no profiler runs
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -55,8 +45,10 @@ def device_trace(log_dir):
             torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
 def annotate(name):
-    """A named region inside a trace."""
-    with torch.profiler.record_function(name):
-        yield
+    """A span named `name` (the port's start with `npe.`): a
+    `torch.profiler.record_function` while a torch profiler runs, else the
+    shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
