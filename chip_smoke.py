@@ -231,9 +231,11 @@ class Counts:
 # the port's kernels by name, as torch.profiler records them on the card:
 # name -> (the `Counts` name of its float32 form, of its bf16 form, kernels of
 # that name a wrapper launch runs). A wrapper launch runs its named kernel
-# once (the float32 MDBLOCK runs mdcl_kernel twice, once an MDCL; the MDBLOCK
-# backward's first launch forms g_r: bwd_prologue_kernel in float32,
-# bwd_prologue_bf16_kernel in bf16; the tail's backward opens with
+# once (the float32 MDBLOCK runs mdcl_kernel three times, its prologue and
+# one an MDCL, their arguments opening with `float const*`, which the bf16
+# form's mdcl_kernel does not; the MDBLOCK backward's first launch forms
+# g_r: bwd_prologue_kernel in float32, bwd_prologue_bf16_kernel in bf16;
+# the tail's backward opens with
 # tail_bwd_green_kernel, the head's x-gradient ends with
 # head_trunk_bwd_kernel); the head's own tail (rgb_beta_tail_kernel<..., true>)
 # and its own tail backward (tail_bwd_*_kernel<..., true>), the slice sums, the
@@ -244,7 +246,7 @@ DEVICE_KERNELS = {"edit_tail_kernel": ("edit_tail", None, 1),
                   "head_trunk_kernel": ("rgb_beta_head", "rgb_beta_head_bf16", 1),
                   "tail_bwd_green_kernel": ("rgb_beta_tail_bwd", "rgb_beta_tail_bwd_bf16", 1),
                   "head_trunk_bwd_kernel": ("rgb_beta_head_bwd", "rgb_beta_head_bwd_bf16", 1),
-                  "mdcl_kernel": ("mdblock", None, 2), "prologue_kernel": (None, "mdblock_bf16", 1),
+                  "mdcl_kernel": ("mdblock", None, 3), "prologue_kernel": (None, "mdblock_bf16", 1),
                   "bwd_prologue_kernel": ("mdblock_bwd", None, 1),
                   "bwd_prologue_bf16_kernel": (None, "mdblock_bwd_bf16", 1),
                   "stage_kernel": ("staging", None, 1)}
@@ -256,9 +258,10 @@ def witnessed(kernels):
     kernel's template arguments give its form."""
     out = {}
     for name, n in kernels.items():
-        sig = name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(", 1)[0]
+        sig, _, args = name.removeprefix("void ").replace("(anonymous namespace)::", "").partition("(")
         base = sig.removeprefix("npe::").split("<", 1)[0]
-        if base not in DEVICE_KERNELS or sig.endswith("true>") or (base == "mdcl_kernel" and "<" in sig):
+        if base not in DEVICE_KERNELS or sig.endswith("true>") or \
+                (base == "mdcl_kernel" and not args.startswith("float const*")):
             continue
         f32, bf16, per_launch = DEVICE_KERNELS[base]
         counter = bf16 if "bfloat16" in sig or f32 is None else f32

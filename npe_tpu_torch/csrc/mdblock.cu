@@ -16,13 +16,11 @@
 // (3,456 to 9,216). One block of full IAN at one image is 2 * H*W * T * C^2
 // multiply-adds: 0.60 G at 8x8x512 (T = 18), 0.91 G at 16x16x256 and at
 // 32x32x128 (T = 27), against 38, 15 and 5 MB moved (nearly all of it the two
-// tap tensors). In float32 outside the tensor cores (67 TFLOP/s) that is 18 to
-// 27 us; the first version of this kernel, a float32 FFMA GEMM, ran at 3 to 4x
-// that at one image and 40 % of it at 128. On the tensor cores in TF32
-// (495 TFLOP/s) at three products per multiply-add (below) the operations
-// take 11 us at 16x16x256 and 32x32x128, and at 8x8x512 the 38 MB of taps at
-// 3.35 TB/s bound it instead (11.35 us). PERF.md has both bounds and the
-// measured times.
+// tap tensors). On the tensor cores in TF32 (495 TFLOP/s) at three products
+// per multiply-add (below) the operations take 11 us at 16x16x256 and
+// 32x32x128, and at 8x8x512 the 38 MB of taps at 3.35 TB/s bound it instead
+// (11.35 us); at batch 128 the operations, 0.94 / 1.41 / 1.41 ms a block.
+// PERF.md has the bounds and the measured times.
 //
 // Accuracy: 3xTF32. One TF32 product keeps 10 mantissa bits per operand and
 // misses float32 by about 1e-3 relative on these 9,216-term sums, more than
@@ -31,368 +29,596 @@
 // and each tile product is lo*hi + hi*lo + hi*hi, the small terms first, into
 // float32 accumulators: float32 accuracy (lo*lo, about 2^-22 relative, is
 // dropped). tests/test_torch_mdblock.py emulates both on the CPU. One thing
-// the emulation does not show: an mma adds its products and the accumulator
-// it is given with truncation, so a sum carried in the accumulator over all
-// 3,456 to 9,216 steps drifts toward zero by about one float32 rounding per
-// mma; each 16-channel step therefore starts from zero and is added to the
-// running sum by an ordinary float32 add.
+// the emulation does not show: the tensor cores add their products and the
+// sum they are given with truncation, so a sum carried in the accumulators
+// over all 108 to 288 steps drifts toward zero by about one float32 rounding
+// per product; each step (a tap by 32 input channels) therefore starts from
+// zero and is added to the running sums by an ordinary float32 add.
 //
-// Design. The TPU kernel holds a block of images, both tap tensors and the
-// intermediate in VMEM and runs both MDCLs in one body. Here one image's
-// intermediate (up to 512 KB) is larger than a block's shared memory, and
-// MDCL2 at a pixel needs MDCL1 at every channel within three pixels, so the
-// block is one MDCL kernel launched twice: the first writes
-// h1 = lrelu(s1 * MDCL1(lrelu(s0 * x + t0)) + t1), which stays in L2, the
-// second reads h1 and adds the raw x. A block of eight warps computes a
-// 64-pixel x 128-channel tile, each warp 32 x 32 of it as 2 x 4 fragments of
-// mma.sync m16n8k8 TF32, over steps of one tap and 16 input channels staged
-// in a ring of two shared-memory stages: while the tensor cores work on one
-// stage, the operands of the next step are loaded into registers, to be
-// stored into the other after the products, the activations with the
-// prologue affine, lrelu and zero border applied on the way (the operand is
-// read as it lies: a channel plane is contiguous in pixels, shifted by the
-// tap's offset), and both split into hi and lo planes once, at that store.
-// The step's sums are added to the running sums after it (Accuracy, above).
-// Stage rows are padded to 8 words beyond a multiple of 32, so that the
-// fragment loads (eight rows by four columns a warp) hit 32 distinct banks.
-// What bounds this kernel on the card is the staging of the operands (the
-// loads, the prologue, the split and the stores into shared memory) more
-// than the products: against a 64 x 64 tile the 128-wide tile halves the
-// activations' staging per product and was faster in proportion. Versions
-// on wgmma (64 x 64, 64 x 128, and 128 x 128 tiles counted over the batch,
-// both operands split into K-major planes) computed the same sums; the best
-// of them, scripts/mdblock_wgmma.cu, is faster at batch 128 but slower per
-// decode at one image, the editor's shape (PERF.md has the times).
-// At batch 1 the output has only 4 to 16 tiles for 132 SMs and the inner
-// dimension is long, so the inner dimension is cut into slices over
-// blockIdx.y, as rgb_beta_head.cu cuts its trunk: each slice writes its
-// partial sums and a small second launch adds them in a fixed order and
-// applies the epilogue (deterministic, no atomics). With one slice the
-// epilogue runs in the product kernel itself. The wrapper picks the number of
-// slices (npe_tpu_torch/ops/kernels/mdblock.py) so that all blocks run in one
-// wave of two a multiprocessor (__launch_bounds__ holds the registers to
-// that; 52 KB of shared memory a block).
+// Design, in the order the work goes (mdblock_bwd.cu's, on the forward's
+// operands):
+// 1. The prologue (mdcl_kernel<0>) reads x (NCHW) and writes MDCL1's input
+//    lrelu(s0 * x + t0) pixel-major (NHWC) as a TF32 operand pair, hi and
+//    lo, the lo images after the hi. MDCL1's epilogue writes
+//    h1 = lrelu(s1 * MDCL1 + t1) as the same pair, MDCL2's operand, and,
+//    where x will need a gradient, h1 float32 NCHW for the backward.
+//    MDCL2's epilogue adds the raw x and writes y NCHW.
+// 2. Each MDCL (mdcl_kernel<1, kSub>, mdcl_kernel<2, kSub>) is one kernel of
+//    two 128-thread consumer warpgroups and a producer warp over a tile of
+//    kSub 8x8 patches by 128 output channels. A unit is (chunk, tap), a
+//    chunk 32 input channels. The producer's one thread arms a stage's
+//    mbarrier and asks the tensor memory accelerator for the tap tile, rows
+//    ci of the chunk by the tile's columns co of taps[t] as they lie, and,
+//    when u starts a chunk or the slice, for each patch's halo tiles: one box of
+//    (8 + 2R)^2 pixels by the chunk's channels of the pair's hi image and
+//    one of its lo image (R the largest dilation; zeros outside the image
+//    and past C). Every tap of every branch reads its shifted 8x8 window of
+//    those tiles by the wgmma descriptor alone. Where two halo buffers and
+//    three stages do not fit (a dilation past 4), a stage brings each unit's
+//    own shifted 8x8 window pair instead (`fwd_plan`'s `halo`).
+// 3. The stages are a ring released by mbarriers, as in mdblock_bwd.cu: the
+//    producer runs as far ahead as the ring allows. One patch a block
+//    (kSub 1, batch 1 to 16 at full IAN's shapes): the two consumer
+//    warpgroups take alternate units of the slice over the same ring and
+//    halo tiles, each with its own running sums, which are added (the first
+//    warpgroup's, then the second's) before the epilogue; one warpgroup
+//    alone was bound by its own instructions (the split, the sums' adds, the
+//    barriers): without its products it took 1.88 of its 2.68 ms at 8x8x512
+//    batch 128. Two patches a block (kSub 2, once the batch gives every SM
+//    two tiles): each warpgroup takes its own patch over every unit and
+//    splits half of each tap tile, so that a tap tile serves 128 pixels;
+//    with one patch a block the tap tiles' reads from L2 (16 KB a unit for
+//    64 pixels, 2.4 to 3.6 GB a block of full IAN at batch 128) bound it:
+//    without its products it still took 1.67 / 2.50 / 2.84 ms. Two patches'
+//    halo tiles fit one buffer each; they complete on a barrier of their own
+//    so that the next unit's tap tile, which the consumers split before
+//    they release the chunk's last unit, is copied ahead of them.
+// 4. 3xTF32 wgmma m64n128k8. TF32 wgmma takes both operands K-major only;
+//    the activations' tiles are (channels innermost), the taps' are not:
+//    taps[t, ci, co] has co innermost. So the consumers split each tap tile
+//    transposed: each thread reads one column co of the 32 x 128 tile (with
+//    two patches, of half its rows) as it landed, and, once its warpgroup
+//    has read them, writes the column's hi in place as K-major core matrices
+//    and its lo beside them, while the tensor cores run the stage before.
+//    Each stage is
+//    lo*hi + hi*lo + hi*hi summed from zero, then added to the running sums.
+// 5. Batch 1 (one patch a block): the output has 4 to 16 tiles for 132 SMs,
+//    so the units are cut into slices over blockIdx.y, and the slices of a
+//    tile run as a thread-block cluster of up to 8 blocks that adds them through
+//    distributed shared memory in rank order (fixed order, no atomics: two
+//    calls are bit-equal). Only where a tile has more slices than a cluster
+//    holds does add_slices_kernel add the clusters' sums in order.
+// 6. Launches after the prologue use programmatic dependent launch.
+// A call is 3 launches (prologue, MDCL1, MDCL2), or 5 where the plan's
+// slices outnumber a cluster; `fwd_plan` in
+// npe_tpu_torch/ops/kernels/mdblock.py states the rule.
 //
-// This file is the float32 form. The bf16 form is mdblock_bf16.cu, a kernel
-// of its own (wgmma over tap tiles and halo tiles brought by TMA).
+// Rounding points: the operand split alone, as the earlier mma.sync form of
+// this kernel rounded (x after BN0's affine and lrelu, h1 after BN1's, and
+// the taps, each into its TF32 pair); the sums, affines and the residual are
+// float32.
 //
-// Left for a later change: staging that moves fewer bytes per product (a
-// halo tile of the activations shared by all taps of a branch; TMA for the
-// tap tiles, split once per call rather than per tile), then wgmma behind
-// it. mdblock_bwd.cu's input gradient has both.
-//
-// The input gradient (npe_tpu's `_fused_bwd`) is mdblock_bwd.cu's, a kernel
-// of its own over pixel-major operands.
+// This file is the float32 form. The bf16 form is mdblock_bf16.cu; x's
+// gradient (npe_tpu's `_fused_bwd`) is mdblock_bwd.cu's.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "dynamic_smem.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // eight warps, 2 (pixels) x 4 (channels) of 32 x 32
-constexpr int kBlocksPerSm = 2;
-constexpr int kTileP = 64;     // pixels of a tile
-constexpr int kTileC = 128;    // output channels of a tile
-constexpr int kStep = 16;      // input channels of one stage
-constexpr int kRowA = kTileP + 8;  // words per stage row: both 8 mod 32 banks
-constexpr int kRowW = kTileC + 8;
-// two stages of (hi, lo) x (activations, taps)
-constexpr int kSmemBytes = 2 * 2 * kStep * (kRowA + kRowW) * static_cast<int>(sizeof(float));
-constexpr int kMaxBranches = 8;
+using namespace npe;
 
-// The 3x3 branches of one MDCL: dilation 1 first, then each dilated scale.
+constexpr int kTileP = 64;             // pixels of a patch (8x8): the warpgroup's M
+constexpr int kN = 128;                // output channels of a tile: wgmma's N
+constexpr int kGroups = 8;             // 16-byte channel groups of a chunk
+constexpr int kChunk = 4 * kGroups;    // input channels of a unit
+constexpr int kTapBytes = kChunk * kN * 4;     // a tap tile: 16 KB as it lands, as hi, as lo
+constexpr int kStageBytes = 2 * kTapBytes;     // hi (where the tile lands), then lo
+constexpr int kPartLd = kN + 4;        // floats a row of a staged partial tile
+constexpr int kMaxBranches = 8;
+constexpr int kMaxStages = 8;
+constexpr int kThreads = 256;          // the prologue's and add_slices' blocks
+constexpr int kConsumers = 2;          // consumer warpgroups of an MDCL block
+constexpr int kMdclThreads = 128 * kConsumers + 32;  // and the producer warp
+
 struct Branches {
   int n;
   int dilation[kMaxBranches];
 };
 
+// One MDCL launch.
+struct Fwd {
+  Branches branches;
+  int batch, channels, height, width;
+  int patches_x, patches;  // 8x8 patches a row of an image; in the batch
+  int radius;              // the largest dilation
+  int halo;                // 1: a halo tile a chunk; 0: a window pair a unit
+  int units, splits, cluster, stages;
+  float* out;              // pass 1: h1's pair (pixel-major); pass 2: y (NCHW)
+  float* h1;               // pass 1: h1 NCHW for the backward, or null
+  float* partial;          // splits > cluster: (batch, splits / cluster, ...) in the output's layout
+};
+
 __device__ __forceinline__ float lrelu(float v) { return v >= 0.0f ? v : 0.2f * v; }
 
-// lrelu(s * (sum [+ residual]) + t) over four neighbouring pixels of a channel.
-__device__ __forceinline__ float4 epilogue(float4 v, const float* resid, float s, float t) {
-  if (resid != nullptr) {
-    const float4 r = *reinterpret_cast<const float4*>(resid);
-    v.x += r.x; v.y += r.y; v.z += r.z; v.w += r.w;
+// An operand pair: hi = tf32(v) at hi[0], lo = tf32(v - hi) at hi[lo_offset].
+__device__ __forceinline__ void store_pair(float* hi, size_t lo_offset, float v) {
+  const float h = tf32(v);
+  hi[0] = h;
+  hi[lo_offset] = tf32(v - h);
+}
+
+// The epilogue of a finished sum v of channel c at pixel pix of image img.
+// pass 1: h1 = lrelu(s1 * v + t1) as its pair, and NCHW where asked;
+// pass 2: y = lrelu(s2 * (x + v) + t2).
+template <int kPass>
+__device__ __forceinline__ void finish(const Fwd& p, const float* __restrict__ x, const float* __restrict__ aff,
+                                       float v, size_t img, int pix, int c) {
+  const int channels = p.channels, hw = p.height * p.width;
+  const size_t nchw = (img * channels + c) * hw + pix;
+  if constexpr (kPass == 1) {
+    const float h = lrelu(fmaf(__ldg(aff + 2 * channels + c), v, __ldg(aff + 3 * channels + c)));
+    store_pair(p.out + (img * hw + pix) * channels + c, static_cast<size_t>(p.batch) * hw * channels, h);
+    if (p.h1 != nullptr) p.h1[nchw] = h;
+  } else {
+    p.out[nchw] = lrelu(fmaf(__ldg(aff + 4 * channels + c), v + __ldg(x + nchw), __ldg(aff + 5 * channels + c)));
   }
-  return make_float4(lrelu(fmaf(s, v.x, t)), lrelu(fmaf(s, v.y, t)), lrelu(fmaf(s, v.z, t)),
-                     lrelu(fmaf(s, v.w, t)));
 }
 
-// v = hi + lo, both TF32 (cvt.rna: round to nearest, ties away from zero).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+// Barrier `id` of `threads` threads (the consumer warpgroups).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// c += a * b for one m16n8k8 TF32 fragment, float32 accumulators.
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The transposing TF32 split of a tap tile, or of kParts consecutive 16-byte
+// groups of it: the tile lands as [32 ci][128 co] floats; thread t of a
+// consumer warpgroup reads column co = t of rows 4 g0 .. 4 (g0 + kParts) - 1,
+// and once the warpgroup has read them (barrier `id`) writes the column's
+// hi over them as K-major core matrices, [ci / 4][co][ci % 4], and its lo
+// kTapBytes on.
+template <int kParts>
+__device__ __forceinline__ void split_tile(uint8_t* tile, int t, int g0, int id) {
+  const float* raw = reinterpret_cast<const float*>(tile) + 4 * g0 * kN;
+  float v[4 * kParts];
+#pragma unroll
+  for (int k = 0; k < 4 * kParts; ++k) v[k] = raw[k * kN + t];
+  named_sync(id, 128);  // the rows are read before hi overwrites them
+#pragma unroll
+  for (int g = 0; g < kParts; ++g) {
+    const float4 hi = make_float4(tf32(v[4 * g]), tf32(v[4 * g + 1]), tf32(v[4 * g + 2]), tf32(v[4 * g + 3]));
+    reinterpret_cast<float4*>(tile)[(g0 + g) * kN + t] = hi;
+    reinterpret_cast<float4*>(tile + kTapBytes)[(g0 + g) * kN + t] =
+        make_float4(tf32(v[4 * g] - hi.x), tf32(v[4 * g + 1] - hi.y), tf32(v[4 * g + 2] - hi.z),
+                    tf32(v[4 * g + 3] - hi.w));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma's reads
 }
 
-// c = a * b: the same product into a sum that starts from zero.
-__device__ __forceinline__ void mma_tf32_first(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.0f));
-}
-
-// One MDCL over the slice blockIdx.y of its inner dimension.
-//   in       (batch, channels, height, width)
-//   aff_in   rows (s, t) of the prologue lrelu(s * in + t), or null: in as it is
-//   taps     (9 * branches.n, channels, channels)
-//   aff_out  null: dst is the partial sums (batch, slices, channels, height, width);
-//            else rows (s, t) of the epilogue and dst is the finished map
-//   resid    added before the epilogue's affine, or null
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-mdcl_kernel(const float* __restrict__ in, const float* __restrict__ aff_in,
-            const float* __restrict__ taps, Branches branches, float* __restrict__ dst,
-            const float* __restrict__ aff_out, const float* __restrict__ resid, int channels,
-            int height, int width, int units_per_split) {
-  // (stage, hi / lo, input channel x pixel) and (stage, hi / lo, input
-  // channel x output channel)
-  extern __shared__ __align__(16) float smem[];
-  float (*as)[2][kStep * kRowA] = reinterpret_cast<float (*)[2][kStep * kRowA]>(smem);
-  float (*ws)[2][kStep * kRowW] = reinterpret_cast<float (*)[2][kStep * kRowW]>(smem + 2 * 2 * kStep * kRowA);
-  const int hw = height * width;
-  const int tiles_p = hw / kTileP;
-  const int tile_p = blockIdx.x % tiles_p, tile_c = blockIdx.x / tiles_p;
-  const int split = blockIdx.y, n = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int grp = lane / 4, tig = lane % 4;                 // the fragments' row group and column
-  const int wm = 32 * (warp % 2), wn = 32 * (warp / 2);   // the warp's pixels and channels in the tile
-  // What this thread stages: one pixel of the input channels lk, lk + 4, ..;
-  // and four output channels of the tap rows wr and wr + 8.
-  const int lp = tid % kTileP, lk = tid / kTileP;
-  const int pix = tile_p * kTileP + lp;
-  const int py = pix / width, px = pix % width;
-  const int wc = 4 * (tid % 32), wr = tid / 32;
-  const bool wc_ok = tile_c * kTileC + wc < channels;
-  const int units_per_tap = channels / kStep;
-
-  // (16-pixel fragment, 8-channel fragment, element): the running sums, and
-  // the tensor cores' sums over the current step
-  float acc[2][4][4], step[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-  // The next step's operands as they lie in memory (the prologue and the
-  // split wait until they are stored, so that the loads stay in flight behind
-  // the products), whether this thread's pixel is inside the image, and its
-  // first channel.
-  float a_next[4];
-  float4 w_next[2];
-  bool inside_next = false;
-  int c_next = 0;
-
-  auto fetch = [&](int unit) {
-    const int t = unit / units_per_tap;
-    const int c0 = kStep * (unit - t * units_per_tap);
-    const int dil = branches.dilation[t / 9];
-    const int y = py + (t % 9 / 3 - 1) * dil, x = px + (t % 3 - 1) * dil;
-    inside_next = y >= 0 && y < height && x >= 0 && x < width;
-    c_next = c0 + lk;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      a_next[e] = inside_next
-                      ? __ldg(in + (static_cast<size_t>(n) * channels + c_next + 4 * e) * hw + y * width + x)
-                      : 0.0f;
-    const float* wsrc = taps + (static_cast<size_t>(t) * channels + c0 + wr) * channels + tile_c * kTileC + wc;
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      w_next[e] = wc_ok ? __ldg(reinterpret_cast<const float4*>(wsrc + static_cast<size_t>(8 * e) * channels))
-                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  };
-  // The prologue on the activations, then both operands split into stage s.
-  auto store = [&](int s) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v = a_next[e];
-      if (aff_in != nullptr && inside_next) {
-        const int c = c_next + 4 * e;
-        v = lrelu(fmaf(__ldg(aff_in + c), v, __ldg(aff_in + channels + c)));
-      }
-      uint32_t hi, lo;
-      split_tf32(v, hi, lo);
-      as[s][0][(lk + 4 * e) * kRowA + lp] = __uint_as_float(hi);
-      as[s][1][(lk + 4 * e) * kRowA + lp] = __uint_as_float(lo);
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float v[4] = {w_next[e].x, w_next[e].y, w_next[e].z, w_next[e].w};
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(v[q], hi[q], lo[q]);
-      *reinterpret_cast<uint4*>(&ws[s][0][(wr + 8 * e) * kRowW + wc]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(&ws[s][1][(wr + 8 * e) * kRowW + wc]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
-  };
-
-  const int first = split * units_per_split, last = first + units_per_split;
-  fetch(first);
-  store(0);
+// MDCL1's input lrelu(s0 * x + t0) from x (NCHW), written pixel-major as its
+// operand pair, the lo images after the hi; a block turns a 64-channel x
+// 64-pixel tile of one image through shared memory.
+__device__ __forceinline__ void prologue(const float* __restrict__ x, const float* __restrict__ aff,
+                                         float* __restrict__ act, int channels, int hw) {
+  launch_next();
+  __shared__ float tile[64][kTileP + 1];  // [channel][pixel]
+  const size_t lo = static_cast<size_t>(gridDim.z) * hw * channels;
+  const int p0 = blockIdx.x * kTileP, c0 = blockIdx.y * 64;
+  const size_t n = blockIdx.z;
+  for (int i = threadIdx.x; i < 64 * kTileP / 4; i += kThreads) {
+    const int c = i / (kTileP / 4), q = i % (kTileP / 4);
+    if (c0 + c >= channels) continue;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + (n * channels + c0 + c) * hw + p0 + 4 * q));
+    const float s = __ldg(aff + c0 + c), t = __ldg(aff + channels + c0 + c);
+    tile[c][4 * q] = lrelu(fmaf(s, v.x, t));
+    tile[c][4 * q + 1] = lrelu(fmaf(s, v.y, t));
+    tile[c][4 * q + 2] = lrelu(fmaf(s, v.z, t));
+    tile[c][4 * q + 3] = lrelu(fmaf(s, v.w, t));
+  }
   __syncthreads();
-  for (int unit = first; unit < last; ++unit) {
-    const int s = (unit - first) & 1;
-    const bool more = unit + 1 < last;
-    if (more) fetch(unit + 1);
+  for (int i = threadIdx.x; i < 64 * kTileP; i += kThreads) {
+    const int px = i / 64, c = i % 64;
+    if (c0 + c < channels) store_pair(act + (n * hw + p0 + px) * channels + c0 + c, lo, tile[c][px]);
+  }
+}
+
+// One MDCL over the slice blockIdx.y of its units (the header's steps 2-5),
+// or (kPass 0) the prologue. kSub: patches a block, one (the two consumer
+// warpgroups on alternate units of its slice) or two (each warpgroup its own
+// patch over all units, one slice, one halo buffer a patch). x: the block's
+// input (pass 2: the residual); aff: (6, C), rows s0, t0, s1, t1, s2, t2;
+// taps: the pass's tap tensor, which taps_map reads (null in the prologue);
+// act_map reads the pass's operand pair.
+template <int kPass, int kSub>
+__global__ void __launch_bounds__(kPass == 0 ? kThreads : kMdclThreads, 1)
+mdcl_kernel(const float* __restrict__ x, const float* __restrict__ aff, const float* __restrict__ taps,
+            const __grid_constant__ Fwd p, const __grid_constant__ CUtensorMap taps_map,
+            const __grid_constant__ CUtensorMap act_map) {
+  if constexpr (kPass == 0) {
+    prologue(x, aff, p.out, p.channels, p.height * p.width);
+    return;
+  } else {
+    extern __shared__ __align__(128) uint8_t smem[];
+    const int tid = threadIdx.x, wg = tid / 128;
+    const int channels = p.channels, stages = p.stages;
+    const int tiles_c = (channels + kN - 1) / kN;
+    const int n0 = blockIdx.x % tiles_c * kN, group = blockIdx.x / tiles_c, split = blockIdx.y;
+    const int n_taps = 9 * p.branches.n;
+    const int first = static_cast<int>(static_cast<long long>(split) * p.units / p.splits);
+    const int last = static_cast<int>(static_cast<long long>(split + 1) * p.units / p.splits);
+    const int first_chunk = first / n_taps;
+    // the activations' tiles a patch: a halo tile a chunk in two buffers (one
+    // with two patches), or a window a unit in each stage
+    const int reach = p.halo ? p.radius : 0, side = 8 + 2 * reach, act_px = side * side;
+    const int act_bytes = act_px * 16 * kGroups, act_buffers = !p.halo ? stages : kSub == 2 ? 1 : 2;
+    uint8_t* const taps_s = smem;
+    uint8_t* const act_s = smem + stages * kStageBytes;  // [patch][buffer][hi, lo][act_bytes]
+    const uint32_t full = smem_addr(act_s + kSub * act_buffers * 2 * act_bytes), empty = full + 8 * kMaxStages;
+    // One halo buffer: the halo tiles complete on a barrier of their own (in
+    // the slot that stages < kMaxStages leaves free), so that the next unit's
+    // tap tile, which the consumers split before they release the chunk's
+    // last unit, is not held back with them.
+    const uint32_t halo_full = empty + 8 * (kMaxStages - 1);
+    const bool own_halo_bar = p.halo && act_buffers == 1;
+    if (tid == 0) {
+      for (int i = 0; i < stages; ++i) {
+        barrier_init(full + 8 * i);
+        barrier_init<kSub>(empty + 8 * i);  // a unit's consumers: one warpgroup, or both
+      }
+      if (own_halo_bar) barrier_init(halo_full);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // Each patch of the block: its image and its top-left corner.
+    int img[kSub], py0[kSub], px0[kSub];
+    bool valid[kSub];
+    const int per_image = p.patches / p.batch;
 #pragma unroll
-    for (int kk = 0; kk < kStep; kk += 8) {
-      // A fragment: (row, k), (row + 8, k), (row, k + 4), (row + 8, k + 4)
-      uint32_t a_hi[2][4], a_lo[2][4];
+    for (int s = 0; s < kSub; ++s) {
+      const int idx = group * kSub + s, at = idx % per_image;
+      valid[s] = idx < p.patches;
+      img[s] = valid[s] ? idx / per_image : 0;
+      py0[s] = 8 * (at / p.patches_x);
+      px0[s] = 8 * (at % p.patches_x);
+    }
+    // the patch a consumer warpgroup's sums are of
+    const bool mine = kSub == 2 && wg == 1;
+    const int my_img = mine ? img[kSub - 1] : img[0];
+    const int my_py0 = mine ? py0[kSub - 1] : py0[0], my_px0 = mine ? px0[kSub - 1] : px0[0];
+    const bool my_valid = mine ? valid[kSub - 1] : valid[0];
+    auto offset = [&](int t, int& dy, int& dx) {  // tap t's (dy, dx)
+      const int dil = p.branches.dilation[t / 9];
+      dy = (t % 9 / 3 - 1) * dil;
+      dx = (t % 3 - 1) * dil;
+    };
+
+    float acc[kN / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int at = (kk + tig) * kRowA + wm + 16 * i + grp;
-        const int off[4] = {0, 8, 4 * kRowA, 4 * kRowA + 8};
+    for (int e = 0; e < kN / 2; ++e) acc[e] = 0.0f;
+
+    if (wg == kConsumers) {
+      // The producer warp: its first thread issues every copy.
+      if (tid == 128 * kConsumers) {
+        bool waited = false;
+        for (int u = first; u < last; ++u) {
+          const int k = u - first, stage = k % stages;
+          if (k >= stages) barrier_wait(empty + 8 * stage, (k / stages - 1) & 1);  // unit u - stages is done
+          const int chunk = u / n_taps, t = u - chunk * n_taps;
+          const bool act_load = !p.halo || t == 0 || u == first;
+          int loaded = 0;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a_hi[i][q] = __float_as_uint(as[s][0][at + off[q]]);
-          a_lo[i][q] = __float_as_uint(as[s][1][at + off[q]]);
+          for (int s = 0; s < kSub; ++s) loaded += act_load && valid[s];
+          uint32_t bar = full + 8 * stage;
+          barrier_expect(bar, kTapBytes + (own_halo_bar ? 0 : loaded * 2 * act_bytes));
+          // (the tile's 128 columns co, the chunk's 32 rows ci, tap t)
+          tensor_copy_4d(smem_addr(taps_s + stage * kStageBytes), &taps_map, n0, chunk * kChunk, t, 0, bar);
+          if (act_load) {
+            if (!waited) {  // the operand pair: the previous launch's output
+              wait_previous();
+              waited = true;
+            }
+            if (own_halo_bar) {
+              if (k > 0)  // the one buffer is free once the chunk's last unit is done
+                barrier_wait(empty + 8 * ((k - 1) % stages), ((k - 1) / stages) & 1);
+              bar = halo_full;
+              barrier_expect(bar, loaded * 2 * act_bytes);
+            }
+            int dy = -reach, dx = -reach;
+            if (!p.halo) offset(t, dy, dx);
+            const int buf = !p.halo ? stage : act_buffers == 1 ? 0 : (chunk - first_chunk) % 2;
+#pragma unroll
+            for (int s = 0; s < kSub; ++s)
+              if (valid[s])
+#pragma unroll
+                for (int part = 0; part < 2; ++part)  // hi, then lo
+                  tensor_copy_5d(smem_addr(act_s + ((s * act_buffers + buf) * 2 + part) * act_bytes), &act_map, 0,
+                                 px0[s] + dx, py0[s] + dy, chunk * kGroups, img[s] + part * p.batch, bar);
+          }
         }
       }
+    } else {
+      const uint32_t lbo_a = act_px * 16, sbo_a = side * 16, lbo_b = kN * 16;
+      auto window = [&](int u, int k) {  // the hi tile's 8x8 window of this warpgroup's patch for unit u
+        const uint8_t* base = act_s + (mine ? act_buffers * 2 * act_bytes : 0);
+        if (!p.halo) return smem_addr(base + (k % stages) * 2 * act_bytes);
+        const int chunk = u / n_taps;
+        int dy, dx;
+        offset(u - chunk * n_taps, dy, dx);
+        return smem_addr(base + (act_buffers == 1 ? 0 : (chunk - first_chunk) % 2) * 2 * act_bytes) +
+               ((dy + reach) * side + dx + reach) * 16;
+      };
+      // kSub 1: warpgroup wg takes the slice's units first + wg, first + wg + 2, ..,
+      // and splits their tap tiles whole; kSub 2: both take every unit, and
+      // each splits half of its tile (groups 4 wg .. 4 wg + 3).
+      constexpr int kStride = kSub == 2 ? 1 : kConsumers;
+      const int t = tid % 128, n = last - first, k0 = kSub == 2 ? 0 : wg;
+      auto split_unit = [&](int k) {
+        uint8_t* tile = taps_s + k % stages * kStageBytes;
+        if constexpr (kSub == 2) split_tile<kGroups / 2>(tile, t, kGroups / 2 * wg, 3 + wg);
+        else split_tile<kGroups>(tile, t, 0, 3 + wg);
+      };
+      auto stage_sync = [&]() {  // the next stage's split is whole
+        if constexpr (kSub == 2) named_sync(1, 256);
+        else named_sync(1 + wg, 128);
+      };
+      float step[kN / 2];
+      int halos = 0;  // halo loads waited for on halo_full
+      if (k0 < n) {
+        barrier_wait(full + 8 * k0, 0);
+        split_unit(k0);
+      }
+      stage_sync();
+      for (int k = k0; k < n; k += kStride) {
+        const int u = first + k, stage = k % stages;
+        if (own_halo_bar && (k == 0 || u % n_taps == 0)) barrier_wait(halo_full, halos++ & 1);
+        const uint32_t a = window(u, k), b = smem_addr(taps_s + stage * kStageBytes);
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // B fragment: (k, column), (k + 4, column)
-        const int at = (kk + tig) * kRowW + wn + 8 * j + grp;
-        const uint32_t b_hi[2] = {__float_as_uint(ws[s][0][at]), __float_as_uint(ws[s][0][at + 4 * kRowW])};
-        const uint32_t b_lo[2] = {__float_as_uint(ws[s][1][at]), __float_as_uint(ws[s][1][at + 4 * kRowW])};
-        // lo*hi, then hi*lo, then hi*hi into each sum
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (kk == 0) mma_tf32_first(step[i][j], a_lo[i], b_hi);
-          else mma_tf32(step[i][j], a_lo[i], b_hi);
+        for (int j = 0; j < kGroups / 2; ++j) {  // k8 steps: two 16-byte groups each
+          const uint64_t a_hi = descriptor(a + 2 * j * lbo_a, lbo_a, sbo_a);
+          const uint64_t a_lo = descriptor(a + act_bytes + 2 * j * lbo_a, lbo_a, sbo_a);
+          const uint64_t b_hi = descriptor(b + 2 * j * lbo_b, lbo_b, 128);
+          const uint64_t b_lo = descriptor(b + kTapBytes + 2 * j * lbo_b, lbo_b, 128);
+          wgmma_tf32(step, a_lo, b_hi, j);  // lo*hi, then hi*lo, then hi*hi; the stage from zero
+          wgmma_tf32(step, a_hi, b_lo, 1);
+          wgmma_tf32(step, a_hi, b_hi, 1);
         }
+        wgmma_commit();
+        if (k + kStride < n) {  // split the next stage while the tensor cores work
+          barrier_wait(full + 8 * ((k + kStride) % stages), ((k + kStride) / stages) & 1);
+          split_unit(k + kStride);
+        }
+        wgmma_wait<0>();
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_lo);
+        for (int e = 0; e < kN / 2; ++e) acc[e] += step[e];
+        if (t == 0) barrier_arrive(empty + 8 * stage);
+        stage_sync();
+      }
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_tf32(step[i][j], a_hi[i], b_hi);
+      for (int e = 0; e < kN / 2; ++e) asm volatile("" : "+f"(acc[e])::"memory");
+    }
+    launch_next();
+    wait_previous();  // every write below follows the previous launch
+    __syncthreads();  // the ring and the activations' tiles are free
+
+    // acc[4 j + q] is row 16 w + grp (+ 8 for q >= 2), channel 8 j + 2 tig
+    // (+ 1 for odd q) of the warpgroup's 64 x 128 tile, w its warp in the
+    // warpgroup.
+    const int lane = tid % 32, w = tid / 32 % 4, grp = lane / 4, tig = lane % 4;
+    float* const part = reinterpret_cast<float*>(smem);
+    auto at = [&](int q) { return part + (16 * w + grp + 8 * (q % 4 / 2)) * kPartLd + 8 * (q / 4) + 2 * tig; };
+    if constexpr (kSub == 1) {
+      // The second warpgroup's sums go through shared memory into the
+      // first's, which finishes the tile: each thread of the first reads what
+      // its twin of the second wrote, and writes its staged partial tile
+      // (below) to the same places.
+      if (wg == 1) {
+#pragma unroll
+        for (int q = 0; q < kN / 2; q += 2) *reinterpret_cast<float2*>(at(q)) = make_float2(acc[q], acc[q + 1]);
+      }
+      __syncthreads();
+      if (wg == 0) {
+#pragma unroll
+        for (int q = 0; q < kN / 2; q += 2) {
+          const float2 v = *reinterpret_cast<const float2*>(at(q));
+          acc[q] += v.x;
+          acc[q + 1] += v.y;
+        }
       }
     }
-    // The tensor cores align a sum to its largest term and truncate what
-    // falls below (round toward zero), the running sum included: folded
-    // into `acc` on every product that bias grows with the number of steps
-    // (past the port's tolerance on full IAN's 8x8x512 block at batch 8).
-    // So each step's sums start from zero and are added to `acc` in float32.
+    if (p.splits == 1) {
+      if (wg == kConsumers || (kSub == 1 && wg != 0) || !my_valid) return;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int q = 0; q < kN / 2; ++q) {
+        const int m = 16 * w + grp + 8 * (q % 4 / 2), c = n0 + 8 * (q / 4) + 2 * tig + q % 2;
+        const int y = my_py0 + m / 8, xx = my_px0 + m % 8;
+        if (c < channels && y < p.height && xx < p.width) finish<kPass>(p, x, aff, acc[q], my_img, y * p.width + xx, c);
+      }
+      return;
+    }
+    if constexpr (kSub == 1) {
+      // Slices: the partial tile in shared memory, then the cluster's sum
+      if (wg == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int q = 0; q < kN / 2; q += 2) *reinterpret_cast<float2*>(at(q)) = make_float2(acc[q], acc[q + 1]);
+      }
+      cluster_sync();
+      const int cs = p.cluster, rank = static_cast<int>(cluster_rank());
+      const int m0 = rank * kTileP / cs, m1 = (rank + 1) * kTileP / cs;  // this block's rows of the sum
+      const size_t groups = p.splits / cs, grp_idx = split / cs;
+      const int hw = p.height * p.width;
+      for (int i = tid; i < (m1 - m0) * kN / 4; i += blockDim.x) {
+        const int m = m0 + i / (kN / 4), n = 4 * (i % (kN / 4));
+        const uint32_t addr = smem_addr(part + m * kPartLd + n);
+        float4 v = load_peer(addr, 0);
+        for (int r = 1; r < cs; ++r) {
+          const float4 q = load_peer(addr, r);
+          v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
+        }
+        const int y = py0[0] + m / 8, xx = px0[0] + m % 8;
+        if (y >= p.height || xx >= p.width) continue;
+        const int pix = y * p.width + xx;
+        const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += step[i][j][e];
-    if (more) store(s ^ 1);
-    __syncthreads();
-  }
-
-  // Element e of fragment (i, j) is pixel wm + 16i + grp (+ 8 for e >= 2) and
-  // channel wn + 8j + 2 tig (+ 1 for odd e) of the tile.
-  const size_t image = aff_out == nullptr ? static_cast<size_t>(n) * gridDim.y + split : n;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int odd = 0; odd < 2; ++odd) {
-      const int co = tile_c * kTileC + wn + 8 * j + 2 * tig + odd;
-      if (co >= channels) continue;
-      const float s_out = aff_out == nullptr ? 0.0f : __ldg(aff_out + co);
-      const float t_out = aff_out == nullptr ? 0.0f : __ldg(aff_out + channels + co);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int lower = 0; lower < 2; ++lower) {
-          const size_t at = (image * channels + co) * hw + tile_p * kTileP + wm + 16 * i + grp + 8 * lower;
-          float v = acc[i][j][2 * lower + odd];
-          if (aff_out != nullptr) {
-            if (resid != nullptr) v += resid[at];
-            v = lrelu(fmaf(s_out, v, t_out));
+        for (int k = 0; k < 4; ++k) {
+          const int c = n0 + n + k;
+          if (c >= channels) continue;
+          if (groups == 1) {
+            finish<kPass>(p, x, aff, e[k], img[0], pix, c);
+          } else {
+            const size_t image = img[0] * groups + grp_idx;
+            p.partial[kPass == 1 ? (image * hw + pix) * channels + c : (image * channels + c) * hw + pix] = e[k];
           }
-          dst[at] = v;
         }
       }
+      cluster_sync();  // no block leaves while a peer reads its tile
     }
   }
 }
 
-// out[n, c, p] = lrelu(s[c] * (sum over the slices, in order, of partial[n, slice, c, p]
-//                              [+ resid[n, c, p]]) + t[c]), four pixels a thread.
+// The clusters' sums: the epilogue of the sum over the groups, in order, of
+// partial[img, group, i] for the elements i of image blockIdx.y, four a
+// thread, in the output's layout (pass 1 pixel-major, pass 2 NCHW).
+template <int kPass>
 __global__ void __launch_bounds__(kThreads)
-add_slices_kernel(const float* __restrict__ partial, const float* __restrict__ aff_out,
-                  const float* __restrict__ resid, float* __restrict__ out, int splits, int channels,
-                  int hw) {
-  const int per_image = channels * hw;
+add_slices_kernel(const float* __restrict__ partial, const float* __restrict__ x, const float* __restrict__ aff,
+                  float* __restrict__ out, const Fwd p) {
+  launch_next();
+  wait_previous();
+  const int hw = p.height * p.width, per_image = p.channels * hw, groups = p.splits / p.cluster;
   const int i = 4 * (blockIdx.x * kThreads + threadIdx.x);
   if (i >= per_image) return;
-  const float* p = partial + static_cast<size_t>(blockIdx.y) * splits * per_image + i;
-  float4 v = *reinterpret_cast<const float4*>(p);
-  for (int k = 1; k < splits; ++k) {
-    const float4 q = *reinterpret_cast<const float4*>(p + static_cast<size_t>(k) * per_image);
+  const float* src = partial + static_cast<size_t>(blockIdx.y) * groups * per_image + i;
+  float4 v = *reinterpret_cast<const float4*>(src);
+  for (int k = 1; k < groups; ++k) {
+    const float4 q = *reinterpret_cast<const float4*>(src + static_cast<size_t>(k) * per_image);
     v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
   }
-  const int c = i / hw;
-  const size_t at = static_cast<size_t>(blockIdx.y) * per_image + i;
-  *reinterpret_cast<float4*>(out + at) =
-      epilogue(v, resid == nullptr ? nullptr : resid + at, __ldg(aff_out + c), __ldg(aff_out + channels + c));
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = i + k;
+    if (kPass == 1) finish<kPass>(p, x, aff, e[k], blockIdx.y, j / p.channels, j % p.channels);
+    else finish<kPass>(p, x, aff, e[k], blockIdx.y, j % hw, j / hw);
+  }
 }
 
-cudaError_t mdcl(const float* in, const float* aff_in, const float* taps, const Branches& branches,
-                 float* partial, float* out, const float* aff_out, const float* resid, int batch,
-                 int channels, int height, int width, int splits, cudaStream_t s) {
-  const int hw = height * width;
-  const dim3 grid((hw / kTileP) * ((channels + kTileC - 1) / kTileC), splits, batch);
-  const int units_per_split = 9 * branches.n * (channels / kStep) / splits;
-  if (splits == 1) {
-    mdcl_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, out, aff_out, resid, channels,
-                                                   height, width, units_per_split);
-    return cudaGetLastError();
-  }
-  mdcl_kernel<<<grid, kThreads, kSmemBytes, s>>>(in, aff_in, taps, branches, partial, nullptr, nullptr,
-                                                 channels, height, width, units_per_split);
-  cudaError_t err = cudaGetLastError();
+// Dynamic shared memory of one MDCL block: the tap ring, the activations'
+// tiles of its `sub` patches, the two barriers a stage (as `fwd_smem_bytes`
+// in mdblock.py).
+int smem_bytes(bool halo, int sub, int stages, int radius) {
+  const int side = halo ? 8 + 2 * radius : 8, buffers = !halo ? stages : sub == 2 ? 1 : 2;
+  return stages * kStageBytes + sub * buffers * 2 * side * side * 16 * kGroups + 2 * kMaxStages * 8;
+}
+
+// The tensor maps of one MDCL: its taps (T, C in, C out) as they lie, boxes
+// of 128 outputs by 32 inputs; its operand pair pixel-major, (4 channels,
+// width, height, C / 4 groups, hi images then lo), boxes of side^2 pixels by
+// a chunk.
+cudaError_t mdcl_maps(const Fwd& p, const float* pair, const float* taps, CUtensorMap* taps_map,
+                      CUtensorMap* act_map) {
+  const cuuint64_t c = p.channels, f = sizeof(float);
+  const cuuint64_t taps_dims[4] = {c, c, 9ull * p.branches.n, 1};
+  const cuuint64_t taps_strides[3] = {f * c, f * c * c, f * c * c * taps_dims[2]};
+  const cuuint32_t taps_box[4] = {kN, kChunk, 1, 1};
+  cudaError_t err = tensor_map(taps_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, taps, 4, taps_dims, taps_strides, taps_box);
+  const cuuint64_t w = p.width, h = p.height;
+  const cuuint64_t act_dims[5] = {4, w, h, c / 4, 2ull * p.batch};
+  const cuuint64_t act_strides[4] = {f * c, f * c * w, 16, f * c * w * h};
+  const cuuint32_t side = p.halo ? 8 + 2 * p.radius : 8;
+  const cuuint32_t act_box[5] = {4, side, side, kGroups, 1};
+  if (err == cudaSuccess)
+    err = tensor_map(act_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, pair, 5, act_dims, act_strides, act_box);
+  return err;
+}
+
+// One MDCL (pass 1 or 2) of kSub patches a block and, where a tile's slices
+// outnumber a cluster, its clusters' sum.
+template <int kPass, int kSub>
+cudaError_t launch_mdcl(Fwd p, const float* x, const float* aff, const float* pair, const float* taps,
+                        float* out, cudaStream_t s) {
+  p.out = out;
+  CUtensorMap taps_map{}, act_map{};
+  cudaError_t err = mdcl_maps(p, pair, taps, &taps_map, &act_map);
+  const int bytes = smem_bytes(p.halo, kSub, p.stages, p.radius);
+  if (err == cudaSuccess) err = allow_dynamic_smem<mdcl_kernel<kPass, kSub>>(bytes);
   if (err != cudaSuccess) return err;
-  const int quads = channels * hw / 4;
-  add_slices_kernel<<<dim3((quads + kThreads - 1) / kThreads, batch), kThreads, 0, s>>>(
-      partial, aff_out, resid, out, splits, channels, hw);
-  return cudaGetLastError();
+  const int tiles = (p.patches + kSub - 1) / kSub * ((p.channels + kN - 1) / kN);
+  err = launch(mdcl_kernel<kPass, kSub>, dim3(tiles, p.splits), kMdclThreads, bytes, p.cluster, true, s, x, aff,
+               taps, p, taps_map, act_map);
+  if (err != cudaSuccess || p.splits == p.cluster) return err;
+  const int quads = p.channels * p.height * p.width / 4;
+  return launch(add_slices_kernel<kPass>, dim3((quads + kThreads - 1) / kThreads, p.batch), kThreads, 0, 1, true, s,
+                static_cast<const float*>(p.partial), x, aff, out, p);
 }
 
 }  // namespace
 
-// x, h1 (scratch), out: (batch, channels, height, width) float32 NCHW, channels
-// a multiple of 16 and height*width a multiple of 64; taps1, taps2:
-// (9*n_branches, channels, channels); aff: (6, channels), rows s0, t0, s1, t1,
-// s2, t2; partial: scratch (batch, splits, channels, height, width), unused
-// when splits is 1 (splits divides 9*n_branches*channels/16); dilations: host
-// array of n_branches <= 8 ints. All device tensors contiguous and 16-byte
-// aligned. Two to four launches on `stream`; returns the first CUDA error code
-// (0 = all launched).
-extern "C" int npe_mdblock(const void* x, const void* taps1, const void* taps2, const void* aff,
-                           void* h1, void* partial, void* out, int batch, int channels, int height,
-                           int width, int n_branches, const int* dilations, int splits,
-                           void* stream) {
+// x, out: (batch, channels, height, width) float32 NCHW; taps1, taps2:
+// (9 * n_branches, channels, channels) as (tap, in, out); aff: (6, channels),
+// rows s0, t0, s1, t1, s2, t2; act, h1_pair: scratch of twice x's size (the
+// operand pairs of MDCL1's and MDCL2's inputs, pixel-major, the lo images
+// after the hi); h1: x's size, h1 NCHW for the backward, or null; partial:
+// scratch (batch, splits / cluster, channels * height * width), unused when
+// splits == cluster; dilations: host array of n_branches <= 8 ints; the plan,
+// as the wrapper's `fwd_plan` gives it: halo (1: a halo tile a chunk; 0: a
+// window a unit), sub_tiles (1, or 2 patches a block with halo tiles and
+// one slice), stages (3..7 tap stages), splits (slices of the units) and
+// cluster (1..8 blocks dividing splits). channels a multiple of 16,
+// height * width of 64. All device tensors contiguous and 16-byte aligned.
+// 3 to 5 launches on `stream`; returns the first CUDA error code (0 = all
+// launched).
+extern "C" int npe_mdblock(const void* x, const void* taps1, const void* taps2, const void* aff, void* act,
+                           void* h1_pair, void* h1, void* partial, void* out, int batch, int channels, int height,
+                           int width, int n_branches, const int* dilations, int halo, int sub_tiles, int stages,
+                           int splits, int cluster, void* stream) {
+  const int hw = height * width;
+  if (n_branches < 1 || n_branches > kMaxBranches || channels % 16 || hw % kTileP || batch < 1 || stages < 3 ||
+      stages >= kMaxStages || cluster < 1 || cluster > 8 || splits < 1 || splits % cluster ||
+      (sub_tiles != 1 && !(sub_tiles == 2 && halo && splits == 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Fwd p{};
+  p.branches.n = n_branches;
+  for (int b = 0; b < kMaxBranches; ++b) {
+    p.branches.dilation[b] = b < n_branches ? dilations[b] : 0;
+    if (b < n_branches && dilations[b] > p.radius) p.radius = dilations[b];
+  }
+  p.halo = halo != 0;
+  if (smem_bytes(p.halo, sub_tiles, stages, p.radius) > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  p.batch = batch;
+  p.channels = channels;
+  p.height = height;
+  p.width = width;
+  p.patches_x = (width + 7) / 8;
+  p.patches = batch * p.patches_x * ((height + 7) / 8);
+  p.units = (channels + kChunk - 1) / kChunk * 9 * n_branches;
+  if (splits > p.units) return static_cast<int>(cudaErrorInvalidValue);
+  p.splits = splits;
+  p.cluster = cluster;
+  p.stages = stages;
+  p.partial = static_cast<float*>(partial);
+  p.h1 = static_cast<float*>(h1);
+  p.out = static_cast<float*>(act);
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_branches < 1 || n_branches > kMaxBranches) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = npe::allow_dynamic_smem<mdcl_kernel>(kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  Branches branches;
-  branches.n = n_branches;
-  for (int b = 0; b < kMaxBranches; ++b) branches.dilation[b] = b < n_branches ? dilations[b] : 0;
   const float* xf = static_cast<const float*>(x);
   const float* af = static_cast<const float*>(aff);
-  err = mdcl(xf, af, static_cast<const float*>(taps1), branches,
-                         static_cast<float*>(partial), static_cast<float*>(h1), af + 2 * channels,
-                         nullptr, batch, channels, height, width, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = mdcl(static_cast<const float*>(h1), nullptr, static_cast<const float*>(taps2), branches,
-             static_cast<float*>(partial), static_cast<float*>(out), af + 4 * channels, xf, batch,
-             channels, height, width, splits, s);
+  CUtensorMap none{};
+  mdcl_kernel<0, 1><<<dim3(hw / kTileP, (channels + 63) / 64, batch), kThreads, 0, s>>>(xf, af, nullptr, p, none,
+                                                                                        none);
+  cudaError_t err = cudaGetLastError();
+  const auto mdcl1 = sub_tiles == 2 ? launch_mdcl<1, 2> : launch_mdcl<1, 1>;
+  const auto mdcl2 = sub_tiles == 2 ? launch_mdcl<2, 2> : launch_mdcl<2, 1>;
+  if (err == cudaSuccess)
+    err = mdcl1(p, xf, af, static_cast<const float*>(act), static_cast<const float*>(taps1),
+                static_cast<float*>(h1_pair), s);
+  p.h1 = nullptr;
+  if (err == cudaSuccess)
+    err = mdcl2(p, xf, af, static_cast<const float*>(h1_pair), static_cast<const float*>(taps2),
+                static_cast<float*>(out), s);
   return static_cast<int>(err);
 }

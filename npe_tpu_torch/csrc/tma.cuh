@@ -1,8 +1,10 @@
 // Hopper's tensor memory accelerator, its barriers and wgmma, as the
-// MDBLOCK kernels use them (mdblock_bf16.cu, mdblock_bwd.cu): tensor maps
-// without swizzle encoded on the host, tensor copies completing on an
-// mbarrier, and wgmma descriptors for operands in shared memory laid out as
-// core matrices of 8 rows x 16 bytes (128 contiguous bytes each).
+// MDBLOCK kernels use them (mdblock.cu, mdblock_bf16.cu, mdblock_bwd.cu):
+// tensor maps without swizzle encoded on the host, tensor copies completing
+// on an mbarrier, and wgmma descriptors for operands in shared memory laid
+// out as core matrices of 8 rows x 16 bytes (128 contiguous bytes each);
+// the float32 kernels' TF32 split and 3xTF32 products, their thread-block
+// clusters and their programmatic dependent launches.
 
 #pragma once
 
@@ -116,6 +118,87 @@ inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const 
           CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// TF32 of v (cvt.rna: round to nearest, ties away from zero), as a float32.
+__device__ __forceinline__ float tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// d (+)= A * B over k8: A 64 x 8, B 8 x 128, both TF32 K-major in shared
+// memory; scale_d 0 starts the sum from zero.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Programmatic dependent launch: let the next launch start its set-up, and
+// wait for the previous launch's work to be complete and visible.
+__device__ __forceinline__ void launch_next() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+__device__ __forceinline__ void wait_previous() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Four floats at shared address `addr` of the cluster's block `rank`.
+__device__ __forceinline__ float4 load_peer(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// A launch on `s` with programmatic dependent launch (`dependent`) and a
+// cluster of (1, cluster, 1).
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, int cluster, bool dependent, cudaStream_t s,
+                   const Args&... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attrs[2];
+  int n = 0;
+  if (cluster > 1) {
+    attrs[n].id = cudaLaunchAttributeClusterDimension;
+    attrs[n].val.clusterDim.x = 1;
+    attrs[n].val.clusterDim.y = cluster;
+    attrs[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (dependent) {
+    attrs[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attrs[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  config.attrs = attrs;
+  config.numAttrs = n;
+  return cudaLaunchKernelEx(&config, kernel, args...);
 }
 
 }  // namespace npe

@@ -16,17 +16,23 @@ multiply-add (3xTF32: each operand split into a TF32 high part and a TF32
 remainder), which keeps float32 accuracy; `tf32_split` is that split in
 PyTorch, for the tests that show why one product would not do.
 
-Layout. x is NCHW as the decoder leaves it, and the kernel reads it as it
-lies; no permuted copy is made. Tap matrices are (T, Cin, Cout) row-major in
-the order of `tap_offsets(scales)`, from `stack_mdcl_taps`, which takes the
-port's (nf, ni, 3, 3) filters. The affines are one (6, C) tensor, rows
-s0, t0, s1, t1, s2, t2.
+Layout. x and the output are NCHW as the decoder leaves them. Tap matrices
+are (T, Cin, Cout) row-major in the order of `tap_offsets(scales)`, from
+`stack_mdcl_taps`, which takes the port's (nf, ni, 3, 3) filters; the kernel
+reads them as they lie. The affines are one (6, C) tensor, rows s0, t0, s1,
+t1, s2, t2.
 
-One call is two launches of one MDCL kernel (the first leaves
-lrelu(BN1(MDCL1(..))) in a scratch map, the second reads it and the raw x),
-each followed, when the inner dimension is cut into slices so that a single
-image still spreads over the card, by a launch that adds the slices' partial
-sums in a fixed order.
+One call is a prologue launch, which writes MDCL1's input lrelu(BN0(x))
+pixel-major as a TF32 operand pair (hi, lo), then one launch per MDCL: a
+producer warp brings tap tiles and halo tiles of the pair by the tensor
+memory accelerator, and two consumer warpgroups (on alternate units of one
+patch, or once the batch fills the card on a patch each) split each tap
+tile into its transposed TF32 pair and run 3xTF32 wgmma. MDCL1 leaves
+h1 = lrelu(BN1(MDCL1(..))) as the next pair (and, where x will need a
+gradient, NCHW for the backward); MDCL2 adds the raw x. At small batches
+the inner dimension is cut into slices summed inside thread-block clusters,
+and, where a tile has more slices than a cluster holds, by a launch that
+adds the clusters' sums in a fixed order. `fwd_plan` states the cut.
 
 The bfloat16 form (x and the taps in bf16, the affines float32) is a kernel
 of its own, `npe_tpu_torch/csrc/mdblock_bf16.cu` (its header has the design):
@@ -73,14 +79,10 @@ BF16_SOURCE = "npe_tpu_torch/csrc/mdblock_bf16.cu"
 BWD_SOURCE = "npe_tpu_torch/csrc/mdblock_bwd.cu"
 REPLACES = "npe_tpu/ops/pallas/mdcl_kernels.py:119"
 REPLACES_BWD = "npe_tpu/ops/pallas/mdcl_kernels.py:155"  # `_fused_bwd`, the custom VJP's backward
-TILE_PIXELS = 64  # the kernel's output tile: 64 pixels x 128 channels
+TILE_PIXELS = 64  # the kernels' output tile: 64 pixels (an 8x8 patch) x 128 channels
 TILE_CHANNELS = 128
-CHANNEL_STEP = 16  # input channels of one step of its inner loop
+CHANNEL_STEP = 16  # the channel counts the kernels take are multiples of this
 MAX_BRANCHES = 8
-# How many of the kernel's 256-thread blocks an SM holds at once:
-# __launch_bounds__(256, 2) keeps its registers to 128 a thread, and a block
-# has 52 KB of shared memory.
-BLOCKS_PER_SM = 2
 # The bf16 kernel: a warpgroup takes a patch of 64 pixels (8x8 in halo mode)
 # by 128 or 256 output channels, over units of one tap by 64 input channels
 BF16_CHANNEL_STEP = 64
@@ -89,11 +91,11 @@ BF16_MIN_UNITS = 4  # units a slice takes at least: the tap ring's depth
 BF16_STAGES, BF16_ROWS_STAGE_BYTES = 4, 64 * 64 * 2
 SMEM_PER_BLOCK = 227 * 1024  # the most dynamic shared memory a block may take on the H100
 SMEM_PER_SM = 228 * 1024  # what the SM has for its blocks, 1 KB of it reserved per block
-# The backward kernels (mdblock_bwd.cu): a unit is one tap by a chunk of 128
-# bytes of input channels a pixel (32 float32, 64 bf16); a tile is an 8x8
-# patch by 128 (or 256) output channels; a tap stage is 16 KB a 128 of them
-# (float32: and its TF32 lo, as much again); a halo tile is (8 + 2R)^2 pixels
-# by the chunk.
+# The backward kernels (mdblock_bwd.cu) and the float32 forward's MDCLs
+# (mdblock.cu): a unit is one tap by a chunk of 128 bytes of input channels a
+# pixel (32 float32, 64 bf16); a tile is an 8x8 patch by 128 (or 256) output
+# channels; a tap stage is 16 KB a 128 of them (float32: and its TF32 lo, as
+# much again); a halo tile is (8 + 2R)^2 pixels by the chunk.
 BWD_CHUNK_BYTES, BWD_TAP_BYTES = 128, 16 * 1024
 BWD_STAGES = {False: (3, 4), True: (4, 6)}  # the fewest and the most tap stages: float32, bf16
 BWD_MIN_UNITS = 4  # units a slice takes at least
@@ -248,16 +250,6 @@ def tf32_split(x):
     return hi, tf32(x - hi)
 
 
-def inner_splits(batch, tiles, units, sm_count):
-    """How many slices an MDCL's inner dimension (taps x steps of 16 input
-    channels = `units`) is cut into: the largest divisor of `units` that
-    still leaves all blocks (batch x tiles x slices) running at once, one
-    wave of BLOCKS_PER_SM a multiprocessor. One image of full IAN takes 64,
-    27 and 12 slices in its three blocks, a batch of 128 one."""
-    most = max(1, BLOCKS_PER_SM * sm_count // (batch * tiles))
-    return max(d for d in range(1, min(most, units) + 1) if units % d == 0)
-
-
 BF16Plan = namedtuple("BF16Plan", "halo sub_tiles tile_channels splits")
 
 
@@ -312,6 +304,25 @@ def bwd_smem_bytes(bf16, sub_tiles, stages, halo_buffers, radius, tile_channels=
     return stages * tap + sub_tiles * halo_buffers * 2 * halo + 2 * 8 * 8
 
 
+def slice_plan(units, tiles, sm_count):
+    """(splits, cluster) of an MDCL of `units` units over `tiles` blocks of
+    one patch each, as `bwd_plan` and `fwd_plan` cut it: among the cuts whose
+    blocks run at once (at most one an SM, and at most
+    CLUSTER_SLOTS[cluster] clusters) with at least BWD_MIN_UNITS units a
+    slice, the one with the least units a slice plus BWD_GROUP_COST per
+    group past the first; ties to the larger cluster; (1, 1) where none
+    beats one slice."""
+    best = (units, -1, 1, 1)  # (cost, -cluster, splits, cluster): one slice
+    for splits in range(2, units // BWD_MIN_UNITS + 1):
+        for cluster in range(1, min(MAX_CLUSTER, splits) + 1):
+            if splits % cluster or tiles * splits > sm_count or \
+                    tiles * splits // cluster > min(CLUSTER_SLOTS[cluster], sm_count // cluster):
+                continue
+            cost = -(-units // splits) + BWD_GROUP_COST * (splits // cluster - 1)
+            best = min(best, (cost, -cluster, splits, cluster))
+    return best[2:]
+
+
 def bwd_plan(batch, channels, height, width, scales, dtype, sm_count):
     """How the backward kernel cuts each MDCL^T (a stated rule, the same on
     every call of a shape):
@@ -330,11 +341,8 @@ def bwd_plan(batch, channels, height, width, scales, dtype, sm_count):
     - splits, cluster: slices of the units (chunks x taps), the slices of a
       tile cut into groups of `cluster` blocks, each group summed in one
       cluster's shared memory and the groups, where there are more than one,
-      by a second launch. Among the cuts whose blocks run at once (at most
-      one an SM, and at most CLUSTER_SLOTS[cluster] clusters) with at least
-      BWD_MIN_UNITS units a slice, the one with the least units a slice plus
-      BWD_GROUP_COST per group past the first; ties to the larger cluster.
-      One slice once two patches share a block (the batch fills the card)."""
+      by a second launch: `slice_plan`. One slice once two patches share a
+      block (the batch fills the card)."""
     bf16 = dtype in (torch.bfloat16, "bfloat16")
     radius = max(dilations(scales))
     patches = batch * -(-height // 8) * -(-width // 8)
@@ -352,17 +360,58 @@ def bwd_plan(batch, channels, height, width, scales, dtype, sm_count):
     else:
         raise ValueError(f"mdblock's backward: a halo of radius {radius} does not fit a block's shared memory")
     tiles = -(-patches // sub) * -(-channels // tile_channels)
-    best = (units, -1, 1, 1)  # (cost, -cluster, splits, cluster): one slice
-    for splits in range(2, units // BWD_MIN_UNITS + 1) if sub == 1 else ():
-        for cluster in range(1, min(MAX_CLUSTER, splits) + 1):
-            if splits % cluster or tiles * splits > sm_count or \
-                    tiles * splits // cluster > min(CLUSTER_SLOTS[cluster], sm_count // cluster):
-                continue
-            cost = -(-units // splits) + BWD_GROUP_COST * (splits // cluster - 1)
-            best = min(best, (cost, -cluster, splits, cluster))
-    *_, splits, cluster = best
+    splits, cluster = slice_plan(units, tiles, sm_count) if sub == 1 else (1, 1)
     return BwdPlan(sub, tile_channels, fits[0], halo_buffers, splits, cluster,
                    bwd_smem_bytes(bf16, sub, fits[0], halo_buffers, radius, tile_channels))
+
+
+FwdPlan = namedtuple("FwdPlan", "halo sub_tiles stages splits cluster smem")
+
+
+def fwd_smem_bytes(halo, stages, radius, sub_tiles=1):
+    """Dynamic shared memory of one MDCL block of the float32 forward: the tap
+    ring (a stage of 32 x 128 taps as they land, then split into TF32 hi in
+    place and lo beside it), the pair's activations (`halo`: per patch two
+    buffers of (hi, lo) halo tiles, one with two patches a block; else one
+    8x8 window pair a stage), and two 8-byte barriers a stage (room for
+    eight)."""
+    buffers = (2 if sub_tiles == 1 else 1) if halo else stages
+    return bwd_smem_bytes(False, sub_tiles, stages, buffers, radius if halo else 0)
+
+
+def fwd_plan(batch, channels, height, width, scales, sm_count):
+    """How the float32 forward cuts each MDCL (a stated rule, the same on
+    every call of a shape):
+    - tiles: 8x8 patches (partial ones masked) by 128 output channels;
+    - sub_tiles: two patches a block over the same tap stages (half the tap
+      tiles' traffic a product) once the tiles give every SM two and one
+      halo buffer a patch fits beside three tap stages; else one;
+    - halo, stages: halo tiles shared by all taps of a chunk (one patch: in
+      two buffers), and as many tap stages (3 or 4) as fit 227 KB with
+      them; where none fit (a dilation past 4), a stage brings each unit's
+      own shifted window (`halo` False), 4 stages;
+    - splits, cluster: with one patch a block, `slice_plan` of the units
+      (chunks of 32 input channels x taps) over the tiles, as the backward
+      cuts its MDCL^T; one slice with two."""
+    radius = max(dilations(scales))
+    fewest, most = BWD_STAGES[False]
+    patches = batch * -(-height // 8) * -(-width // 8)
+    tiles_c = -(-channels // TILE_CHANNELS)
+    sub = 2 if patches * tiles_c >= 2 * sm_count and fwd_smem_bytes(True, fewest, radius, 2) <= SMEM_PER_BLOCK else 1
+    for halo in (True, False):
+        fits = [n for n in range(most, fewest - 1, -1) if fwd_smem_bytes(halo, n, radius, sub) <= SMEM_PER_BLOCK]
+        if fits:
+            break
+    units = -(-channels * 4 // BWD_CHUNK_BYTES) * 9 * len(dilations(scales))
+    splits, cluster = slice_plan(units, patches * tiles_c, sm_count) if sub == 1 else (1, 1)
+    return FwdPlan(halo, sub, fits[0], splits, cluster, fwd_smem_bytes(halo, fits[0], radius, sub))
+
+
+def fwd_launches(plan):
+    """Launches of one float32 forward call on `plan`: the prologue and the
+    two MDCLs, and after each MDCL its clusters' sum where a tile's slices
+    outnumber a cluster."""
+    return 3 if plan.splits == plan.cluster else 5
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -375,8 +424,10 @@ def _entry(bf16, backward=False):
     fn = getattr(lib, "npe_mdblock" + ("_bwd" if backward else "") + ("_bf16" if bf16 else ""))
     if backward:  # g, x, y, h1, taps1, taps2, aff, gr, gm1, partial, dx; the shape; dilations; the BwdPlan
         fn.argtypes = [_P] * 11 + [_I] * 5 + [_P] + [_I] * 6 + [_P]
-    else:  # x, taps1, taps2, aff, [act,] h1, partial, out; the shape; dilations; the plan
-        fn.argtypes = [_P] * (8 if bf16 else 7) + [_I] * 5 + [_P] + ([_I] * 4 if bf16 else [_I]) + [_P]
+    elif bf16:  # x, taps1, taps2, aff, act, h1, partial, out; the shape; dilations; the BF16Plan
+        fn.argtypes = [_P] * 8 + [_I] * 5 + [_P] + [_I] * 4 + [_P]
+    else:  # x, taps1, taps2, aff, act, h1_pair, h1, partial, out; the shape; dilations; the FwdPlan
+        fn.argtypes = [_P] * 9 + [_I] * 5 + [_P] + [_I] * 5 + [_P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -388,18 +439,8 @@ def bwd_launches(plan):
     return 3 if plan.splits == plan.cluster else 5
 
 
-def _splits(x, scales):
-    """`inner_splits` for the float32 kernel at x's shape."""
-    n, c, h, w = x.shape
-    tiles = (h * w // TILE_PIXELS) * -(-c // TILE_CHANNELS)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return inner_splits(n, tiles, 9 * len(dilations(scales)) * c // CHANNEL_STEP, sms)
-
-
-def _plan(x, scales):
-    """`bf16_plan` at x's shape."""
-    n, c, h, w = x.shape
-    return bf16_plan(n, c, h, w, scales, torch.cuda.get_device_properties(x.device).multi_processor_count)
+def _sms(x):
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _partial(x, splits):
@@ -419,25 +460,33 @@ def _call(fn, x, *args):
         return fn(*map(arg, args), torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _launch_float32(x, taps1, taps2, affines, scales):
-    """The float32 kernel's call: scratch for h1 and, when `inner_splits`
-    slices, float32 partial sums. Returns (the output, h1 as (N, C, H, W),
-    the C function's return code)."""
+def _launch_float32(x, taps1, taps2, affines, scales, keep_h1=True, plan=None):
+    """The float32 kernel's call on `plan` (default `fwd_plan`'s): scratch
+    for the operand pairs of MDCL1's and MDCL2's inputs (pixel-major, the lo
+    images after the hi) and, where a tile's slices outnumber a cluster,
+    float32 partial sums of the clusters. Returns (the output, h1 as
+    (N, C, H, W) for the backward, or None without `keep_h1`, the C
+    function's return code)."""
     n, c, h, w = x.shape
-    branches, splits = dilations(scales), _splits(x, scales)
-    h1, out = torch.empty_like(x), torch.empty_like(x)
-    rc = _call(_entry(False), x, x, taps1, taps2, affines, h1, _partial(x, splits), out, n, c, h, w, len(branches),
-               branches, splits)
+    branches = dilations(scales)
+    if plan is None:
+        plan = fwd_plan(n, c, h, w, scales, _sms(x))
+    pairs = torch.empty((2, 2, n, h, w, c), dtype=x.dtype, device=x.device)
+    h1 = torch.empty_like(x) if keep_h1 else None
+    out = torch.empty_like(x)
+    rc = _call(_entry(False), x, x, taps1, taps2, affines, pairs[0], pairs[1], h1,
+               _partial(x, plan.splits // plan.cluster), out, n, c, h, w, len(branches), branches, int(plan.halo),
+               *plan[1:5])
     return out, h1, rc
 
 
-def _launch_bf16(x, taps1, taps2, affines, scales):
+def _launch_bf16(x, taps1, taps2, affines, scales, keep_h1=True):
     """The bf16 kernel's call: scratch for MDCL1's input and h1 (bf16,
-    pixel-major), float32 partial sums when `bf16_plan` slices; the taps as
-    they lie. Returns (the output, h1 as (N, H, W, C), the C function's
-    return code)."""
+    pixel-major: MDCL2's operand, so made whatever `keep_h1` says), float32
+    partial sums when `bf16_plan` slices; the taps as they lie. Returns (the
+    output, h1 as (N, H, W, C), the C function's return code)."""
     n, c, h, w = x.shape
-    branches, plan = dilations(scales), _plan(x, scales)
+    branches, plan = dilations(scales), bf16_plan(n, c, h, w, scales, _sms(x))
     act, out = torch.empty_like(x), torch.empty_like(x)
     h1 = torch.empty((n, h, w, c), dtype=x.dtype, device=x.device)
     rc = _call(_entry(True), x, x, taps1, taps2, affines, act, h1, _partial(x, plan.splits), out, n, c, h, w,
@@ -454,7 +503,7 @@ def _launch_bwd(g, x, y, h1, taps1, taps2, affines, scales, plan=None):
     n, c, h, w = x.shape
     branches = dilations(scales)
     if plan is None:
-        plan = bwd_plan(n, c, h, w, scales, x.dtype, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        plan = bwd_plan(n, c, h, w, scales, x.dtype, _sms(x))
     gr, gm1 = (torch.empty((2, n, h, w, c), dtype=x.dtype, device=x.device) for _ in range(2))
     dx = torch.empty_like(x)
     rc = _call(_entry(x.dtype == torch.bfloat16, True), x, g, x, y, h1, taps1, taps2, affines, gr, gm1,
@@ -466,14 +515,15 @@ class _MDBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, taps1, taps2, affines, scales):
         bf16 = x.dtype == torch.bfloat16
-        out, h1, rc = (_launch_bf16 if bf16 else _launch_float32)(x, taps1, taps2, affines, scales)
+        keep = ctx.needs_input_grad[0]
+        out, h1, rc = (_launch_bf16 if bf16 else _launch_float32)(x, taps1, taps2, affines, scales, keep)
         if rc != 0:
             raise RuntimeError(f"mdblock kernel launch failed with CUDA error {rc}")
         count_launch(mdblock_fused, x.dtype)
         # h1 (in the form's layout) and y only where x requires a gradient;
         # under no_grad or inference_mode autograd drops ctx, and all it saved,
         # as this call returns
-        ctx.save_for_backward(x, taps1, taps2, affines, *((h1, out) if ctx.needs_input_grad[0] else ()))
+        ctx.save_for_backward(x, taps1, taps2, affines, *((h1, out) if keep else ()))
         ctx.scales = scales
         # autograd may run the backward on a thread of its own: it counts where the forward did
         ctx.tally = current_tally()

@@ -3,11 +3,12 @@
 
     git archive 9a0f129 npe_tpu_torch/csrc | tar -x -C scratch_archive/base
     python3 scripts/kernel_ab.py scratch_archive/base   # 9a0f129's edit_tail and RGB-Beta head
-    python3 scripts/kernel_ab.py --wgmma                # scripts/mdblock_wgmma.cu's MDBLOCK
     git archive 76a5cfd npe_tpu_torch/csrc | tar -x -C scratch_archive/pr10
     python3 scripts/kernel_ab.py --mdblock-bf16 scratch_archive/pr10   # 76a5cfd's bf16 MDBLOCK
     git archive 1f72098 npe_tpu_torch/csrc | tar -x -C scratch_archive/pr17
     python3 scripts/kernel_ab.py --mdblock-bwd scratch_archive/pr17    # 1f72098's MDBLOCK backwards
+    git archive 6dbdcdd npe_tpu_torch/csrc | tar -x -C scratch_archive/pr22
+    python3 scripts/kernel_ab.py --mdblock-fwd scratch_archive/pr22    # 6dbdcdd's float32 MDBLOCK forward
 
 The earlier side is bound to commit 9a0f129 (edit_tail one block per image;
 the head's trunk as nine tap products over the space-to-depth(4) map, cut
@@ -15,20 +16,18 @@ into slices added by a second launch): its C entry points are
 `npe_edit_tail` without the band rows and `npe_rgb_beta_head` over s2d tap
 matrices (9, 16C, 96) with a scratch of partial sums, and its slice rule is
 `trunk_splits` below. Another commit's sources need those changed. The
-wgmma side has the current `npe_mdblock` entry point and its own slice rule
-(128-pixel tiles over the batch, one block a multiprocessor). Both are built
-with the package's nvcc flags into `npe_tpu_torch/_build/baseline/`; the
-current kernels go through their wrappers. Each side runs in a process of
-its own (two builds of one kernel source loaded into one process are not to
-be trusted), in turns: other, current, current, other. Cases: edit_tail at
-batch 1 and 8 (sigma 0.7), the head at C 64 batch 1, 2 and 128 and at C 128
-batch 1 (both sides over the same weights: the earlier side's s2d taps are
-packed from the current side's stacked taps), or full IAN's three MDBLOCK
-shapes at batch 1, 8 and 128. A side first holds its kernel against the
-plain version (chip_smoke.py's KERNEL_TOL, HEAD_TOL, MDBLOCK_TOL) and fails
-if it disagrees, then times it by CUDA-graph replay. `--mdblock-bf16` sets
-76a5cfd's bf16 MDBLOCK (`npe_mdblock_bf16` in its mdblock.cu, the current
-`npe_mdblock` ABI and `inner_splits` rule, one mma.sync product a 16-channel
+other side is built with the package's nvcc flags into
+`npe_tpu_torch/_build/baseline/`; the current kernels go through their
+wrappers. Each side runs in a process of its own (two builds of one kernel
+source loaded into one process are not to be trusted), in turns: other,
+current, current, other. Cases: edit_tail at batch 1 and 8 (sigma 0.7), the
+head at C 64 batch 1, 2 and 128 and at C 128 batch 1 (both sides over the
+same weights: the earlier side's s2d taps are packed from the current side's
+stacked taps). A side first holds its kernel against the plain version
+(chip_smoke.py's KERNEL_TOL, HEAD_TOL, MDBLOCK_TOL) and fails if it
+disagrees, then times it by CUDA-graph replay. `--mdblock-bf16` sets
+76a5cfd's bf16 MDBLOCK (`npe_mdblock_bf16` in its mdblock.cu, 6dbdcdd's
+`npe_mdblock` ABI and `parent_splits` rule, one mma.sync product a 16-channel
 step) against the current one (`csrc/mdblock_bf16.cu` through the wrapper)
 at full IAN's three shapes at batch 1 and 128, each held to the bf16 plain
 version within chip_smoke.py's bf16 rule (BF16_POINTS steps of |want| +
@@ -39,11 +38,11 @@ between processes; on the current side the trunk alone (its launch and the
 pass that adds the slices) and an empty kernel of edit_tail's grid (the
 launch floor, scripts/launch_floor.py). The yardstick, the trunk alone and
 the empty kernel are timed, not checked (their error is null). One line
-per case, and a JSON summary in runs/kernel_ab.json, runs/kernel_ab_wgmma.json
-or runs/kernel_ab_mdblock_bf16.json (git-ignored).
+per case, and a JSON summary in runs/kernel_ab.json or
+runs/kernel_ab_mdblock_bf16.json (git-ignored).
 
 `--mdblock-bwd` sets 1f72098's MDBLOCK backwards (`npe_mdblock_bwd` in its
-mdblock.cu: 3xTF32 mma.sync, slices by `inner_splits`; `npe_mdblock_bwd_bf16`
+mdblock.cu: 3xTF32 mma.sync, slices by `parent_splits`; `npe_mdblock_bwd_bf16`
 in its mdblock_bf16.cu: wgmma with each tap tile read once a part, on
 `bf16_plan`) against the current ones (`csrc/mdblock_bwd.cu` through the
 wrapper's `_launch_bwd`, on `bwd_plan`), at full IAN's three shapes at batch
@@ -57,6 +56,16 @@ steps; its error is the worst fraction of that limit), then times both. In
 every process the per-op block's backward (cuDNN convolutions over the same
 taps, forward and backward less forward) is timed beside them as a second
 control. Summary in runs/kernel_ab_mdblock_bwd.json.
+
+`--mdblock-fwd` sets 6dbdcdd's float32 MDBLOCK forward (`npe_mdblock` in its
+mdblock.cu: 3xTF32 mma.sync over NCHW planes staged through registers, its
+slices by `parent_splits`) against the current one (`csrc/mdblock.cu`
+through `mdblock_fused` under no_grad, on `fwd_plan`: the path of the
+inference callers, which writes no h1 for a backward) at full IAN's three
+shapes at batch 1, 8 and 128. Each side holds its forward to
+`mdblock_taps_reference` within MDBLOCK_TOL, then times it; the per-op
+block's forward (cuDNN convolutions over the same taps) is timed beside it
+in every process as a control. Summary in runs/kernel_ab_mdblock_fwd.json.
 """
 
 import ctypes
@@ -87,8 +96,6 @@ EDIT_BATCHES = (1, 8)
 HEAD_CASES = ((64, 1), (64, 2), (64, 128), (128, 1))  # (channels, batch)
 HEAD_SCALES = (2, 3, 4)
 BASELINE_DIR = os.path.join(build.BUILD_DIR, "baseline")
-WGMMA_SOURCE = os.path.join("scripts", "mdblock_wgmma.cu")
-WGMMA_LIB = "libmdblock_wgmma.so"
 
 
 def nvcc(src, lib):
@@ -102,7 +109,7 @@ def nvcc(src, lib):
 
 
 def library_entry(lib, name, abi=None):
-    """An entry point of _build/baseline/`lib`: `npe_mdblock` (current ABI),
+    """An entry point of _build/baseline/`lib`: `npe_mdblock` (6dbdcdd's ABI),
     76a5cfd's `npe_mdblock_bf16` (the same ABI), 9a0f129's `npe_edit_tail`
     and `npe_rgb_beta_head`, or 1f72098's `npe_mdblock_bwd`,
     `npe_mdblock_bwd_bf16` and (`abi` "npe_mdblock_bf16_plan")
@@ -124,6 +131,15 @@ def library_entry(lib, name, abi=None):
     }[abi or name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def parent_splits(batch, tiles, units, sm_count, blocks_per_sm=2):
+    """The slice count of 6dbdcdd's float32 MDBLOCK (its `inner_splits`):
+    the largest divisor of `units` (taps x steps of 16 input channels) that
+    leaves all blocks (batch x 64 x 128 tiles x slices) in one wave of two a
+    multiprocessor. 1f72098's and 76a5cfd's kernels took the same rule."""
+    most = max(1, blocks_per_sm * sm_count // (batch * tiles))
+    return max(d for d in range(1, min(most, units) + 1) if units % d == 0)
 
 
 def trunk_splits(batch, tiles, units, sm_count, most=36):
@@ -203,7 +219,7 @@ def mdblock_bwd_side(side, measure, stream, sms, dev):
                         splits, rest = plan.splits, (plan.sub_tiles, int(plan.halo), plan.tile_channels, plan.splits)
                     else:
                         tiles = (h * w // mk.TILE_PIXELS) * -(-c // mk.TILE_CHANNELS)
-                        splits = mk.inner_splits(n, tiles, 9 * len(br) * c // mk.CHANNEL_STEP, sms)
+                        splits = parent_splits(n, tiles, 9 * len(br) * c // 16, sms)
                         h1_, gr, gm1 = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
                         rest = (splits,)
                     partial = torch.empty((n, splits, c, h, w), dtype=torch.float32, device=dev) if splits > 1 else None
@@ -257,6 +273,36 @@ def mdblock_bwd_side(side, measure, stream, sms, dev):
                             reps=reps)
 
 
+def mdblock_fwd_side(side, measure, stream, sms, dev):
+    """One side of `--mdblock-fwd`: its float32 forward at full IAN's shapes,
+    checked, then timed; the per-op block's forward beside it."""
+    old = None if side == "current" else library_entry("libmdblock.so", "npe_mdblock")
+    for c, size, scales in MDBLOCK_SHAPES:
+        br = mk.dilations(scales)
+        for batch in (1, 8, 128):
+            x, t1, t2, aff = mdblock_inputs(batch, c, size, scales, 200 + batch, dev)
+            if old is None:
+                fn = lambda: mk.mdblock_fused(x, t1, t2, aff, scales)  # noqa: E731, B023
+            else:
+                tiles = (size * size // 64) * -(-c // 128)
+                splits = parent_splits(batch, tiles, 9 * len(br) * c // 16, sms)
+                h1, out = torch.empty_like(x), torch.empty_like(x)
+                partial = x.new_empty((batch, splits, c, size, size)) if splits > 1 else None
+
+                def fn():
+                    rc = old(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),  # noqa: B023
+                             None if partial is None else partial.data_ptr(), out.data_ptr(), batch, c, size,  # noqa: B023
+                             size, len(br), (ctypes.c_int * len(br))(*br), splits, stream())  # noqa: B023
+                    assert rc == 0, rc
+                    return out  # noqa: B023
+
+            key = f"{size}x{size}x{c} batch {batch}"
+            reps = 5 if batch == 128 else 20
+            measure(f"mdblock forward {key}", fn,
+                    lambda: mk.mdblock_taps_reference(x, t1, t2, aff, scales), MDBLOCK_TOL, reps)  # noqa: B023
+            measure(f"per-op block forward {key}", lambda: perop_block(x, t1, t2, aff, scales), reps=reps)  # noqa: B023
+
+
 def run_side(side, what):
     """Checks and times one side's kernels; {case: {"ms", "err"}}."""
     # a launch outside the capturing stream leaves the timed graph empty
@@ -283,6 +329,9 @@ def run_side(side, what):
         mdblock_bwd_side(side, measure, stream, sms, dev)
         return results
     with torch.no_grad():
+        if what == "mdblock_fwd":
+            mdblock_fwd_side(side, measure, stream, sms, dev)
+            return results
         if what == "mdblock_bf16":
             md = None if side == "current" else library_entry("libmdblock.so", "npe_mdblock_bf16")
             bf = torch.bfloat16
@@ -301,7 +350,7 @@ def run_side(side, what):
                         br = mk.dilations(scales)
                         # 76a5cfd's rule for either dtype: 64 x 128 tiles, 16-channel steps
                         tiles = (size * size // mk.TILE_PIXELS) * -(-c // mk.TILE_CHANNELS)
-                        splits = mk.inner_splits(batch, tiles, n_taps * c // mk.CHANNEL_STEP, sms)
+                        splits = parent_splits(batch, tiles, n_taps * c // 16, sms)
                         h1, out = torch.empty_like(x), torch.empty_like(x)
                         partial = (torch.empty((batch, splits, c, size, size), dtype=torch.float32, device=dev)
                                    if splits > 1 else None)
@@ -317,41 +366,6 @@ def run_side(side, what):
                             lambda: mk.mdblock_taps_reference(x, t1, t2, aff, scales),  # noqa: B023
                             1.0, 5 if batch == 128 else 20, error=bf16_rule)
             return results
-        if what == "mdblock":
-            md = None if side == "current" else library_entry(WGMMA_LIB, "npe_mdblock")
-            for c, size, scales in MDBLOCK_SHAPES:
-                for batch in (1, 8, 128):
-                    rng = np.random.RandomState(c + batch)
-                    n_taps = 9 * len(mk.dilations(scales))
-                    x = torch.from_numpy(rng.randn(batch, c, size, size).astype(np.float32)).to(dev)
-                    t1, t2 = (torch.from_numpy((rng.randn(n_taps, c, c) / np.sqrt(2.2 * c)).astype(np.float32))
-                              .to(dev) for _ in range(2))
-                    aff = torch.from_numpy(np.stack([rng.uniform(0.8, 1.2, c), rng.uniform(-0.2, 0.2, c)] * 3)
-                                           .astype(np.float32)).to(dev)
-                    if md is None:
-                        fn = lambda: mk.mdblock_fused(x, t1, t2, aff, scales)  # noqa: E731, B023
-                    else:
-                        br = mk.dilations(scales)
-                        # 128-pixel tiles over the batch, one block a multiprocessor: the largest
-                        # divisor of the slices that keeps the blocks in one wave
-                        units = n_taps * c // mk.CHANNEL_STEP
-                        most = max(1, sms // (-(-batch * size * size // 128) * -(-c // 128)))
-                        splits = max(d for d in range(1, min(most, units) + 1) if units % d == 0)
-                        h1, out = torch.empty_like(x), torch.empty_like(x)
-                        partial = x.new_empty((batch, splits, c, size, size)) if splits > 1 else None
-
-                        def fn():
-                            rc = md(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),  # noqa: B023
-                                    None if partial is None else partial.data_ptr(), out.data_ptr(), batch, c,  # noqa: B023
-                                    size, size, len(br), (ctypes.c_int * len(br))(*br), splits, stream())  # noqa: B023
-                            assert rc == 0, rc
-                            return out  # noqa: B023
-
-                    measure(f"mdblock {size}x{size}x{c} batch {batch}", fn,
-                            lambda: mk.mdblock_taps_reference(x, t1, t2, aff, scales),  # noqa: B023
-                            MDBLOCK_TOL, 5 if batch == 128 else 20)
-            return results
-
         old_edit = old_head = None
         if side == "earlier":
             old_edit = library_entry("libedit_tail.so", "npe_edit_tail")
@@ -415,8 +429,9 @@ def run_side(side, what):
 
 def main():
     if not torch.cuda.is_available() or len(sys.argv) not in (2, 3, 4):
-        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory, --wgmma, --mdblock-bf16 "
-              "and 76a5cfd's directory, or --mdblock-bwd and 1f72098's", file=sys.stderr)
+        print("kernel_ab: needs an NVIDIA GPU, and the earlier checkout's directory, --mdblock-bf16 "
+              "and 76a5cfd's directory, --mdblock-bwd and 1f72098's, or --mdblock-fwd and 6dbdcdd's",
+              file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # the plain versions in float32
@@ -427,13 +442,14 @@ def main():
                          check=True, capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
     # {the current kernel's name: (the other side's source, its library)}
-    if sys.argv[1] == "--wgmma":
-        other, what, sources = "wgmma", "mdblock", {"mdblock": (WGMMA_SOURCE, WGMMA_LIB)}
-    elif sys.argv[1] == "--mdblock-bwd":
+    if sys.argv[1] == "--mdblock-bwd":
         other, what = "parent", "mdblock_bwd"
         csrc = os.path.join(sys.argv[2], "npe_tpu_torch", "csrc")
         sources = {"mdblock": (os.path.join(csrc, "mdblock.cu"), "libmdblock.so"),
                    "mdblock_bf16": (os.path.join(csrc, "mdblock_bf16.cu"), "libmdblock_bf16.so")}
+    elif sys.argv[1] == "--mdblock-fwd":
+        other, what = "parent", "mdblock_fwd"
+        sources = {"mdblock": (os.path.join(sys.argv[2], "npe_tpu_torch", "csrc", "mdblock.cu"), "libmdblock.so")}
     elif sys.argv[1] == "--mdblock-bf16":
         other, what = "earlier", "mdblock_bf16"
         sources = {"mdblock_bf16": (os.path.join(sys.argv[2], "npe_tpu_torch", "csrc", "mdblock.cu"), "libmdblock.so")}
@@ -476,7 +492,8 @@ def main():
               f"({rec['speedup']:.2f}x){checked} ({smi})", flush=True)
         results.append(rec)
     os.makedirs("runs", exist_ok=True)
-    suffix = {"mdblock": "_wgmma", "mdblock_bf16": "_mdblock_bf16", "mdblock_bwd": "_mdblock_bwd"}.get(what, "")
+    suffix = {"mdblock_bf16": "_mdblock_bf16", "mdblock_bwd": "_mdblock_bwd",
+              "mdblock_fwd": "_mdblock_fwd"}.get(what, "")
     with open(f"runs/kernel_ab{suffix}.json", "w") as fh:
         json.dump({"device": smi, "turns": turns, "cases": results}, fh, indent=1)
     return 0

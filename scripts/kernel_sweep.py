@@ -1,15 +1,16 @@
 """Sweep of a hand kernel over the one launch parameter its wrapper picks,
 on one NVIDIA GPU (Hopper), from the root of the repository:
 
-    python3 scripts/kernel_sweep.py mdblock slices        # `mdblock.inner_splits`
+    python3 scripts/kernel_sweep.py mdblock plan          # `mdblock.fwd_plan`
     python3 scripts/kernel_sweep.py rgb_beta_tail rows    # `rgb_beta_tail.tail_rows`
     python3 scripts/kernel_sweep.py rgb_beta_head slices  # `rgb_beta_head.head_slices`
     python3 scripts/kernel_sweep.py mdblock_bwd plan      # `mdblock.bwd_plan`
 
-- mdblock: the slices the inner dimension is cut into, at full IAN's three
-  block shapes, batch 1, 8 and 128, every count that gives between 100
-  blocks and twelve a multiprocessor; two narrow shapes at the wrapper's
-  count only;
+- mdblock: the float32 forward's plan at full IAN's three block shapes and
+  two narrow ones: at batch 1, 2 and 8 every cut of the units into slices
+  and clusters whose blocks fit the SMs once; at batch 128 every number of
+  stages that fits, with halo tiles (one patch a block or two) and with a
+  window a unit;
 - rgb_beta_tail: the cell rows a block computes, 1 to 16 (16: a block holds
   the whole image), at a 16x16 cell map, batch 1 to 128;
 - rgb_beta_head: the trunk's channel slices (its launch, and the pass that
@@ -50,7 +51,7 @@ from npe_tpu_torch.ops.kernels import rgb_beta_head as rh  # noqa: E402
 from npe_tpu_torch.ops.kernels import rgb_beta_tail as rt  # noqa: E402
 from npe_tpu_torch.utils.timing import graph_ms  # noqa: E402
 
-PARAMETER = {"mdblock": "slices", "rgb_beta_tail": "rows", "rgb_beta_head": "slices", "mdblock_bwd": "plan"}
+PARAMETER = {"mdblock": "plan", "rgb_beta_tail": "rows", "rgb_beta_head": "slices", "mdblock_bwd": "plan"}
 MDBLOCK_SHAPES = ((512, 8, (0, 2)), (256, 16, (0, 2, 3)), (128, 32, (0, 2, 3)), (16, 8, (0, 2)), (32, 16, (0, 2, 3)))
 HEAD_SCALES = (2, 3, 4)
 
@@ -61,32 +62,26 @@ def tensor(rng, shape, scale, dev):
 
 def mdblock_cases(dev, sms):
     for c, size, scales in MDBLOCK_SHAPES:
-        for batch in (1, 8, 128):
+        radius = max(mk.dilations(scales))
+        for batch in (1, 2, 8, 128):
             if batch == 128 and c < 128:
                 continue
-            rng = np.random.RandomState(c + batch)
-            br = mk.dilations(scales)
-            n_taps = 9 * len(br)
-            x = tensor(rng, (batch, c, size, size), 1.0, dev)
-            t1, t2 = (tensor(rng, (n_taps, c, c), 1 / np.sqrt(2.2 * c), dev) for _ in range(2))
-            aff = torch.from_numpy(np.stack([rng.uniform(0.8, 1.2, c), rng.uniform(-0.2, 0.2, c)] * 3)
-                                   .astype(np.float32)).to(dev)
-            units = n_taps * c // mk.CHANNEL_STEP
-            tiles = (size * size // mk.TILE_PIXELS) * -(-c // mk.TILE_CHANNELS)
-            pick = mk.inner_splits(batch, tiles, units, sms)
-            values = [pick]
-            if c >= 128:
-                values = [d for d in range(1, 145) if units % d == 0
-                          and (100 <= d * tiles * batch <= 12 * sms or d == pick)]
+            x, t1, t2, aff = mdblock_inputs(batch, c, size, scales, 60 + batch, dev)
+            pick = mk.fwd_plan(batch, c, size, size, scales, sms)
+            if batch < 128:
+                units = -(-c * 4 // mk.BWD_CHUNK_BYTES) * 9 * len(mk.dilations(scales))
+                tiles = batch * (size // 8) ** 2 * -(-c // mk.TILE_CHANNELS)
+                values = [pick._replace(splits=s, cluster=n) for s in range(1, 34) for n in range(1, 9)
+                          if s % n == 0 and units // s >= mk.BWD_MIN_UNITS and tiles * s <= sms]
+            else:
+                values = [mk.FwdPlan(halo, sub, st, 1, 1, mk.fwd_smem_bytes(halo, st, radius, sub))
+                          for halo in (True, False) for sub in ((1, 2) if halo else (1,)) for st in range(3, 8)
+                          if mk.fwd_smem_bytes(halo, st, radius, sub) <= mk.SMEM_PER_BLOCK]
+            values = list(dict.fromkeys(values + [pick]))
 
-            def run(splits, x=x, t1=t1, t2=t2, aff=aff, br=br):
-                """The kernel's float32 C entry point with a slice count of the caller's choice."""
-                h1, out = torch.empty_like(x), torch.empty_like(x)
-                partial = x.new_empty((x.shape[0], splits) + x.shape[1:]) if splits > 1 else None
-                rc = mk._entry(False)(x.data_ptr(), t1.data_ptr(), t2.data_ptr(), aff.data_ptr(), h1.data_ptr(),
-                                 None if partial is None else partial.data_ptr(), out.data_ptr(), *x.shape,
-                                 len(br), (ctypes.c_int * len(br))(*br), splits,
-                                 torch.cuda.current_stream().cuda_stream)
+            def run(plan, args=(x, t1, t2, aff, scales)):
+                """The float32 forward on a plan of the caller's choice."""
+                out, _, rc = mk._launch_float32(*args, keep_h1=False, plan=plan)
                 assert rc == 0, rc
                 return out
 
@@ -94,7 +89,8 @@ def mdblock_cases(dev, sms):
             others = {"wrapper": lambda x=x, t1=t1, t2=t2, aff=aff, s=scales: mk.mdblock_fused(x, t1, t2, aff, s)}
             if batch <= 8:
                 others["plain"] = plain
-            yield f"C {c} {size}x{size} batch {batch}", run, plain(), MDBLOCK_TOL, values, pick, others, 10, 5
+            yield (f"C {c} {size}x{size} batch {batch}", run, plain(), MDBLOCK_TOL, values, pick, others,
+                   5 if batch == 128 else 20, 4 if batch == 128 else 10)
 
 
 def rgb_beta_tail_cases(dev, sms, h=16, w=16):
@@ -183,7 +179,9 @@ def mdblock_bwd_cases(dev, sms):
 
 
 def plan_name(v):
-    """A value of the sweep as printed: a backward plan's fields, or itself."""
+    """A value of the sweep as printed: a plan's fields, or itself."""
+    if isinstance(v, mk.FwdPlan):
+        return f"({'halo' if v.halo else 'windows'}, sub {v.sub_tiles}, {v.stages} st, {v.splits}/{v.cluster})"
     if isinstance(v, mk.BwdPlan):
         return (f"(sub {v.sub_tiles}, {v.tile_channels} ch, {v.stages} st, {v.halo_buffers} halo, "
                 f"{v.splits}/{v.cluster})")
@@ -221,7 +219,7 @@ def main():
                 worst = max(worst, err)
                 times[v] = graph_ms(lambda: run(v), iters=iters, reps=reps)  # noqa: B023
             best = min(times, key=times.get)
-            ranked = sorted(times, key=times.get) if kernel == "mdblock_bwd" else times
+            ranked = sorted(times, key=times.get) if kernel in ("mdblock", "mdblock_bwd") else times
             line = (f"[sweep] {kernel} {label}: "
                     + ", ".join(f"{plan_name(v)} {parameter} {times[v]:.5f} ms" for v in ranked)
                     + f"; best {plan_name(best)}, the wrapper picks {plan_name(pick)} "

@@ -229,13 +229,14 @@ def _mdblock_inputs(batch, c, size, scales, device, seed=7):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,channels,size,scales", [
-    # full IAN's three blocks at batch 1 (8x8x512 takes the most slices, 64), 8 and 128 (one slice)
+    # full IAN's three blocks at batch 1 (slices summed in clusters), 8 and 128 (two patches a block)
     (1, 512, 8, (0, 2)), (1, 256, 16, (0, 2, 3)), (1, 128, 32, (0, 2, 3)),
     (8, 512, 8, (0, 2)), (8, 256, 16, (0, 2, 3)), (8, 128, 32, (0, 2, 3)),
     (128, 512, 8, (0, 2)), (128, 256, 16, (0, 2, 3)), (128, 128, 32, (0, 2, 3)),
     (2, 16, 8, (0, 2)), (3, 32, 16, (0, 2, 3)),  # the tiny profile's widths
     (3, 80, 16, (2, 3, 4)),  # a channel tile that is only part full; no scale 0
     (600, 64, 8, (0,)),  # more blocks than one wave: one slice, the epilogue in the product kernel
+    (265, 48, 8, (0, 2)),  # two patches a block, the last block's second patch past the batch
 ])
 def test_mdblock_kernel_matches_plain(cuda, batch, channels, size, scales):
     x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda)
@@ -252,6 +253,55 @@ def test_mdblock_kernel_matches_plain(cuda, batch, channels, size, scales):
     from chip_smoke import check_mdblock_backward
 
     check_mdblock_backward(f"batch {batch} C {channels} {size}x{size}", x, t1, t2, aff, scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,channels,size,scales", [
+    (1, 64, 16, (0, 10)), (8, 32, 16, (0, 2, 5)),  # dilations whose halo tiles do not fit: a window a unit
+])
+def test_the_float32_forward_takes_a_dilation_past_its_halo(cuda, batch, channels, size, scales):
+    """Where two halo buffers and three tap stages do not fit a block,
+    `fwd_plan` brings each unit's own shifted window; the forward still
+    matches its plain version, and keeps h1 for a backward where x needs one."""
+    x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda)
+    assert not mk.fwd_plan(batch, channels, size, size, scales, 132).halo
+    want, h1_want = mk.mdblock_forward_parts(x, t1, t2, aff, scales)
+    out, h1, rc = mk._launch_float32(x, t1, t2, aff, scales)
+    torch.cuda.synchronize()
+    assert rc == 0 and float(want.std()) > 0.5
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float((h1 - h1_want).abs().max()) <= 1e-5 * float(h1_want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,channels,size,scales", [
+    (1, 512, 8, (0, 2)), (1, 256, 16, (0, 2, 3)), (128, 128, 32, (0, 2, 3)), (1, 64, 16, (0, 10)),
+])
+def test_the_float32_forwards_kernels_are_the_benchmarks_mdblock_fwd_group(cuda, batch, channels, size, scales):
+    """One forward call under torch.profiler: every device kernel it runs
+    (its prologue, two MDCLs and, where a tile's slices outnumber a cluster,
+    their clusters' sums) is one that the benchmark's roofline counts as the
+    MDBLOCK forward (`benchmark/yardstick/bounds.kernel_group`), and they are
+    `fwd_launches(plan)` in all."""
+    from torch.autograd import DeviceType
+
+    from benchmark.yardstick.bounds import kernel_group
+
+    x, t1, t2, aff = _mdblock_inputs(batch, channels, size, scales, cuda)
+    mk.mdblock_fused(x, t1, t2, aff, scales)  # built and warm
+    lead = torch.zeros(16, device=cuda)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for i in range(16):  # the first records of a window can go missing: these count for nothing
+            lead[i:i + 1].add_(1)
+        torch.cuda.synchronize()
+        mk.mdblock_fused(x, t1, t2, aff, scales)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "elementwise_kernel" not in e.key}
+    plan = mk.fwd_plan(batch, channels, size, size, scales, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert kernels and all(kernel_group(name) == "mdblock_fwd" for name in kernels), kernels
+    assert sum(kernels.values()) == mk.fwd_launches(plan), (kernels, plan)
 
 
 @pytest.mark.cuda

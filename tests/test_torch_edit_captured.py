@@ -368,9 +368,10 @@ def test_the_editor_captures_thread_local_and_the_trainer_in_the_default_mode(mo
 def test_chip_smoke_reads_each_wrappers_launches_from_the_device_kernels_names():
     """chip_smoke.py holds the wrappers' counts of an edit script to the
     device kernels torch.profiler records: each kernel name goes to its
-    counter and form, the float32 MDBLOCK's two MDCL kernels make one launch,
-    and the head's own tail, the slice sums and library kernels count for
-    nothing."""
+    counter and form, the float32 MDBLOCK's three kernels (its prologue and
+    two MDCLs, one template) make one launch, the bf16 form's MDCL kernel of
+    the same name counts for nothing, nor do the head's own tail, the slice
+    sums and library kernels."""
     from chip_smoke import witnessed
 
     kernels = {"void (anonymous namespace)::edit_tail_kernel(float const*, float const*, int)": 17,
@@ -379,10 +380,12 @@ def test_chip_smoke_reads_each_wrappers_launches_from_the_device_kernels_names()
                "void npe::rgb_beta_tail_kernel<float, float, true>(float const*, float const*, float*, int)": 9,
                "void (anonymous namespace)::head_trunk_kernel<float>(float const*, float const*, float*, int)": 9,
                "void (anonymous namespace)::head_trunk_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)": 3,
-               "void (anonymous namespace)::mdcl_kernel(float const*, float const*, float const*, int)": 210,
+               **{f"void (anonymous namespace)::mdcl_kernel<{p}>(float const*, float const*, float const*, "
+                  "(anonymous namespace)::Fwd, CUtensorMap_st, CUtensorMap_st)": 105 for p in range(3)},
                "void (anonymous namespace)::mdcl_kernel<2, true, 256>((anonymous namespace)::Mdcl, CUtensorMap)": 6,
                "void (anonymous namespace)::prologue_kernel(__nv_bfloat16 const*, float const*, int)": 3,
-               "void (anonymous namespace)::add_slices_kernel(float const*, float const*, float*, int)": 50,
+               "void (anonymous namespace)::add_slices_kernel<1>(float const*, float const*, float const*, float*, "
+               "(anonymous namespace)::Fwd)": 50,
                "void (anonymous namespace)::stage_kernel<long long>(unsigned int const*, long long const*, int)": 2,
                "void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(int, int, int)": 70}
     assert witnessed(kernels) == {"edit_tail": 17, "rgb_beta_tail": 35, "rgb_beta_tail_bf16": 4, "rgb_beta_head": 9,

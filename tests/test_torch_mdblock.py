@@ -258,19 +258,135 @@ def test_wrapper_raises_on_what_the_kernel_cannot_take(fault, error, match):
         tk.mdblock_fused(x, t1, t2, aff, scales)
 
 
-@pytest.mark.parametrize("batch,channels,size,scales,want", [
-    (1, 512, 8, (0, 2), 64), (1, 256, 16, (0, 2, 3), 27), (1, 128, 32, (0, 2, 3), 12),  # one image
-    (8, 512, 8, (0, 2), 8), (128, 512, 8, (0, 2), 1), (128, 128, 32, (0, 2, 3), 1),
+FULL_IAN = [(512, 8, (0, 2)), (256, 16, (0, 2, 3)), (128, 32, (0, 2, 3))]  # chip_smoke.py's MDBLOCK_SHAPES
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("batch,channels,shape,scales", [
+    *((batch, c, (size, size), scales) for c, size, scales in FULL_IAN for batch in (1, 8, 16, 128)),
+    (2, 16, (8, 8), (0, 2)), (3, 32, (16, 16), (0, 2, 3)),  # the tiny profile's widths
+    (3, 80, (16, 16), (2, 3, 4)),  # a part-full channel tile, halo tiles of radius 4
+    (2, 32, (4, 16), (0, 2)),  # a 4x16 map: its 8x8 patches half outside
+    (2, 64, (16, 16), (0, 10)),  # a dilation whose halo does not fit: a window a unit
 ])
-def test_inner_splits_fill_one_wave_of_the_card(batch, channels, size, scales, want):
-    """The most slices (a divisor of the inner dimension's 16-channel steps)
-    that still let every block of the call run at once, BLOCKS_PER_SM to a
-    multiprocessor of 132; one slice once the batch fills the card."""
-    units = 9 * len(tk.dilations(scales)) * channels // tk.CHANNEL_STEP
-    tiles = (size * size // tk.TILE_PIXELS) * -(-channels // tk.TILE_CHANNELS)
-    got = tk.inner_splits(batch, tiles, units, 132)
-    assert got == want and units % got == 0
-    assert got == 1 or batch * tiles * got <= tk.BLOCKS_PER_SM * 132
+def test_the_forward_plan_at_full_ians_shapes(batch, channels, shape, scales):
+    """`fwd_plan` on the H100: halo tiles and four tap stages at full IAN's
+    shapes, a window a unit only where the halo tiles and three stages do
+    not fit; two patches a block (one halo buffer each, one slice) once the
+    tiles give each SM two, so at batch 128; its shared memory fits a block
+    and is what the kernel asks for; with one patch a block the slices
+    partition the units with at least BWD_MIN_UNITS each, a cluster holds at
+    most 8 blocks and divides the slices, the blocks run in one wave (one an
+    SM, no more clusters than the card holds) and at one image fill most of
+    the SMs, at most three groups of slices taking the second sum launch,
+    and the cut is the backward's; the launches by `fwd_launches`."""
+    h, w = shape
+    plan = tk.fwd_plan(batch, channels, h, w, scales, H100_SMS)
+    radius = max(tk.dilations(scales))
+    sub = plan.sub_tiles
+    assert plan.smem == tk.fwd_smem_bytes(plan.halo, plan.stages, radius, sub) <= tk.SMEM_PER_BLOCK
+    assert plan.halo == (tk.fwd_smem_bytes(True, 3, radius, sub) <= tk.SMEM_PER_BLOCK)
+    assert plan.stages == 4 or tk.fwd_smem_bytes(plan.halo, plan.stages + 1, radius, sub) > tk.SMEM_PER_BLOCK
+    if (channels, h, scales) in FULL_IAN:
+        assert plan.halo and plan.stages == 4
+    tiles = batch * -(-h // 8) * -(-w // 8) * -(-channels // 128)
+    assert sub == (2 if tiles >= 2 * H100_SMS and tk.fwd_smem_bytes(True, 3, radius, 2) <= tk.SMEM_PER_BLOCK else 1)
+    assert sub == 1 or (plan.halo and plan.splits == plan.cluster == 1)
+    if batch == 128:
+        assert sub == 2
+    units = -(-channels // 32) * 9 * len(tk.dilations(scales))
+    bounds = [s * units // plan.splits for s in range(plan.splits + 1)]
+    assert min(b - a for a, b in zip(bounds, bounds[1:])) >= min(tk.BWD_MIN_UNITS, units)
+    assert 1 <= plan.cluster <= tk.MAX_CLUSTER == 8 and plan.splits % plan.cluster == 0
+    if plan.splits > 1:
+        assert tiles * plan.splits <= H100_SMS
+        assert tiles * plan.splits // plan.cluster <= tk.CLUSTER_SLOTS[plan.cluster]
+    if batch == 1 and (channels, h, scales) in FULL_IAN:
+        assert tiles * plan.splits > H100_SMS // 2 and plan.splits // plan.cluster <= 3
+    assert tk.fwd_launches(plan) == (3 if plan.splits == plan.cluster else 5)
+    if plan.halo and sub == 1:
+        back = tk.bwd_plan(batch, channels, h, w, scales, torch.float32, H100_SMS)
+        assert (plan.stages, plan.splits, plan.cluster, plan.smem) == (back.stages, back.splits, back.cluster,
+                                                                       back.smem)
+
+
+def _emulated_float32_forward(x, taps1, taps2, aff, scales, plan, products=3):
+    """The float32 forward kernel's arithmetic in float32 on the CPU: each
+    MDCL's input (lrelu(s0 x + t0), then h1) as a TF32 (hi, lo) pair
+    (`tf32_split`), each unit (a chunk of 32 input channels by one tap) a
+    stage of lo*hi + hi*lo + hi*hi of the pair's shifted window and the split
+    tap (or hi*hi alone, `products=1`), summed from zero and added to float32
+    running sums; with one patch a block each slice of the plan's units two
+    sums, of its even and of its odd units (the block's two consumer
+    warpgroups), added in that order, the slices added in cluster order,
+    then the clusters in order; with two patches a block one sum over every
+    unit in order; the epilogues' affines, lrelus and the residual in
+    float32. (A product of two TF32
+    values is exact in float32; the tensor cores' truncation is what the
+    per-stage sums keep from growing.)"""
+    n, c, hh, ww = x.shape
+    offs = tk.tap_offsets(scales)
+    r = max(tk.dilations(scales))
+    units = [(ch, t) for ch in range(-(-c // 32)) for t in range(len(offs))]
+    s0, t0, s1, t1, s2, t2 = (a[None, :, None, None] for a in aff)
+
+    def sum_in_order(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    def mdcl(v, taps):
+        hi, lo = (F.pad(a, (r, r, r, r)) for a in tk.tf32_split(v))
+
+        def window(a, t, cs):  # (n, pixels, k)
+            dy, dx = offs[t]
+            return a[:, cs, r + dy:r + dy + hh, r + dx:r + dx + ww].flatten(2).transpose(1, 2)
+
+        slices = []
+        for s in range(plan.splits):
+            acc = [torch.zeros(n, hh * ww, c) for _ in range(2)]
+            for k, (ch, t) in enumerate(units[s * len(units) // plan.splits:(s + 1) * len(units) // plan.splits]):
+                cs = slice(ch * 32, (ch + 1) * 32)
+                b_hi, b_lo = tk.tf32_split(taps[t][cs])  # (ci, co)
+                a_hi, a_lo = window(hi, t, cs), window(lo, t, cs)
+                w = k % 2 if plan.sub_tiles == 1 else 0
+                acc[w] = acc[w] + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi if products == 3 else a_hi @ b_hi)
+            slices.append(acc[0] + acc[1])
+        clusters = [sum_in_order(slices[i:i + plan.cluster]) for i in range(0, plan.splits, plan.cluster)]
+        return sum_in_order(clusters).transpose(1, 2).reshape(n, c, hh, ww)
+
+    lrelu = lambda v: F.leaky_relu(v, 0.2)  # noqa: E731
+    h1 = lrelu(mdcl(lrelu(x * s0 + t0), taps1) * s1 + t1)
+    return lrelu((x + mdcl(h1, taps2)) * s2 + t2)
+
+
+@pytest.mark.parametrize("sub_tiles", [1, 2])
+@pytest.mark.parametrize("channels,size,scales", FULL_IAN)
+def test_the_float32_forward_arithmetic_keeps_float32_accuracy_and_one_product_does_not(channels, size, scales,
+                                                                                        sub_tiles):
+    """Why the float32 forward takes three TF32 products per multiply-add of
+    its pixel-major (hi, lo) pairs: full IAN's blocks on chip_smoke.py's
+    inputs at one image, on the plan's slices and clusters there (one patch
+    a block) and on its plan at batch 128 (two patches a block, one slice);
+    the emulated kernel (`_emulated_float32_forward`) against the float64
+    plain version stays within a quarter of the card's rule (1e-5 of the
+    largest value, tests/test_torch_cuda.py) and of MDBLOCK_TOL; hi*hi alone
+    misses both."""
+    from chip_smoke import MDBLOCK_TOL, mdblock_inputs
+
+    x, t1, t2, aff = mdblock_inputs(1, channels, size, scales, 43, "cpu")
+    want = tk.mdblock_taps_reference(*(a.double() for a in (x, t1, t2, aff)), scales)
+    plan = tk.fwd_plan(1 if sub_tiles == 1 else 128, channels, size, size, scales, H100_SMS)
+    assert plan.halo and plan.sub_tiles == sub_tiles
+    assert (plan.splits > 1 and plan.cluster > 1) if sub_tiles == 1 else plan.splits == 1
+    tol = min(1e-5 * float(want.abs().max()), MDBLOCK_TOL)
+    three = _emulated_float32_forward(x, t1, t2, aff, scales, plan)
+    one = _emulated_float32_forward(x, t1, t2, aff, scales, plan, products=1)
+    err3, err1 = (float((a.double() - want).abs().max()) for a in (three, one))
+    assert float(want.std()) > 0.5
+    assert err3 <= tol / 4, (err3, tol)
+    assert err1 > tol, (err1, tol)
 
 
 def test_tf32_split_rounds_as_cvt_rna_does():

@@ -377,12 +377,14 @@ def test_the_float32_backward_arithmetic_keeps_float32_accuracy_and_one_product_
 # --- the wrapper's autograd wiring, the plain versions standing in for the launches
 
 
-def _fake_forward(x, taps1, taps2, affines, scales):
+def _fake_forward(x, taps1, taps2, affines, scales, keep_h1=True):
     """What `_launch_float32` / `_launch_bf16` return, from the plain
     version: the output, h1 in the form's scratch layout (bf16:
-    pixel-major), return code 0."""
+    pixel-major; float32 NCHW, or None without `keep_h1`), return code 0."""
     y, h1 = tk.mdblock_forward_parts(x, taps1, taps2, affines, scales)
-    return y, (h1.permute(0, 2, 3, 1).contiguous() if x.dtype == BF16 else h1), 0
+    if x.dtype == BF16:
+        return y, h1.permute(0, 2, 3, 1).contiguous(), 0
+    return y, h1 if keep_h1 else None, 0
 
 
 def _fake_backward(g, x, y, h1, taps1, taps2, affines, scales):
@@ -402,13 +404,14 @@ def test_the_forward_keeps_h1_and_y_only_when_x_will_need_a_gradient(plain_launc
     """With grad on and x requiring it the forward keeps h1 and y; under
     no_grad and inference_mode no node is made, and the h1 the forward made is
     gone once the call returns; with only the taps requiring a gradient,
-    neither is kept."""
+    neither is kept, and the float32 launch is told not to write h1."""
     x, t1, t2, aff, _ = _inputs(16, (0, 2), 8, seed=11, dtype=torch.float32)
-    made = []
+    made, asked = [], []
 
     def forward(*args):
         y, h1, rc = _fake_forward(*args)
-        made.append(weakref.ref(h1))
+        asked.append(args[5])
+        made.append(weakref.ref(h1) if h1 is not None else None)
         return y, h1, rc
 
     monkeypatch.setattr(tk, "_launch_float32", forward)
@@ -426,6 +429,7 @@ def test_the_forward_keeps_h1_and_y_only_when_x_will_need_a_gradient(plain_launc
     t1g = t1.clone().requires_grad_(True)
     out = tk._MDBlock.apply(x, t1g, t2, aff, (0, 2))
     assert len(out.grad_fn.saved_tensors) == 4  # the taps' gradient alone: no h1, no y
+    assert asked == [True, True, True, False] and made[-1] is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
